@@ -1,0 +1,98 @@
+"""CLIP ViT vision tower + visual projection (counterpart of
+``macaw_llm_tpu/models/clip.py``).
+
+HF ``CLIPVisionTransformer`` semantics: patch embedding (no bias) + class
+token + learned positions, pre-layernorm, residual blocks
+(LN -> MHA -> res, LN -> MLP(quick_gelu) -> res); the patch tokens are
+projected without the post-layernorm and the CLS token is dropped (the
+reference's ``encode_image``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from macaw_llm_tpu_torch.config import ClipVisionConfig
+from macaw_llm_tpu_torch.models import _tree
+from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
+from macaw_llm_tpu_torch.ops.activations import quick_gelu
+from macaw_llm_tpu_torch.ops.attention import mha_apply
+from macaw_llm_tpu_torch.ops.linear import dense
+from macaw_llm_tpu_torch.ops.norms import layer_norm
+
+
+def init_params(gen: torch.Generator, cfg: ClipVisionConfig,
+                dtype=torch.float32) -> dict:
+    """Random init (normal(initializer_range)), stacked [L, ...] layers,
+    [in, out] weights."""
+    h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    std = cfg.initializer_range
+
+    def rnd(*shape):
+        return normal(gen, shape, std, dtype)
+
+    def zeros(*shape):
+        return _tree.zeros(gen, shape, dtype)
+
+    def ones(*shape):
+        return _tree.ones(gen, shape, dtype)
+
+    attn = {name: {"w": rnd(L, h, h), "b": zeros(L, h)}
+            for name in ("q", "k", "v", "o")}
+    return {
+        "class_embedding": rnd(h),
+        "patch_embedding": rnd(cfg.patch_size, cfg.patch_size, 3, h),
+        "position_embedding": rnd(cfg.seq_len, h),
+        "pre_layernorm": {"w": ones(h), "b": zeros(h)},
+        "layers": {
+            "ln1": {"w": ones(L, h), "b": zeros(L, h)},
+            "ln2": {"w": ones(L, h), "b": zeros(L, h)},
+            "attn": attn,
+            "mlp": {"fc1": {"w": rnd(L, h, i), "b": zeros(L, i)},
+                    "fc2": {"w": rnd(L, i, h), "b": zeros(L, h)}},
+        },
+        "post_layernorm": {"w": ones(h), "b": zeros(h)},
+        "visual_projection": rnd(h, cfg.projection_dim),
+    }
+
+
+def _embeddings(params: dict, cfg: ClipVisionConfig,
+                pixels: torch.Tensor) -> torch.Tensor:
+    """pixels [B, 3, H, W] -> [B, 1 + P, hidden]. The stride == kernel
+    patch conv is a space-to-depth reshape and one [B*P, k*k*3] x
+    [k*k*3, hidden] matmul, in the conv kernel's (h, w, in) order."""
+    compute = pixels.dtype
+    b = pixels.shape[0]
+    k = cfg.patch_size
+    gh, gw = pixels.shape[2] // k, pixels.shape[3] // k
+    x = pixels.reshape(b, 3, gh, k, gw, k).permute(0, 2, 4, 3, 5, 1) \
+        .reshape(b * gh * gw, k * k * 3)
+    w = params["patch_embedding"].to(compute).reshape(-1, cfg.hidden_size)
+    patches = (x @ w).reshape(b, gh * gw, cfg.hidden_size)
+    cls = params["class_embedding"].to(compute).expand(b, 1, cfg.hidden_size)
+    x = torch.cat([cls, patches], dim=1)
+    return x + params["position_embedding"].to(compute)[None]
+
+
+def _encoder_layer(cfg: ClipVisionConfig, lp: dict, h: torch.Tensor,
+                   use_flash: bool = False) -> torch.Tensor:
+    ln1 = layer_norm(h, lp["ln1"]["w"], lp["ln1"]["b"], cfg.layer_norm_eps)
+    h = h + mha_apply(lp["attn"], cfg.num_heads, ln1, use_flash=use_flash)
+    ln2 = layer_norm(h, lp["ln2"]["w"], lp["ln2"]["b"], cfg.layer_norm_eps)
+    m = quick_gelu(dense(ln2, lp["mlp"]["fc1"]["w"], lp["mlp"]["fc1"]["b"]))
+    m = dense(m, lp["mlp"]["fc2"]["w"], lp["mlp"]["fc2"]["b"])
+    return h + m
+
+
+def encode_patches(params: dict, cfg: ClipVisionConfig,
+                   pixels: torch.Tensor,
+                   use_flash: bool = False) -> torch.Tensor:
+    """pixels [B, 3, H, W] -> projected patch tokens [B, P,
+    projection_dim] (CLS dropped)."""
+    h = _embeddings(params, cfg, pixels)
+    h = layer_norm(h, params["pre_layernorm"]["w"],
+                   params["pre_layernorm"]["b"], cfg.layer_norm_eps)
+    layers = params["layers"]
+    for i in range(num_layers(layers)):
+        h = _encoder_layer(cfg, layer(layers, i), h, use_flash=use_flash)
+    return dense(h, params["visual_projection"])[:, 1:, :]

@@ -1,0 +1,241 @@
+"""LLaMA decoder (counterpart of ``macaw_llm_tpu/models/llama.py``).
+
+Parameters keep the reference package's layout: layers stacked on a
+leading [L] axis (the JAX ``lax.scan`` becomes a Python loop over L),
+[in, out] weights, optional int8 records and the packed decode layout
+(``utils.quantize``). Two paths through ``forward_hidden``:
+
+* no cache (prefill): with ``use_flash`` the attention goes to the
+  ``mh_attention`` kernel when the whole sequence fits its shared memory,
+  else to the causal ``flash_attention`` kernel;
+* cache: a preallocated bf16 ``KVCache`` written in place at
+  ``length``, attention through ``dot_product_attention`` over the whole
+  buffer with a causal + padding mask.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from macaw_llm_tpu_torch.config import LlamaConfig
+from macaw_llm_tpu_torch.models import _tree
+from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
+from macaw_llm_tpu_torch.ops.activations import silu
+from macaw_llm_tpu_torch.ops.attention import dot_product_attention
+from macaw_llm_tpu_torch.ops.kernels.flash_attention import flash_attention
+from macaw_llm_tpu_torch.ops.kernels.mh_attention import (fits_mh_attention,
+                                                          mh_attention)
+from macaw_llm_tpu_torch.ops.masks import (NEG_INF, causal_mask,
+                                           combine_masks, padding_mask)
+from macaw_llm_tpu_torch.ops.norms import rms_norm
+from macaw_llm_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from macaw_llm_tpu_torch.utils import quantize as qz
+
+
+@dataclass
+class KVCache:
+    """Preallocated per-layer cache, k/v [L, B, S_max, N_kv, D]; ``length``
+    positions are valid. ``forward_hidden`` writes into k/v in place and
+    advances ``length``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int = 0
+
+    @classmethod
+    def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cpu") -> "KVCache":
+        shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_params(gen: torch.Generator, cfg: LlamaConfig,
+                dtype=torch.float32) -> dict:
+    """Random init (normal(initializer_range))."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.padded_vocab
+    nkv = cfg.kv_heads * cfg.head_dim
+    L = cfg.num_layers
+
+    def rnd(*shape):
+        return normal(gen, shape, cfg.initializer_range, dtype)
+
+    def ones(*shape):
+        return _tree.ones(gen, shape, dtype)
+
+    return {
+        "embed_tokens": rnd(v, h),
+        "layers": {
+            "attn": {"wq": rnd(L, h, h), "wk": rnd(L, h, nkv),
+                     "wv": rnd(L, h, nkv), "wo": rnd(L, h, h)},
+            "mlp": {"gate": rnd(L, h, i), "up": rnd(L, h, i),
+                    "down": rnd(L, i, h)},
+            "input_norm": ones(L, h),
+            "post_norm": ones(L, h),
+        },
+        "norm": ones(h),
+        "lm_head": rnd(h, v),
+    }
+
+
+def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
+               mask: Optional[torch.Tensor], cos, sin,
+               cache: Optional[KVCache], li: int,
+               flash_bias: Optional[torch.Tensor], use_flash: bool,
+               activation_quant: bool) -> torch.Tensor:
+    b, s, _ = h.shape
+    n, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    compute = h.dtype
+    mm = lambda x, w: qz.matmul(x, w, compute,  # noqa: E731
+                                activation_quant=activation_quant)
+    if "qkv" in p:  # packed decode layout
+        fused = mm(h, p["qkv"])
+        q2 = fused[..., :n * d]
+        k2 = fused[..., n * d:(n + nkv) * d]
+        v2 = fused[..., (n + nkv) * d:]
+    else:
+        q2, k2, v2 = mm(h, p["wq"]), mm(h, p["wk"]), mm(h, p["wv"])
+    q = q2.reshape(b, s, n, d)
+    k = k2.reshape(b, s, nkv, d)
+    v = v2.reshape(b, s, nkv, d)
+    q, k = apply_rope(q, k, cos, sin)
+
+    if cache is not None:
+        pos = cache.length
+        cache.k[li, :, pos:pos + s] = k.to(cache.k.dtype)
+        cache.v[li, :, pos:pos + s] = v.to(cache.v.dtype)
+        k_full, v_full = cache.k[li].to(compute), cache.v[li].to(compute)
+    else:
+        k_full, v_full = k, v
+    if nkv != n:
+        k_full = k_full.repeat_interleave(n // nkv, dim=2)
+        v_full = v_full.repeat_interleave(n // nkv, dim=2)
+
+    if use_flash and cache is None:
+        q, k_full, v_full = (t.contiguous() for t in (q, k_full, v_full))
+        if fits_mh_attention(s, k_full.shape[1], d):
+            out = mh_attention(q, k_full, v_full, flash_bias, causal=True)
+        else:
+            out = flash_attention(q, k_full, v_full, flash_bias, causal=True)
+    else:
+        out = dot_product_attention(q, k_full, v_full, mask)
+    return mm(out.reshape(b, s, n * d), p["wo"])
+
+
+def _mlp(p: dict, h: torch.Tensor, activation_quant: bool) -> torch.Tensor:
+    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    c = h.dtype
+    mm = lambda x, w: qz.matmul(x, w, c,  # noqa: E731
+                                activation_quant=activation_quant)
+    if "gateup" in p:  # packed decode layout
+        gu = mm(h, p["gateup"])
+        i = gu.shape[-1] // 2
+        return mm(silu(gu[..., :i]) * gu[..., i:], p["down"])
+    return mm(silu(mm(h, p["gate"])) * mm(h, p["up"]), p["down"])
+
+
+def embed(params: dict, input_ids: torch.Tensor,
+          dtype=torch.float32) -> torch.Tensor:
+    """Token embedding lookup ([B, S] -> [B, S, H])."""
+    return params["embed_tokens"].to(dtype)[input_ids]
+
+
+def forward_hidden(params: dict, cfg: LlamaConfig,
+                   inputs_embeds: torch.Tensor,
+                   attention_mask: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   kv_cache: Optional[KVCache] = None,
+                   use_flash: bool = False,
+                   activation_quant: bool = False) -> torch.Tensor:
+    """Decoder stack over ``inputs_embeds`` [B, S, H] -> final-normed hidden
+    states [B, S, H].
+
+    attention_mask: [B, S_total] {0, 1} over the full key length (the
+    cache length when a cache is given). positions: [B, S] RoPE positions,
+    by default continuing from the cache length. ``activation_quant``
+    turns on W8A8 for int8 weights at >= 256 rows.
+    """
+    b, s, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    mask = None
+    flash_bias = None
+    if kv_cache is not None:
+        start = kv_cache.length
+        kv_len = kv_cache.k.shape[2]
+        if positions is None:
+            positions = start + torch.arange(s, device=device)[None, :]
+        q_pos = start + torch.arange(s, device=device)[:, None]
+        k_pos = torch.arange(kv_len, device=device)[None, :]
+        mask = torch.where(k_pos <= q_pos, 0.0, NEG_INF).float()[None, None]
+        if attention_mask is not None:
+            mask = combine_masks(mask, padding_mask(attention_mask, s))
+    else:
+        if positions is None:
+            positions = torch.arange(s, device=device)[None, :].expand(b, s)
+        if use_flash:
+            # the kernels apply the causal mask and this padding bias
+            if attention_mask is not None:
+                flash_bias = torch.where(attention_mask.to(torch.int32) == 1,
+                                         0.0, NEG_INF).float().contiguous()
+        else:
+            mask = causal_mask(s, s, device)
+            if attention_mask is not None:
+                mask = combine_masks(mask, padding_mask(attention_mask, s))
+
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
+    use_kernel = use_flash and kv_cache is None
+    h = inputs_embeds
+    layers = params["layers"]
+    for li in range(num_layers(layers)):
+        lp = layer(layers, li)
+        x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
+        h = h + _attention(cfg, lp["attn"], x, mask, cos, sin, kv_cache, li,
+                           flash_bias, use_kernel, activation_quant)
+        x = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
+        h = h + _mlp(lp["mlp"], x, activation_quant)
+    if kv_cache is not None:
+        kv_cache.length += s
+    return rms_norm(h, params["norm"].to(h.dtype), cfg.rms_norm_eps)
+
+
+def logits_from_hidden(params: dict, h: torch.Tensor,
+                       valid: Optional[int] = None) -> torch.Tensor:
+    """CLM head, fp32 logits; ``valid`` masks padded vocab columns."""
+    logits = qz.matmul(h, params["lm_head"], h.dtype).float()
+    return _mask_padded_vocab(logits, valid)
+
+
+def _mask_padded_vocab(logits: torch.Tensor,
+                       valid: Optional[int]) -> torch.Tensor:
+    if valid is None or valid >= logits.shape[-1]:
+        return logits
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(cols < valid, logits, NEG_INF)
+
+
+def valid_vocab(cfg: LlamaConfig) -> Optional[int]:
+    """The real vocab size when the storage vocab is padded, else None."""
+    return cfg.vocab_size if cfg.padded_vocab > cfg.vocab_size else None
+
+
+def forward(params: dict, cfg: LlamaConfig,
+            input_ids: Optional[torch.Tensor] = None,
+            inputs_embeds: Optional[torch.Tensor] = None,
+            attention_mask: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            kv_cache: Optional[KVCache] = None,
+            use_flash: bool = False,
+            activation_quant: bool = False,
+            dtype=torch.float32) -> torch.Tensor:
+    """Full CLM forward -> logits [B, S, V] fp32. Takes token ids or
+    embeddings, never both."""
+    if (input_ids is None) == (inputs_embeds is None):
+        raise ValueError("pass exactly one of input_ids / inputs_embeds")
+    if inputs_embeds is None:
+        inputs_embeds = embed(params, input_ids, dtype)
+    h = forward_hidden(params, cfg, inputs_embeds, attention_mask, positions,
+                       kv_cache, use_flash, activation_quant)
+    return logits_from_hidden(params, h, valid_vocab(cfg))

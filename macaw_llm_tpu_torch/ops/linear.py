@@ -1,0 +1,27 @@
+"""Dense projection with the leading dims flattened around the matmul."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from macaw_llm_tpu_torch.utils import quantize as qz
+
+
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """``x @ w + b`` over x [..., E]; w is [E, F] or an int8 record
+    {"q", "s"} (utils.quantize); b is [F] or None -> [..., F]."""
+    shape = x.shape
+    if x.dim() > 2:
+        x = x.reshape(-1, shape[-1])
+    if qz.is_record(w):
+        y = qz.matmul(x, w, x.dtype)
+    else:
+        y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    if len(shape) > 2:
+        y = y.reshape(*shape[:-1], y.shape[-1])
+    return y
