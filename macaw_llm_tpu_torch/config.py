@@ -1,7 +1,8 @@
 """Model configuration: the port's own copy of the reference package's
 config dataclasses (``macaw_llm_tpu/config.py``), trimmed to what the
-serving path reads. Defaults are the reference's (LLaMA-7B + CLIP ViT-B/16
-+ Whisper-base, Macaw-LLM's MM_LLMs_Config)."""
+serving and training paths read. Defaults are the reference's (LLaMA-7B +
+CLIP ViT-B/16 + Whisper-base, Macaw-LLM's MM_LLMs_Config; the optimizer of
+its train.sh and DeepSpeed config)."""
 
 from __future__ import annotations
 
@@ -126,6 +127,9 @@ class FusionConfig:
     video_conv_stride: int = 30
     audio_conv_kernel: int = 240
     audio_conv_stride: int = 220
+    # attention-probability dropout of the alignment and video-long
+    # attentions; applied only when a dropout generator is passed (training)
+    align_dropout: float = 0.1
     # rows of the vocab-embedding K/V memory the alignment attention sees;
     # None = the full vocabulary (the reference's behavior)
     align_memory_rows: Optional[int] = None
@@ -142,6 +146,12 @@ class ModelConfig:
     dtype: str = "bfloat16"   # compute dtype
     use_flash: bool = False   # attention kernels in the LLM prefill
     tower_flash: bool = False  # streaming kernel in the CLIP/Whisper towers
+    # training: torch.utils.checkpoint per decoder layer, which recomputes
+    # the whole layer in the backward (the reference's policy "nothing")
+    remat: bool = False
+    # training: shifted CE over chunks of this many positions straight from
+    # the hidden states (no [B, S, V] fp32 logits); 0 = full logits
+    loss_chunk: int = 0
 
     @property
     def image_prefix_len(self) -> int:
@@ -168,6 +178,38 @@ class ModelConfig:
         [text]."""
         return (self.image_prefix_len + self.video_prefix_len
                 + self.audio_prefix_len + 6)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule and the fine-tune's form (the reference's
+    train.sh and DeepSpeed config: AdamW, lr 3e-5, cosine with 3% warmup,
+    grad-clip 1.0). The fields the port's trainer reads."""
+
+    learning_rate: float = 3e-5
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.0
+    warmup_ratio: float = 0.03
+    lr_schedule: str = "cosine"      # "cosine" | "linear" | "constant"
+    grad_accum_steps: int = 3
+    max_grad_norm: float = 1.0
+    seed: int = 1
+    freeze_encoders: bool = True     # CLIP/Whisper towers take no gradient
+    lora_rank: int = 0               # 0 = full fine-tune; > 0 LoRA on q, v
+    lora_alpha: float = 16.0
+    grad_dtype: str = "float32"      # "bfloat16": grads of bf16-cast params
+    mu_dtype: str = "float32"        # dtype of Adam's first moment
+    # storage dtype of the frozen params ("param" keeps them as given);
+    # the fp32 scales of int8 records stay fp32
+    frozen_dtype: str = "bfloat16"
+    # LoRA only: precompute the alignment K/V projections of the frozen
+    # vocabulary memory once ("int8" or "bf16") or project every step
+    # ("off"). A cache freezes the align in-proj K/V rows and bias_k/bias_v.
+    align_cache: str = "int8"
+    quantize_base: bool = False      # LoRA only: int8 frozen LLaMA base
+    pack_frozen_towers: bool = False  # one [h, 3h] in-proj per tower layer
 
 
 def tiny_model_config() -> ModelConfig:

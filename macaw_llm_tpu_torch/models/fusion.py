@@ -1,5 +1,4 @@
-"""Multimodal fusion (counterpart of ``macaw_llm_tpu/models/fusion.py``,
-inference path).
+"""Multimodal fusion (counterpart of ``macaw_llm_tpu/models/fusion.py``).
 
 CLIP image and 6-frame video encoders, the Whisper encoder, VALID Conv1d
 sequence downsamplers, linear adapters to the LLM width, alignment
@@ -8,25 +7,34 @@ matrix as keys/values) and the prefix splice:
 
     [BOS][<image> im </image>][<audio> au </audio>][<video> vi </video>][text]
 
+``forward`` is the training forward: the fused batch, labels extended
+with IGNORE_ID over the prefix, the LLaMA stack (remat and LoRA from the
+config and arguments) and the loss, chunked when ``cfg.loss_chunk`` > 0.
+A ``dropout_rng`` (a CPU ``torch.Generator``) turns on the alignment and
+video-long attention dropout. A tower whose parameters take no gradient
+(frozen) runs under ``torch.no_grad()``.
+
 Not ported yet: ``encode_video_simple`` (unused by the reference's forward)
-and the dropout (training) paths.
+and Whisper LayerDrop (off in the reference's configuration).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from macaw_llm_tpu_torch.config import (AUDIO_END, AUDIO_START, IMAGE_END,
-                                        IMAGE_START, ModelConfig, VIDEO_END,
-                                        VIDEO_START)
+from macaw_llm_tpu_torch.config import (AUDIO_END, AUDIO_START, IGNORE_ID,
+                                        IMAGE_END, IMAGE_START, ModelConfig,
+                                        VIDEO_END, VIDEO_START)
 from macaw_llm_tpu_torch.models import clip, llama, whisper
 from macaw_llm_tpu_torch.models._tree import normal, uniform, zeros
 from macaw_llm_tpu_torch.ops.attention import (
     pack_mha, shared_kv_project, torch_mha_apply,
-    torch_mha_apply_shared_kv_einsum, torch_mha_apply_shared_kv_flash)
+    torch_mha_apply_shared_kv_dropout, torch_mha_apply_shared_kv_einsum,
+    torch_mha_apply_shared_kv_flash)
 from macaw_llm_tpu_torch.ops.linear import dense
 
 # alignment logits above this many bytes go to the flash kernel
@@ -34,8 +42,18 @@ ALIGN_EINSUM_MAX_BYTES = int(4e8)
 
 
 class FusedBatch(NamedTuple):
-    inputs_embeds: torch.Tensor             # [B, P+S, H]
-    attention_mask: Optional[torch.Tensor]  # [B, P+S]
+    inputs_embeds: torch.Tensor                   # [B, P+S, H]
+    attention_mask: Optional[torch.Tensor]        # [B, P+S]
+    labels: Optional[torch.Tensor] = None         # [B, P+S]
+
+
+def _frozen(tree) -> contextlib.AbstractContextManager:
+    """``torch.no_grad()`` when no tensor of ``tree`` takes a gradient."""
+    def grads(t):
+        if isinstance(t, dict):
+            return any(grads(v) for v in t.values())
+        return isinstance(t, torch.Tensor) and t.requires_grad
+    return contextlib.nullcontext() if grads(tree) else torch.no_grad()
 
 
 def _torch_mha_init(gen, e: int, dtype) -> dict:
@@ -112,31 +130,40 @@ def sinusoidal_pe(length: int, dim: int, dtype=torch.float32,
 def encode_image(params: dict, cfg: ModelConfig,
                  images: torch.Tensor) -> torch.Tensor:
     """[B, 3, H, W] -> [B, P, projection_dim]."""
-    return clip.encode_patches(params["image_encoder"], cfg.vision, images,
-                               use_flash=cfg.tower_flash)
+    with _frozen(params["image_encoder"]):
+        return clip.encode_patches(params["image_encoder"], cfg.vision,
+                                   images, use_flash=cfg.tower_flash)
 
 
 def encode_video_long(params: dict, cfg: ModelConfig,
-                      videos: torch.Tensor) -> torch.Tensor:
+                      videos: torch.Tensor,
+                      dropout_rng: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
     """[B, F, 3, H, W] -> [B, F*P, projection_dim]: per-frame patch tokens
-    concatenated over frames, the sinusoidal PE, one self-attention."""
+    concatenated over frames, the sinusoidal PE, one self-attention (with
+    attention dropout when ``dropout_rng`` is given)."""
     b, f = videos.shape[:2]
     frames = videos.reshape((b * f,) + tuple(videos.shape[2:]))
-    feats = clip.encode_patches(params["video_encoder"], cfg.vision, frames,
-                                use_flash=cfg.tower_flash)
+    with _frozen(params["video_encoder"]):
+        feats = clip.encode_patches(params["video_encoder"], cfg.vision,
+                                    frames, use_flash=cfg.tower_flash)
     feats = feats.reshape(b, f * feats.shape[1], feats.shape[2])
     feats = feats + sinusoidal_pe(feats.shape[1], feats.shape[2],
                                   feats.dtype, feats.device)[None]
     return torch_mha_apply(params["fusion"]["video_long_attn"],
                            cfg.fusion.attention_heads, feats, feats, feats,
-                           add_zero_attn=True, use_flash=cfg.tower_flash)
+                           add_zero_attn=True,
+                           dropout_rate=cfg.fusion.align_dropout,
+                           dropout_rng=dropout_rng,
+                           use_flash=cfg.tower_flash)
 
 
 def encode_audio(params: dict, cfg: ModelConfig,
                  audios: torch.Tensor) -> torch.Tensor:
     """[B, 80, 3000] -> [B, 1500, d_model]."""
-    return whisper.encode(params["audio_encoder"], cfg.audio, audios,
-                          use_flash=cfg.tower_flash)
+    with _frozen(params["audio_encoder"]):
+        return whisper.encode(params["audio_encoder"], cfg.audio, audios,
+                              use_flash=cfg.tower_flash)
 
 
 def _conv_downsample(p: dict, x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -146,12 +173,24 @@ def _conv_downsample(p: dict, x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 def _align(p: dict, heads: int, feats: torch.Tensor,
-           memory: Optional[torch.Tensor], kv_cache=None) -> torch.Tensor:
+           memory: Optional[torch.Tensor], kv_cache=None,
+           dropout_rate: float = 0.0,
+           rng: Optional[torch.Generator] = None) -> torch.Tensor:
     """Alignment cross-attention: Q = modality features, K = V = the token
     embedding memory. With a cache, the einsum over the (int8) cached rows
     while its fp32 logits stay within ALIGN_EINSUM_MAX_BYTES, else the
     flash kernel over the dequantized rows; without one, the flash kernel
-    over the memory projected here."""
+    over the memory projected here. With dropout (``rng`` given, rate > 0)
+    the chunked dropout attention over the dequantized cache or the memory.
+    """
+    if rng is not None and dropout_rate > 0.0:
+        kv = None
+        if kv_cache is not None:
+            kv = (_dequant_rows(kv_cache["k"], feats.dtype),
+                  _dequant_rows(kv_cache["v"], feats.dtype))
+        return torch_mha_apply_shared_kv_dropout(
+            p, heads, feats, memory, rate=dropout_rate, rng=rng,
+            add_zero_attn=True, kv_cache=kv)
     if kv_cache is not None:
         b, sq, _ = feats.shape
         m2 = kv_cache["k"][0].shape[0]
@@ -244,11 +283,18 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
                    audios: Optional[torch.Tensor],
                    videos: Optional[torch.Tensor],
                    attention_mask: Optional[torch.Tensor] = None,
+                   labels: Optional[torch.Tensor] = None,
+                   dropout_rng: Optional[torch.Generator] = None,
                    align_cache: Optional[dict] = None) -> FusedBatch:
-    """Fused embeddings + the mask extended over the prefix. Raw media are
-    featurized here: waveforms [B, samples] -> log-mel, uint8 frames
-    [.., H, W, 3] -> CLIP pixels. (Label extension belongs to training and
-    is not ported yet.)"""
+    """Fused embeddings, the mask extended with ones and the labels with
+    IGNORE_ID over the prefix. Raw media are featurized here: waveforms
+    [B, samples] -> log-mel, uint8 frames [.., H, W, 3] -> CLIP pixels.
+
+    ``dropout_rng`` (training) turns on the attention dropout of the
+    alignments and the video-long attention. Training with an
+    ``align_cache`` freezes the align K/V projections: the cache is a
+    constant, so the in-proj K/V rows and bias_k/bias_v take no gradient.
+    """
     bids = {"image": (IMAGE_START, IMAGE_END),
             "audio": (AUDIO_START, AUDIO_END),
             "video": (VIDEO_START, VIDEO_END)}
@@ -270,6 +316,7 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
     b = input_ids.shape[0]
     heads2 = cfg.fusion.attention_heads * 2
     cache = align_cache or {}
+    drop = cfg.fusion.align_dropout if dropout_rng is not None else 0.0
 
     text_emb = lp["embed_tokens"].to(compute)[input_ids]
     # K/V memory of the alignments without a cache: the whole vocab
@@ -284,7 +331,8 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
         x = _conv_downsample(fp["conv"][mod], feats, conv_stride)
         x = dense(x, fp["to_hidden"][mod]["w"], fp["to_hidden"][mod]["b"])
         x = _align(fp[f"{mod}_align"], heads2, x, token_memory,
-                   kv_cache=cache.get(mod))
+                   kv_cache=cache.get(mod), dropout_rate=drop,
+                   rng=dropout_rng)
         blocks.append(torch.cat([_boundary(lp, bids[mod][0], b, compute), x,
                                  _boundary(lp, bids[mod][1], b, compute)], 1))
 
@@ -295,7 +343,8 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
         add_block("audio", encode_audio(params, cfg, audios.to(compute)),
                   cfg.fusion.audio_conv_stride)
     if videos is not None:
-        add_block("video", encode_video_long(params, cfg, videos.to(compute)),
+        add_block("video", encode_video_long(params, cfg, videos.to(compute),
+                                             dropout_rng),
                   cfg.fusion.video_conv_stride)
     prefix_len = sum(blk.shape[1] for blk in blocks)
 
@@ -304,4 +353,43 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
     if attention_mask is not None:
         out_mask = torch.cat([attention_mask.new_ones((b, prefix_len)),
                               attention_mask], dim=1)
-    return FusedBatch(fused, out_mask)
+    out_labels = None
+    if labels is not None:
+        out_labels = torch.cat([labels.new_full((b, prefix_len), IGNORE_ID),
+                                labels], dim=1)
+    return FusedBatch(fused, out_mask, out_labels)
+
+
+def forward(params: dict, cfg: ModelConfig, *,
+            input_ids: torch.Tensor,
+            images: Optional[torch.Tensor],
+            audios: Optional[torch.Tensor],
+            videos: Optional[torch.Tensor],
+            attention_mask: Optional[torch.Tensor] = None,
+            labels: Optional[torch.Tensor] = None,
+            dropout_rng: Optional[torch.Generator] = None,
+            lora_scale: float = 1.0,
+            align_cache: Optional[dict] = None):
+    """Training forward: fuse, run the LLaMA stack over the fused
+    embeddings, return (loss, logits). With ``cfg.loss_chunk`` > 0 and
+    labels the loss comes from the hidden states in chunks and logits is
+    None (no [B, S, V] fp32 tensor)."""
+    batch = prepare_inputs(params, cfg, input_ids=input_ids, images=images,
+                           audios=audios, videos=videos,
+                           attention_mask=attention_mask, labels=labels,
+                           dropout_rng=dropout_rng, align_cache=align_cache)
+    kw = dict(attention_mask=batch.attention_mask, use_flash=cfg.use_flash,
+              remat=cfg.remat, lora_scale=lora_scale)
+    if cfg.loss_chunk > 0 and batch.labels is not None:
+        h = llama.forward_hidden(params["llm"], cfg.llm, batch.inputs_embeds,
+                                 **kw)
+        loss = llama.clm_loss_chunked(params["llm"], h, batch.labels,
+                                      chunk=cfg.loss_chunk,
+                                      valid=llama.valid_vocab(cfg.llm))
+        return loss, None
+    logits = llama.forward(params["llm"], cfg.llm,
+                           inputs_embeds=batch.inputs_embeds, **kw)
+    loss = None
+    if batch.labels is not None:
+        loss = llama.clm_loss(logits, batch.labels)
+    return loss, logits

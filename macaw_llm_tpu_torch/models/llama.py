@@ -11,16 +11,25 @@ leading [L] axis (the JAX ``lax.scan`` becomes a Python loop over L),
 * cache: a preallocated bf16 ``KVCache`` written in place at
   ``length``, attention through ``dot_product_attention`` over the whole
   buffer with a causal + padding mask.
+
+Training: LoRA adapters on q and v (``params["layers"]["lora"]``), remat
+per decoder layer (``torch.utils.checkpoint``, non-reentrant), the shifted
+cross-entropy ``clm_loss`` and its chunked form ``clm_loss_chunked``, which
+never holds the [B, S, V] fp32 logits. The attention kernels and int8
+matmuls are differentiable in their activations.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from macaw_llm_tpu_torch.config import LlamaConfig
+from macaw_llm_tpu_torch.config import IGNORE_ID, LlamaConfig
 from macaw_llm_tpu_torch.models import _tree
 from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
 from macaw_llm_tpu_torch.ops.activations import silu
@@ -32,6 +41,7 @@ from macaw_llm_tpu_torch.ops.masks import (NEG_INF, causal_mask,
                                            combine_masks, padding_mask)
 from macaw_llm_tpu_torch.ops.norms import rms_norm
 from macaw_llm_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from macaw_llm_tpu_torch.train.lora import lora_delta
 from macaw_llm_tpu_torch.utils import quantize as qz
 
 
@@ -85,19 +95,25 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
                mask: Optional[torch.Tensor], cos, sin,
                cache: Optional[KVCache], li: int,
                flash_bias: Optional[torch.Tensor], use_flash: bool,
-               activation_quant: bool) -> torch.Tensor:
+               activation_quant: bool, lora: Optional[dict] = None,
+               lora_scale: float = 1.0) -> torch.Tensor:
     b, s, _ = h.shape
     n, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     compute = h.dtype
     mm = lambda x, w: qz.matmul(x, w, compute,  # noqa: E731
                                 activation_quant=activation_quant)
     if "qkv" in p:  # packed decode layout
+        if lora is not None:
+            raise ValueError("the packed qkv layout takes no LoRA adapters")
         fused = mm(h, p["qkv"])
         q2 = fused[..., :n * d]
         k2 = fused[..., n * d:(n + nkv) * d]
         v2 = fused[..., (n + nkv) * d:]
     else:
         q2, k2, v2 = mm(h, p["wq"]), mm(h, p["wk"]), mm(h, p["wv"])
+    if lora is not None:
+        q2 = q2 + lora_delta(h, lora["qa"], lora["qb"], lora_scale)
+        v2 = v2 + lora_delta(h, lora["va"], lora["vb"], lora_scale)
     q = q2.reshape(b, s, n, d)
     k = k2.reshape(b, s, nkv, d)
     v = v2.reshape(b, s, nkv, d)
@@ -137,6 +153,19 @@ def _mlp(p: dict, h: torch.Tensor, activation_quant: bool) -> torch.Tensor:
     return mm(silu(mm(h, p["gate"])) * mm(h, p["up"]), p["down"])
 
 
+def _decoder_layer(cfg: LlamaConfig, lp: dict, h: torch.Tensor, mask, cos,
+                   sin, kv_cache: Optional[KVCache], li: int, flash_bias,
+                   use_flash: bool, activation_quant: bool,
+                   lora_scale: float) -> torch.Tensor:
+    """Pre-norm attention + residual, pre-norm SwiGLU + residual."""
+    x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
+    h = h + _attention(cfg, lp["attn"], x, mask, cos, sin, kv_cache, li,
+                       flash_bias, use_flash, activation_quant,
+                       lp.get("lora"), lora_scale)
+    x = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
+    return h + _mlp(lp["mlp"], x, activation_quant)
+
+
 def embed(params: dict, input_ids: torch.Tensor,
           dtype=torch.float32) -> torch.Tensor:
     """Token embedding lookup ([B, S] -> [B, S, H])."""
@@ -149,15 +178,21 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
                    positions: Optional[torch.Tensor] = None,
                    kv_cache: Optional[KVCache] = None,
                    use_flash: bool = False,
-                   activation_quant: bool = False) -> torch.Tensor:
+                   activation_quant: bool = False,
+                   remat: bool = False,
+                   lora_scale: float = 1.0) -> torch.Tensor:
     """Decoder stack over ``inputs_embeds`` [B, S, H] -> final-normed hidden
     states [B, S, H].
 
     attention_mask: [B, S_total] {0, 1} over the full key length (the
     cache length when a cache is given). positions: [B, S] RoPE positions,
     by default continuing from the cache length. ``activation_quant``
-    turns on W8A8 for int8 weights at >= 256 rows.
+    turns on W8A8 for int8 weights at >= 256 rows. ``remat`` checkpoints
+    each decoder layer (training without a cache): the backward recomputes
+    the layer, int8 dequantization included, and keeps only its input.
     """
+    if remat and kv_cache is not None:
+        raise ValueError("remat is for the no-cache (training) path")
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
     mask = None
@@ -191,11 +226,13 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     layers = params["layers"]
     for li in range(num_layers(layers)):
         lp = layer(layers, li)
-        x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
-        h = h + _attention(cfg, lp["attn"], x, mask, cos, sin, kv_cache, li,
-                           flash_bias, use_kernel, activation_quant)
-        x = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
-        h = h + _mlp(lp["mlp"], x, activation_quant)
+        args = (mask, cos, sin, kv_cache, li, flash_bias, use_kernel,
+                activation_quant, lora_scale)
+        if remat:
+            h = checkpoint(partial(_decoder_layer, cfg, lp), h, *args,
+                           use_reentrant=False)
+        else:
+            h = _decoder_layer(cfg, lp, h, *args)
     if kv_cache is not None:
         kv_cache.length += s
     return rms_norm(h, params["norm"].to(h.dtype), cfg.rms_norm_eps)
@@ -229,7 +266,9 @@ def forward(params: dict, cfg: LlamaConfig,
             kv_cache: Optional[KVCache] = None,
             use_flash: bool = False,
             activation_quant: bool = False,
-            dtype=torch.float32) -> torch.Tensor:
+            dtype=torch.float32,
+            remat: bool = False,
+            lora_scale: float = 1.0) -> torch.Tensor:
     """Full CLM forward -> logits [B, S, V] fp32. Takes token ids or
     embeddings, never both."""
     if (input_ids is None) == (inputs_embeds is None):
@@ -237,5 +276,49 @@ def forward(params: dict, cfg: LlamaConfig,
     if inputs_embeds is None:
         inputs_embeds = embed(params, input_ids, dtype)
     h = forward_hidden(params, cfg, inputs_embeds, attention_mask, positions,
-                       kv_cache, use_flash, activation_quant)
+                       kv_cache, use_flash, activation_quant, remat,
+                       lora_scale)
     return logits_from_hidden(params, h, valid_vocab(cfg))
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor):
+    """Summed negative log-likelihood of the targets that are not
+    IGNORE_ID, and their count."""
+    ok = targets != IGNORE_ID
+    safe = torch.where(ok, targets, 0)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return torch.where(ok, nll, 0.0).sum(), ok.sum()
+
+
+def clm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shift-by-one cross-entropy, mean over the labels that are not
+    IGNORE_ID (-100)."""
+    nll, count = _nll(logits[:, :-1, :], labels[:, 1:])
+    return nll / torch.clamp(count, min=1)
+
+
+def _chunk_nll(w, valid: Optional[int], h_c: torch.Tensor,
+               t_c: torch.Tensor):
+    logits = _mask_padded_vocab(qz.matmul(h_c, w, h_c.dtype).float(), valid)
+    return _nll(logits, t_c)
+
+
+def clm_loss_chunked(params: dict, h: torch.Tensor, labels: torch.Tensor,
+                     chunk: int = 1024, valid: Optional[int] = None
+                     ) -> torch.Tensor:
+    """``clm_loss(logits_from_hidden(params, h), labels)`` straight from the
+    final hidden states, ``chunk`` positions at a time: each chunk's fp32
+    logits exist only inside its checkpointed function (recomputed in the
+    backward), never the whole [B, S, V]."""
+    b = h.shape[0]
+    targets = torch.cat([labels[:, 1:], labels.new_full((b, 1), IGNORE_ID)],
+                        dim=1)
+    fn = partial(_chunk_nll, params["lm_head"], valid)
+    nll_sum, count = 0.0, 0
+    for start in range(0, h.shape[1], chunk):
+        nll, cnt = checkpoint(fn, h[:, start:start + chunk],
+                              targets[:, start:start + chunk],
+                              use_reentrant=False)
+        nll_sum, count = nll_sum + nll, count + cnt
+    return nll_sum / torch.clamp(count, min=1)

@@ -9,7 +9,8 @@
   flash kernel.
 * ``torch_mha_apply`` and the ``shared_kv`` variants: the semantics of
   torch.nn.MultiheadAttention with ``add_bias_kv`` and ``add_zero_attn``
-  (the alignment and video-long attentions), without dropout.
+  (the alignment and video-long attentions); with a dropout generator
+  (training) the attention goes through ``dropout_attention_chunked``.
 
 All apply functions are batch-first: [B, S, E].
 """
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from macaw_llm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from macaw_llm_tpu_torch.ops.linear import dense
@@ -104,6 +106,81 @@ def mha_apply(params: dict, num_heads: int, q_in: torch.Tensor,
     return _proj(params["o"], _merge_heads(out))
 
 
+def dropout_seed(rng: torch.Generator) -> int:
+    """One 63-bit seed from a (CPU) generator: the base of an attention's
+    per-chunk dropout masks."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=rng))
+
+
+def _dropout_keep(seed: int, start: int, shape, rate: float,
+                  device) -> torch.Tensor:
+    """Keep-mask of the key chunk starting at ``start``: a function of
+    (seed, start) alone, so the backward's recompute draws the same mask."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed * 1000003 + start) % (2 ** 63))
+    return torch.rand(shape, generator=gen, device=device) >= rate
+
+
+def _dropout_chunk(q, k_c, v_c, scale: float, rate: float, seed: int,
+                   start: int, shared: bool):
+    acc = torch.promote_types(q.dtype, torch.float32)
+    eq = "bqnd,knd->bnqk" if shared else "bqnd,bknd->bnqk"
+    logits = torch.einsum(eq, q.to(acc), k_c.to(acc)) * scale
+    m = logits.amax(-1)                                    # [B, N, Sq]
+    p = torch.exp(logits - m[..., None])
+    keep = _dropout_keep(seed, start, p.shape, rate, p.device)
+    pd = torch.where(keep, p, 0.0).to(v_c.dtype).to(acc)
+    part = torch.einsum("bnqk,knd->bnqd" if shared else "bnqk,bknd->bnqd",
+                        pd, v_c.to(acc))
+    return m, p.sum(-1), part
+
+
+def dropout_attention_chunked(qh: torch.Tensor, kh: torch.Tensor,
+                              vh: torch.Tensor, *, scale: float, rate: float,
+                              rng: torch.Generator,
+                              chunk: int = 0) -> torch.Tensor:
+    """Attention-probability dropout without the [.., Sq, Sk] probs.
+
+    Streams K/V in chunks with an online softmax. ``dropout(softmax(s)) V``
+    commutes with the online normalization because the mask scales the
+    numerator terms only: the DROPPED unnormalized probs go against V and
+    the UNDROPPED row sums into the denominator, divided at the end. Each
+    chunk is checkpointed; its mask is a function of (seed, chunk start)
+    drawn again in the backward, so peak memory is one chunk's fp32 logits.
+
+    qh [B, Sq, N, D]; kh/vh [B, Sk, N, D], or [Sk, N, D] for a batch-shared
+    memory; ``rng`` a CPU generator that gives the seed. Returns
+    [B, Sq, N, D] in qh.dtype. chunk=0 picks ~64 MB logits chunks.
+    """
+    shared = kh.dim() == 3
+    b, sq, n, d = qh.shape
+    sk = kh.shape[0] if shared else kh.shape[1]
+    if chunk <= 0:
+        chunk = max(128, (64 * 2 ** 20) // max(b * n * sq * 4, 1))
+        chunk = min(sk, ((chunk + 127) // 128) * 128)
+    seed = dropout_seed(rng)
+    acc = torch.promote_types(qh.dtype, torch.float32)
+    m_run = torch.full((b, n, sq), NEG_INF, dtype=acc, device=qh.device)
+    l_run = torch.zeros((b, n, sq), dtype=acc, device=qh.device)
+    out = torch.zeros((b, n, sq, d), dtype=acc, device=qh.device)
+    for start in range(0, sk, chunk):
+        if shared:
+            k_c, v_c = kh[start:start + chunk], vh[start:start + chunk]
+        else:
+            k_c, v_c = kh[:, start:start + chunk], vh[:, start:start + chunk]
+        m_c, l_c, part = checkpoint(_dropout_chunk, qh, k_c, v_c, scale,
+                                    rate, seed, start, shared,
+                                    use_reentrant=False)
+        m_new = torch.maximum(m_run, m_c)
+        corr_run = torch.exp(m_run - m_new)
+        corr_c = torch.exp(m_c - m_new)
+        out = out * corr_run[..., None] + part * corr_c[..., None]
+        l_run = l_run * corr_run + l_c * corr_c
+        m_run = m_new
+    out = out / (torch.clamp(l_run, min=1e-20)[..., None] * (1.0 - rate))
+    return out.permute(0, 2, 1, 3).to(qh.dtype)
+
+
 def _in_proj(params: dict, dtype: torch.dtype):
     return params["in_proj_w"].to(dtype), params["in_proj_b"].to(dtype)
 
@@ -116,10 +193,13 @@ def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
 def torch_mha_apply(params: dict, num_heads: int, query: torch.Tensor,
                     key: torch.Tensor, value: torch.Tensor, *,
                     add_zero_attn: bool = True,
+                    dropout_rate: float = 0.0,
+                    dropout_rng: Optional[torch.Generator] = None,
                     use_flash: bool = False) -> torch.Tensor:
-    """torch.nn.MultiheadAttention forward (batch-first, no dropout):
-    packed in-projection, the bias_k/bias_v row and the zero row appended
-    to the keys/values, softmax attention, out-projection."""
+    """torch.nn.MultiheadAttention forward (batch-first): packed
+    in-projection, the bias_k/bias_v row and the zero row appended to the
+    keys/values, softmax attention (with attention dropout when a
+    ``dropout_rng`` is given), out-projection."""
     e = query.shape[-1]
     w, b = _in_proj(params, query.dtype)
     q = query @ w[:e].T + b[:e]
@@ -137,7 +217,10 @@ def torch_mha_apply(params: dict, num_heads: int, query: torch.Tensor,
     kh = _split_heads(k, num_heads)
     vh = _split_heads(v, num_heads)
     scale = (e // num_heads) ** -0.5
-    if use_flash:
+    if dropout_rate > 0.0 and dropout_rng is not None:
+        out = dropout_attention_chunked(qh, kh, vh, scale=scale,
+                                        rate=dropout_rate, rng=dropout_rng)
+    elif use_flash:
         out = flash_sdpa(qh, kh, vh, scale=scale)
     else:
         logits = torch.einsum("bqnd,bknd->bnqk", qh.float(),
@@ -163,6 +246,34 @@ def shared_kv_project(params: dict, memory: torch.Tensor, *,
         rows_k.append(zero)
         rows_v.append(zero)
     return torch.cat(rows_k, 0), torch.cat(rows_v, 0)
+
+
+def torch_mha_apply_shared_kv_dropout(params: dict, num_heads: int,
+                                      query: torch.Tensor,
+                                      memory: Optional[torch.Tensor], *,
+                                      rate: float, rng: torch.Generator,
+                                      add_zero_attn: bool = True,
+                                      kv_cache: Optional[tuple] = None
+                                      ) -> torch.Tensor:
+    """``torch_mha_apply`` with attention dropout for a batch-shared K = V
+    memory [M, E], projected once (``shared_kv_project``) or taken from
+    ``kv_cache``, a precomputed (k, v) [M2, E] pair that already holds the
+    bias and zero rows (no gradient reaches the K/V weights through it).
+    The attention streams the memory in chunks
+    (``dropout_attention_chunked``)."""
+    e = query.shape[-1]
+    w, bias = _in_proj(params, query.dtype)
+    q = query @ w[:e].T + bias[:e]
+    if kv_cache is not None:
+        k, v = (t.to(query.dtype) for t in kv_cache)
+    else:
+        k, v = shared_kv_project(params, memory, add_zero_attn=add_zero_attn)
+    bsz, sq, _ = q.shape
+    d = e // num_heads
+    out = dropout_attention_chunked(
+        q.reshape(bsz, sq, num_heads, d), k.reshape(-1, num_heads, d),
+        v.reshape(-1, num_heads, d), scale=d ** -0.5, rate=rate, rng=rng)
+    return _out_proj(params, out.reshape(bsz, sq, e))
 
 
 def torch_mha_apply_shared_kv_einsum(params: dict, num_heads: int,

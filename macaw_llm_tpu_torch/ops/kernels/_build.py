@@ -34,6 +34,10 @@ _SIGNATURES = {
     "macaw_mh_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "macaw_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _I, _P],
+    "macaw_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _F, _I, _P],
+    "macaw_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _F, _I, _P],
     "macaw_matvec_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "macaw_error_string": [_I],
 }

@@ -4,7 +4,9 @@ Counterpart of ``macaw_llm_tpu/ops/pallas/mh_attention.py``. On CUDA
 tensors the wrapper launches ``csrc/mh_attention.cu``, which stages the
 whole K and V of one head in shared memory; on CPU tensors it computes the
 plain version (``attention_reference``). Rows with no valid key give
-zeros.
+zeros. Differentiable in q, k and v: the backward recomputes through the
+reference package's einsum math (``mh_reference``), as the reference does;
+no TPU kernel exists for it.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from macaw_llm_tpu_torch.ops.kernels.flash_attention import (
     NEG_INF, attention_reference)
 
 __all__ = ["NEG_INF", "attention_reference", "fits_mh_attention",
-           "mh_attention"]
+           "mh_attention", "mh_reference"]
 
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_BUDGET = 232448
@@ -51,17 +53,68 @@ def _warps(s: int, d: int) -> int:
     return 1
 
 
+def mh_reference(q, k, v, padding_bias, scale: float,
+                 causal: bool) -> torch.Tensor:
+    """The reference package's recompute math of this kernel's backward
+    (``mh_attention.py::_reference``): fp32 logits, the softmax normalized
+    before the probabilities are rounded to the q dtype for the PV
+    product."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bqnd,bknd->bnqk", q.to(acc), k.to(acc)) * scale
+    if padding_bias is not None:
+        logits = logits + padding_bias.to(acc)[:, None, None, :]
+    if causal:
+        idx = torch.arange(q.shape[1], device=q.device)
+        logits = torch.where(idx[:, None] >= idx[None, :], logits, NEG_INF)
+    logits = torch.clamp(logits, min=NEG_INF)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - torch.clamp(m, min=-1e30))
+    l_sum = p.sum(-1, keepdim=True)
+    p = p / torch.where(l_sum == 0.0, 1.0, l_sum)
+    return torch.einsum("bnqk,bknd->bqnd", p.to(q.dtype).to(acc),
+                        v.to(acc)).to(q.dtype)
+
+
+class _MhAttention(torch.autograd.Function):
+    """Forward: the B1 kernel (plain version on the CPU). Backward: autograd
+    through ``mh_reference``, as the reference package differentiates its
+    ``_reference`` with ``jax.vjp``. That backward is an XLA einsum there
+    and no Pallas kernel, so plain PyTorch is its faithful port."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, padding_bias, causal, scale):
+        ctx.save_for_backward(q, k, v, padding_bias)
+        ctx.causal, ctx.scale = causal, scale
+        return _forward(q, k, v, padding_bias, causal, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, padding_bias = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = mh_reference(*qkv, padding_bias, ctx.scale, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None
+
+
 def mh_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  padding_bias: Optional[torch.Tensor] = None, *,
                  causal: bool = False,
                  scale: Optional[float] = None) -> torch.Tensor:
-    """Fused short-sequence self-attention. q/k/v [B, S, N, D];
-    padding_bias additive fp32 [B, S] or None. CUDA: contiguous bf16, D in
-    HEAD_DIMS and ``fits_mh_attention``; anything else raises."""
+    """Fused short-sequence self-attention, differentiable in q, k, v.
+    q/k/v [B, S, N, D]; padding_bias additive fp32 [B, S] or None (no
+    gradient). CUDA: contiguous bf16, D in HEAD_DIMS and
+    ``fits_mh_attention``; anything else raises."""
     if q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"shapes q {q.shape} k {k.shape} v {v.shape}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if padding_bias is not None:
+        padding_bias = padding_bias.detach()
+    return _MhAttention.apply(q, k, v, padding_bias, causal, float(scale))
+
+
+def _forward(q, k, v, padding_bias, causal: bool, scale: float):
     if q.device.type == "cpu":
         return attention_reference(q, k, v, padding_bias, causal=causal,
                                    scale=scale)[0]

@@ -13,6 +13,13 @@ per-output-channel int8 records {"q": int8 [.., in, out], "s": fp32
 The W8A8 and decode switches that the JAX package keeps as process-wide
 setters (``set_activation_quant`` / ``set_decode_kernel``) are explicit
 keyword flags of ``matmul`` here.
+
+Both multi-row routes are differentiable in x; the int8 records never take
+a gradient. The weight-only backward keeps only the int8 record and
+dequantizes it again in the backward (one layer at a time inside the
+decoder's loop), so no bf16 copy of a weight outlives its matmul. W8A8's
+backward is the straight-through estimator of the reference package
+(``_w8a8_dot``'s custom VJP): g @ (q * s)^T.
 """
 
 from __future__ import annotations
@@ -108,13 +115,56 @@ def w8a8_dot(x: torch.Tensor, q: torch.Tensor,
              s: torch.Tensor) -> torch.Tensor:
     """Per-token symmetric int8 activations x int8 weights, int32 dot,
     fp32 rescale by (per-token scale) x (per-channel scale). Returns fp32
-    [..., N]."""
+    [..., N]; differentiable in x by the straight-through estimator."""
+    return _W8A8Dot.apply(x, q, s)
+
+
+def _w8a8_forward(x: torch.Tensor, q: torch.Tensor,
+                  s: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     xs = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-12) / 127.0
     xq = torch.round(xf / xs).to(torch.int8)
     y32 = _int_mm(xq.reshape(-1, xq.shape[-1]), q)
     y = y32.reshape(*x.shape[:-1], q.shape[-1]).float()
     return y * xs * s.reshape(-1)
+
+
+class _W8A8Dot(torch.autograd.Function):
+    """Forward: the W8A8 integer dot. Backward (STE): the rounding of the
+    activations is taken as the identity, gx = g @ (q * s)^T in fp32, cast
+    to x's dtype; the int8 weight and its scale take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q, s):
+        ctx.save_for_backward(q, s)
+        ctx.x_dtype = x.dtype
+        return _w8a8_forward(x, q, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, s = ctx.saved_tensors
+        w = q.float() * s
+        return (g.float() @ w.T).to(ctx.x_dtype), None, None
+
+
+class _Int8Matmul(torch.autograd.Function):
+    """Weight-only int8: ``((x @ q) * s)`` in ``compute``. Saves the int8
+    record, not its dequantized copy; the backward converts it again:
+    gx = ((g * s) in compute) @ q^T."""
+
+    @staticmethod
+    def forward(ctx, x, q, s, compute):
+        ctx.save_for_backward(q, s)
+        ctx.compute = compute
+        # the scale is per output channel, so (x @ q) * s == x @ (q * s)
+        y = x @ q.to(compute)
+        return (y * s.reshape(-1)).to(compute)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, s = ctx.saved_tensors
+        gy = (g.float() * s.reshape(-1)).to(ctx.compute)
+        return gy @ q.to(ctx.compute).T, None, None, None
 
 
 def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
@@ -133,6 +183,4 @@ def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
     rows = x.numel() // x.shape[-1]
     if activation_quant and rows >= ACT_QUANT_MIN_ROWS and q.dim() == 2:
         return w8a8_dot(x, q, s).to(compute)
-    # the scale is per output channel, so (x @ q) * s == x @ (q * s)
-    y = x @ q.to(compute)
-    return (y * s.reshape(-1)).to(compute)
+    return _Int8Matmul.apply(x, q, s, compute)

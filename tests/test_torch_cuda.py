@@ -120,3 +120,70 @@ def test_wrappers_raise_instead_of_falling_back(gen):
         mv.matvec_int8(_rn(gen, 2, 64).float(),
                        torch.zeros(64, 64, dtype=torch.int8, device="cuda"),
                        torch.ones(64, device="cuda"))
+
+
+# Backward (B3 dq, B4 dk/dv) against the plain backward in fp32 on the same
+# bf16 inputs and the same forward output and LSE, row by row (one query or
+# key, one head) against the row's own max |ref|. Both round ds and P to
+# bf16 before the products that use them; they differ in fp32 summation
+# order (which can move a ds or P across a bf16 rounding boundary: one bf16
+# ulp, 2^-8 of that one term) and in the kernel's bf16 output (half an ulp,
+# 2^-9 of the row max): 2^-6 leaves room for a few such terms per row. A
+# row whose exact gradient is zero (the first query of a causal row has one
+# key, so its ds is 0 up to rounding) is measured against 2^-10 of the
+# whole tensor's max |ref| instead.
+BWD_ROW_REL = 2.0 ** -6
+BWD_FLOOR = 2.0 ** -10
+
+
+def _grad_row_err(out, ref):
+    diff = (out.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1).clamp_min(
+        BWD_FLOOR * ref.float().abs().max().item())
+    return (diff / scale.clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("b,sq,sk,n,d,causal,pad,lse_grad", [
+    (2, 300, 300, 4, 128, True, "none", False),
+    (2, 300, 300, 4, 128, True, "tail", False),
+    (2, 300, 300, 4, 128, True, "pad", False),
+    (2, 77, 130, 2, 128, False, "pad", True),
+    (2, 200, 1178, 2, 64, False, "tail", False),
+    (2, 130, 130, 2, 256, True, "pad", False),
+    (1, 100, 300, 2, 256, False, "none", True)])
+def test_flash_backward_kernels(gen, b, sq, sk, n, d, causal, pad, lse_grad):
+    q, k, v = (_rn(gen, b, s, n, d).requires_grad_()
+               for s in (sq, sk, sk))
+    bias = _bias(pad, b, sk, 64)
+    g = _rn(gen, b, sq, n, d)
+    g_lse = (torch.randn(b, sq, n, generator=gen, device="cuda")
+             if lse_grad else None)
+    out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=causal)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    outs, cots = (out, lse), (g, g_lse)
+    if not lse_grad:
+        outs, cots = (out,), (g,)
+    dq, dk, dv = torch.autograd.grad(outs, (q, k, v), cots)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) \
+        == (before[0] + 1, before[1] + 1)
+    delta = fa.backward_delta(out.detach(), g, g_lse)
+    ref = fa.attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), bias, lse.detach(), g, delta,
+        causal=causal, scale=d ** -0.5)
+    for got, r in zip((dq, dk, dv), ref):
+        assert _grad_row_err(got, r) <= BWD_ROW_REL
+    if pad == "pad":  # batch row 0 has no valid key: exact zeros
+        for got in (dq, dk, dv):
+            assert not got[0].any()
+
+
+def test_backward_wrappers_raise_instead_of_falling_back(gen):
+    q = _rn(gen, 1, 16, 1, 32)  # head dim 32: no kernel instance
+    lse = torch.zeros(1, 16, 1, device="cuda")
+    with pytest.raises(ValueError):
+        fa.flash_attention_dq(q, q, q, None, q, lse, lse, causal=True,
+                              scale=1.0)
+    with pytest.raises(ValueError):
+        fa.flash_attention_dkv(q, q, q, None, q, lse, lse, causal=True,
+                               scale=1.0)

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``macaw_llm_tpu_torch/`` and not
-``chip_smoke.py`` imports jax or the reference package ``macaw_llm_tpu``,
-and importing the port compiles nothing."""
+"""The port stands alone: no module of ``macaw_llm_tpu_torch/`` and neither
+``chip_smoke.py`` nor ``decode_ab.py`` imports jax or the reference
+package ``macaw_llm_tpu``, and importing the port compiles nothing."""
 
 import ast
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "macaw_llm_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "decode_ab.py"]
 
 
 def _imports(path: Path):
