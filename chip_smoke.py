@@ -7,6 +7,11 @@ Phases, in order (any failure raises and the script exits non-zero):
     main-path shapes of the 7b profile and time kernel, plain version, the
     library call that computes the same function (where one exists) and
     the bound;
+ 3c. the pipelined matvec (B6) against its plain version at the five 7b
+    decode shapes and a ragged narrow one, at 9, 16 and 32 rows and depths
+    1, 2 and 4 (bitwise equal across depths and runs, within one bf16 ulp
+    of B5), timed beside B5 at 16 and 32 rows with the byte bound, the
+    fp32 FMA bound, the plain version and the library call;
  3b. the same for the backward kernels (flash dq, flash dk/dv) at the 7b
     train shape and at the edge cases (ragged tail, a fully masked batch
     row, an LSE cotangent, head dims 64 and 256), after holding the flash
@@ -16,10 +21,19 @@ Phases, in order (any failure raises and the script exits non-zero):
     kernels against the same weights on the CPU with the plain versions;
  4b. a 2-layer QLoRA train step at 7b widths (loss and the trainable
     leaves' gradients), card against CPU, at text 256 and text 1024;
+ 4c. a 2-layer continuous-batching engine at 7b widths (16 slots, int8
+    weights, int8 KV, int8 alignment cache): the same 6 greedy requests on
+    the card and on the CPU;
  5. the full-width 7b fused prefill, batch 16, seq 256 (fused length 312),
     int8 W8A8 LLaMA, int8 alignment cache, packed towers;
  6. greedy decode of 4 requests, 16 new tokens, int8 packed weights, bf16
-    KV cache;
+    KV cache; then one sampled call, one with the int8 KV cache, and a
+    beam search of 2 requests x 4 beams x 8 tokens, each run twice;
+ 6b. the 7b continuous-batching engine (int8 packed weights, int8 KV, int8
+    alignment cache, prompt bucket 64): one warm-up, then 64 concurrent
+    streamed requests (56 text-only, 8 with image + audio + video, 2 of
+    those sampled at temperature 0.8) of 64 tokens at 16 slots, then 64 of
+    32 tokens at 32 slots; served and steady tokens/s, TTFT and ITL;
  7. release the serving weights;
  8. the 7b QLoRA r=8 train step at full width and depth, batch 8, at text
     1024 (fused length 1080: 2 warm-up + 5 timed steps) and text 256
@@ -32,8 +46,10 @@ Phases, in order (any failure raises and the script exits non-zero):
 Weights are random, made on the card from a seed. Usage, from the root of
 a checkout:  python3 chip_smoke.py [--profile]
 (--profile adds torch.profiler tables of one prefill, of greedy decode
-with 1 and 4 new tokens and of one train step at text 1024, written to
-chiprun_out/.)
+with 1 and 4 new tokens, of 20 engine decode steps at 16 slots (with the
+device's idle share of a step) and of one train step at text 1024, written
+to chiprun_out/.) Every line the script logs is also kept in
+chiprun_out/chip_smoke.log.
 """
 
 from __future__ import annotations
@@ -46,13 +62,16 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores: B6's FMAs
 PEAK_BYTES = 3.35e12
 
 # Attention outputs, kernel vs plain, bf16 compared in fp32, each output
@@ -89,8 +108,15 @@ TRAIN_GRAD_REL_TOL = 6e-2
 LORA_FLOPS_PER_PARAM_TOKEN = 4
 
 
+LOG_FILE = None  # main() opens chiprun_out/chip_smoke.log
+
+
 def log(*args) -> None:
+    """Print a line, and keep it in the run's log file: a caller that shows
+    only the end of the output still finds every line there."""
     print(*args, flush=True)
+    if LOG_FILE is not None:
+        print(*args, file=LOG_FILE, flush=True)
 
 
 def bound(flops: float, nbytes: float):
@@ -448,6 +474,90 @@ def check_matvec(torch, mv, gen, batch: int = 4):
     return {"matvec_int8": rows}
 
 
+# rows per engine step: (slots, depth) cases of B6; B5 beside it
+PIPELINED_ROWS = (9, 16, 32)
+PIPELINED_DEPTHS = (1, 2, 4)
+ULP_FLOOR = 2.0 ** -10
+
+
+def check_matvec_pipelined(torch, mv, gen):
+    """B6 at every decode-step shape and a ragged narrow one: each depth
+    against the plain version at 9, 16 and 32 rows, bitwise equal across
+    depths and on a second run, within one bf16 ulp of B5 at 16 rows (an
+    output below 2^-10 of the largest, a sum that cancelled, is measured
+    against that floor). Timed at 16 and 32 rows beside B5, cycling
+    through >= 128 MB of distinct weights as ``check_matvec`` does."""
+    rows = []
+    for name, k, n, per in DECODE_MATVECS + (("ragged", 352, 250, 0),):
+        copies = max(1, -(-(128 << 20) // (k * n))) if per else 1
+        ws = [torch.randint(-127, 128, (k, n), generator=gen,
+                            device="cuda").to(torch.int8)
+              for _ in range(copies)]
+        s = torch.rand(1, n, generator=gen, device="cuda") * 0.01
+        i = [0]
+
+        def cycle(fn):
+            def call():
+                i[0] = (i[0] + 1) % copies
+                return fn(ws[i[0]])
+            return call
+
+        worst = 0.0
+        for b in PIPELINED_ROWS:
+            x = torch.randn(b, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            ref = mv.matvec_reference(x, ws[0], s).float()
+            outs = [mv.matvec_int8_pipelined(x, ws[0], s, depth=d)
+                    for d in PIPELINED_DEPTHS]
+            again = mv.matvec_int8_pipelined(x, ws[0], s,
+                                             depth=PIPELINED_DEPTHS[-1])
+            torch.cuda.synchronize()
+            err = (outs[-1].float() - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            same = all(torch.equal(o, outs[0]) for o in outs) and \
+                torch.equal(again, outs[-1])
+            if not (rel <= MATVEC_REL_TOL and same):
+                raise AssertionError(
+                    f"matvec_int8_pipelined {name} at {b} rows: rel err "
+                    f"{rel}, bitwise equal across depths and runs: {same}")
+            worst = max(worst, rel)
+            row = dict(call=name, shape=[b, k, n], max_abs_err=err,
+                       rel_err=rel, bitwise_across_depths_and_runs=same,
+                       per_step=per)
+            if b == 16:
+                b5 = mv.matvec_int8(x, ws[0], s).float()
+                scale = b5.abs().clamp_min(ULP_FLOOR * b5.abs().max().item())
+                ulp = ((outs[-1].float() - b5).abs() / scale).max().item()
+                if not ulp <= 2.0 ** -7:
+                    raise AssertionError(f"matvec_int8_pipelined {name}: "
+                                         f"{ulp} from matvec_int8 (bar 2^-7)")
+                row["rel_to_matvec_int8"] = ulp
+            if per and b in (16, 32):
+                iters = 8 * copies
+                for d in PIPELINED_DEPTHS:
+                    row[f"kernel_ms_depth{d}"] = cuda_ms(torch, cycle(
+                        lambda w: mv.matvec_int8_pipelined(x, w, s, depth=d)),
+                        iters)
+                row["kernel_ms"] = row[
+                    f"kernel_ms_depth{PIPELINED_DEPTHS[-1]}"]
+                row["matvec_int8_ms"] = cuda_ms(torch, cycle(
+                    lambda w: mv.matvec_int8(x, w, s)), iters)
+                row["plain_ms"] = cuda_ms(torch, cycle(
+                    lambda w: mv.matvec_reference(x, w, s)), 4 * copies)
+                lib, lib_err, lib_note = library_int8_mm(torch, x, ws, s,
+                                                         ref, cycle)
+                flops = 2 * b * k * n
+                bms, by = bound(flops, k * n + n * 4 + b * k * 2 + b * n * 2)
+                row.update(library_ms=lib, library_rel_err=lib_err,
+                           library_note=lib_note, bound_ms=bms, bound_by=by,
+                           fma_bound_ms=flops / PEAK_FP32_FLOPS * 1e3)
+            rows.append(row)
+        del ws
+        torch.cuda.empty_cache()
+    return {"matvec_int8_pipelined": rows}
+
+
+
 # --------------------------------------------------------------------------
 # phases 4-6: the model
 # --------------------------------------------------------------------------
@@ -537,9 +647,12 @@ def build_7b(torch, cfg):
     params = fusion.init_params(0, cfg, dtype=torch.bfloat16, device="cuda")
     cache = fusion.precompute_align_cache(params, cfg, quantize=True)
     params["llm"] = qz.quantize_llama(params["llm"])
+    # the engine takes the tree before strip and pack (it builds its own
+    # alignment cache); the two trees share every tensor they can
+    full = params
     params = fusion.pack_towers(fusion.strip_align_kv(params))
     torch.cuda.synchronize()
-    return params, cache, time.perf_counter() - t0
+    return params, cache, full, time.perf_counter() - t0
 
 
 def run_prefill(torch, params, cfg, cache, kernels, steps=10, warmup=3):
@@ -550,8 +663,11 @@ def run_prefill(torch, params, cfg, cache, kernels, steps=10, warmup=3):
     logits = prefill(params, cfg, batch, cache)
     torch.cuda.synchronize()
     launched = counts(kernels)
-    expect = {"mh_attention": 32, "flash_attention": 8, "matvec_int8": 1,
-              "flash_attention_dq": 0, "flash_attention_dkv": 0}
+    # the 16 last positions' logits are one single-row int8 matmul of 16
+    # rows: the pipelined matvec
+    expect = {"mh_attention": 32, "flash_attention": 8, "matvec_int8": 0,
+              "flash_attention_dq": 0, "flash_attention_dkv": 0,
+              "matvec_int8_pipelined": 1}
     if launched != expect:
         raise AssertionError(f"prefill launches {launched} != {expect}")
     if logits.shape != (b, cfg.llm.vocab_size) or \
@@ -604,7 +720,8 @@ def run_generate(torch, params, cfg, cache, batch, kernels, new=16, b=4):
     per_step = 4 * cfg.llm.num_layers + 1
     expect = {"mh_attention": 0, "flash_attention": 0,
               "matvec_int8": 1 + (new - 1) * per_step,
-              "flash_attention_dq": 0, "flash_attention_dkv": 0}
+              "flash_attention_dq": 0, "flash_attention_dkv": 0,
+              "matvec_int8_pipelined": 0}
     if launched != expect:
         raise AssertionError(f"decode launches {launched} != {expect}")
     toks = out.tokens
@@ -628,6 +745,401 @@ def run_generate(torch, params, cfg, cache, batch, kernels, new=16, b=4):
                   first_tokens=toks[:, :4].tolist())
     log(json.dumps({"decode": result}))
     return result, params, fused
+
+
+# --------------------------------------------------------------------------
+# phases 4c, 6, 6b: the rest of decode and the server
+# --------------------------------------------------------------------------
+
+class BenchTok:
+    """Stand-in tokenizer (bench.py's, with a hash that does not change
+    from process to process): 41 tokens per prompt."""
+
+    def encode(self, text):
+        h = zlib.crc32(text.encode())
+        return [1] + [16 + (h + 37 * i) % 31000 for i in range(40)]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+
+def engine_media(cfg, seed: int):
+    """One request's image, 30 s of audio and video frames from a seed."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    size = cfg.vision.image_size
+    return dict(
+        image=rng.randint(0, 255, (size, size, 3)).astype(np.uint8),
+        audio=(rng.randn(cfg.audio.n_audio_samples) * 0.1).astype(np.float32),
+        video=rng.randint(0, 255, (cfg.fusion.n_frames, size, size, 3)
+                          ).astype(np.uint8))
+
+
+def serve_all(engine, requests, timeout: float = 900.0):
+    """Submit every request at once, each from its own thread. Returns the
+    results in request order and, per request, the submit time followed by
+    the arrival time of each streamed token."""
+    results = [None] * len(requests)
+    stamps = [[] for _ in requests]
+
+    def worker(i):
+        stamps[i].append(time.perf_counter())
+        requests[i].stream_cb = lambda tok, i=i: stamps[i].append(
+            time.perf_counter())
+        results[i] = engine.generate_sync(requests[i], timeout=timeout)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    bad = [r for r in results if r is None or "text" not in r]
+    if bad:
+        raise AssertionError(f"{len(bad)} requests failed, first: {bad[0]}")
+    return results, stamps
+
+
+def result_tokens(result) -> list:
+    return [int(t) for t in result["text"].split()]
+
+
+def small_engine_parity(torch, cfg7, kernels):
+    """2 LLaMA layers and 2 layers per tower at 7b widths, int8 packed
+    weights, int8 KV and alignment cache, 16 slots: the same 6 greedy
+    requests (3 text-only, 3 with media) through ``ContinuousEngine`` on
+    the card and on the CPU. A request's tokens must be identical, or
+    differ first at a step where the CPU's logits of the two tokens are
+    within LOGITS_REL_TOL of max |logit| (what follows a flipped token is
+    another sequence and is not compared)."""
+    from macaw_llm_tpu_torch.data.templates import format_prompt
+    from macaw_llm_tpu_torch.models import fusion, llama
+    from macaw_llm_tpu_torch.serve import ContinuousEngine, Request
+    from macaw_llm_tpu_torch.utils import quantize as qz
+    cfg = dataclasses.replace(
+        cfg7, llm=dataclasses.replace(cfg7.llm, num_layers=2),
+        vision=dataclasses.replace(cfg7.vision, num_layers=2),
+        audio=dataclasses.replace(cfg7.audio, encoder_layers=2))
+    params = fusion.init_params(21, cfg, dtype=torch.bfloat16, device="cuda")
+    params["llm"] = qz.pack_llama_for_decode(qz.quantize_llama(params["llm"]))
+    tok = BenchTok()
+    slots, new = 16, 8
+
+    def requests():
+        budgets = (new, new, 1, new, 4, new)
+        return [Request(prompt=f"parity request number {i}",
+                        max_new_tokens=budgets[i],
+                        **(engine_media(cfg, 30 + i) if i % 2 else {}))
+                for i in range(6)]
+
+    def run(p, device):
+        eng = ContinuousEngine(p, cfg, tok, slots=slots, prompt_bucket=64,
+                               max_new_tokens=new, align_cache="int8",
+                               kv_cache_dtype="int8", device=device)
+        eng.start()
+        try:
+            results, _ = serve_all(eng, requests())
+        finally:
+            eng.stop()
+        return eng, [result_tokens(r) for r in results]
+
+    reset_counts(kernels)
+    gpu_eng, gpu = run(params, "cuda")
+    torch.cuda.synchronize()
+    launched = counts(kernels)
+    steps = gpu_eng.stats["steps"]
+    per_step = 4 * cfg.llm.num_layers + 1
+    # 3 media admissions and the zero-media prefix: 2 Whisper layers and
+    # the video-long attention each
+    expect = {"mh_attention": 0, "flash_attention": 4 * 3,
+              "flash_attention_dq": 0, "flash_attention_dkv": 0,
+              "matvec_int8": 6, "matvec_int8_pipelined": per_step * steps}
+    if launched != expect:
+        raise AssertionError(f"2-layer engine launches {launched} != {expect}")
+    t0 = time.perf_counter()
+    cpu_params = to_device(params, "cpu")
+    cpu_eng, cpu = run(cpu_params, "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def cpu_logits(req, prefix):
+        """The CPU's next-token logits after the request's prompt and
+        ``prefix`` (no cache, float keys and values)."""
+        ids = torch.tensor([tok.encode(format_prompt(req.prompt))])
+        zeros = engine_media(cfg, 0)
+        media = {k: torch.from_numpy(
+            (getattr(req, k) if getattr(req, k) is not None
+             else zeros[k] * 0)[None]) for k in zeros}
+        with torch.inference_mode():
+            fused = fusion.prepare_inputs(
+                cpu_eng.params, cfg, input_ids=ids, images=media["image"],
+                audios=media["audio"], videos=media["video"],
+                align_cache=cpu_eng.align_cache)
+            emb = fused.inputs_embeds
+            if prefix:
+                emb = torch.cat([emb, cpu_eng.params["llm"]["embed_tokens"][
+                    torch.tensor([prefix])].to(emb.dtype)], dim=1)
+            h = llama.forward_hidden(cpu_eng.params["llm"], cfg.llm, emb)
+            return llama.logits_from_hidden(
+                cpu_eng.params["llm"], h[:, -1:],
+                llama.valid_vocab(cfg.llm))[0, 0]
+
+    flips = []
+    for i, (g, c, req) in enumerate(zip(gpu, cpu, requests())):
+        if len(g) != len(c):
+            raise AssertionError(f"request {i}: {len(g)} tokens on the "
+                                 f"card, {len(c)} on the CPU")
+        diff = [j for j, (a, b) in enumerate(zip(g, c)) if a != b]
+        if not diff:
+            continue
+        j = diff[0]
+        logits = cpu_logits(req, c[:j])
+        gap = (logits[c[j]] - logits[g[j]]).abs().item() / \
+            logits.abs().max().item()
+        flips.append(dict(request=i, step=j, rel_gap=gap))
+        if not gap <= LOGITS_REL_TOL:
+            raise AssertionError(f"request {i} differs at token {j}: the "
+                                 f"CPU's logits are {gap} apart")
+    result = dict(requests=6, slots=slots, new_tokens=new, steps=steps,
+                  identical=6 - len(flips), flips=flips, cpu_seconds=cpu_s,
+                  launches=launched, tokens=gpu)
+    log(json.dumps({"small_engine_parity": result}))
+    return result
+
+
+def run_decode_variants(torch, params, cfg, fused, kernels, b=4, new=16):
+    """``generate`` sampled (per-row temperatures, top_k) and with the int8
+    KV cache, and ``beam_search`` of 2 requests x 4 beams x 8 tokens: each
+    twice, the same generator seed giving the same tokens; every token a
+    real vocab entry. All of these decode up to 8 rows: B5."""
+    from macaw_llm_tpu_torch.generate import beam_search, generate
+    emb, mask = fused.inputs_embeds, fused.attention_mask
+    temps = torch.tensor([0.0, 0.8, 0.0, 1.2], device="cuda")
+    per_step = 4 * cfg.llm.num_layers + 1
+
+    def in_vocab(t):
+        return bool(((t >= 0) & (t < cfg.llm.vocab_size)).all())
+
+    def sampled(seed):
+        return generate(params["llm"], cfg.llm, inputs_embeds=emb,
+                        attention_mask=mask, max_new_tokens=new, eos_id=-1,
+                        temperature=temps, top_k=50,
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            seed)).tokens
+
+    def int8_kv():
+        return generate(params["llm"], cfg.llm, inputs_embeds=emb,
+                        attention_mask=mask, max_new_tokens=new, eos_id=-1,
+                        cache_dtype="int8").tokens
+
+    def beams():
+        return beam_search(params["llm"], cfg.llm, inputs_embeds=emb[:2],
+                           attention_mask=mask[:2], num_beams=4,
+                           max_new_tokens=8, eos_id=-1)
+
+    result = {}
+    for name, fn, expect in (
+            ("sampled", lambda: sampled(5), 1 + (new - 1) * per_step),
+            ("int8_kv", int8_kv, 1 + (new - 1) * per_step),
+            ("beam_search", lambda: beams().tokens, 7 * per_step)):
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        first = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts(kernels)
+        if launched["matvec_int8"] != expect or \
+                launched["matvec_int8_pipelined"]:
+            raise AssertionError(f"{name} launches {launched}, expected "
+                                 f"{expect} matvec_int8")
+        second = fn()
+        if not (in_vocab(first) and torch.equal(first, second)):
+            raise AssertionError(f"{name}: tokens out of range or not "
+                                 "repeatable")
+        result[name] = dict(seconds=seconds, shape=list(first.shape),
+                            matvec_int8=launched["matvec_int8"],
+                            first_tokens=first[:, :4].tolist())
+    greedy = generate(params["llm"], cfg.llm, inputs_embeds=emb,
+                      attention_mask=mask, max_new_tokens=new,
+                      eos_id=-1).tokens
+    s5 = sampled(5)
+    if not torch.equal(s5[[0, 2]], greedy[[0, 2]]):
+        raise AssertionError("rows at temperature 0 left the greedy tokens")
+    if torch.equal(s5, sampled(6)):
+        raise AssertionError("another seed sampled the same tokens")
+    log(json.dumps({"decode_variants": result}))
+    return result
+
+
+def percentile(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * (len(xs) - 1) + 0.5))]
+
+
+def run_engine(torch, params, cfg, kernels, card: str, slots: int, new: int,
+               n_req: int = 64, n_media: int = 8, n_sampled: int = 2):
+    """bench.py --mode serve: the 7b ``ContinuousEngine`` with int8 packed
+    weights, int8 KV and the int8 alignment cache, prompt bucket 64; one
+    warm-up request, then ``n_req`` concurrent streamed requests, the first
+    ``n_media`` of them with image + audio + video and ``n_sampled`` of
+    those at temperature 0.8. Served tokens/s, TTFT and ITL as
+    ``bench_serve`` computes them; steady tokens/s over the stretches in
+    which every slot held a request."""
+    from macaw_llm_tpu_torch.serve import ContinuousEngine, Request
+    engine = ContinuousEngine(params, cfg, BenchTok(), slots=slots,
+                              prompt_bucket=64, max_new_tokens=new,
+                              align_cache="int8", kv_cache_dtype="int8")
+    per_step = 4 * cfg.llm.num_layers + 1
+    # Whisper's layers and the video-long attention; the alignments stay
+    # below their 4e8-byte switch at batch 1
+    flash_per_admission = cfg.audio.encoder_layers + 1
+    engine.start()
+    try:
+        reset_counts(kernels)
+        engine.generate_sync(Request(prompt="warmup request",
+                                     max_new_tokens=4), timeout=600)
+        warm = counts(kernels)
+        # the text-only warm-up computes the zero-media prefix once
+        if warm["flash_attention"] != flash_per_admission or \
+                warm["matvec_int8"] != 1:
+            raise AssertionError(f"warm-up launches {warm}")
+
+        # one request alone on the warm engine: its time to the first token
+        # is the admission prefill, its token gaps the bare decode step
+        _, solo = serve_all(engine, [Request(prompt="solo request",
+                                             max_new_tokens=8)])
+        solo_ttft_ms = (solo[0][1] - solo[0][0]) * 1e3
+        solo_itl_ms = statistics.median(
+            b - a for a, b in zip(solo[0][1:-1], solo[0][2:])) * 1e3
+
+        def requests():
+            reqs = []
+            for i in range(n_req):
+                media = engine_media(cfg, 100 + i) if i < n_media else {}
+                reqs.append(Request(
+                    prompt=f"bench request number {i}", max_new_tokens=new,
+                    temperature=0.8 if i < n_sampled else 0.0, **media))
+            return reqs
+
+        samples = []  # (t, decode steps, requests in a slot)
+        stop_poll = threading.Event()
+
+        def poll():
+            while not stop_poll.is_set():
+                samples.append((time.perf_counter(), engine.stats["steps"],
+                                engine.stats["admitted"]
+                                - engine.stats["requests"]))
+                time.sleep(0.02)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        base_steps, base_done = engine.stats["steps"], \
+            engine.stats["requests"]
+        poller = threading.Thread(target=poll, daemon=True)
+        t0 = time.perf_counter()
+        poller.start()
+        results, stamps = serve_all(engine, requests())
+        elapsed = time.perf_counter() - t0
+        stop_poll.set()
+        poller.join(5)
+        torch.cuda.synchronize()
+        launched = counts(kernels)
+        steps = engine.stats["steps"] - base_steps
+        expect = {"mh_attention": 0,
+                  "flash_attention": flash_per_admission * n_media,
+                  "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                  "matvec_int8": n_req,
+                  "matvec_int8_pipelined": per_step * steps}
+        if launched != expect:
+            raise AssertionError(f"engine launches at {slots} slots "
+                                 f"{launched} != {expect}")
+        if engine.stats["requests"] - base_done != n_req or \
+                engine.stats["admitted"] != n_req + 2:
+            raise AssertionError(f"engine stats {engine.stats}")
+        tokens = [result_tokens(r) for r in results]
+        for i, (r, toks) in enumerate(zip(results, tokens)):
+            if r["tokens"] != len(toks) or not 1 <= len(toks) <= new or \
+                    not all(0 <= t < cfg.llm.vocab_size for t in toks):
+                raise AssertionError(f"request {i}: {r}")
+            if len(stamps[i]) != 1 + len(toks):
+                raise AssertionError(f"request {i}: {len(stamps[i]) - 1} "
+                                     f"tokens streamed, {len(toks)} returned")
+        # a greedy request again, with media and without
+        again, _ = serve_all(engine, [requests()[n_sampled],
+                                      requests()[n_media]])
+        for i, r in zip((n_sampled, n_media), again):
+            if result_tokens(r) != tokens[i]:
+                raise AssertionError(f"greedy request {i} changed on a "
+                                     "second run")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        engine.stop()
+
+    total = sum(len(t) for t in tokens)
+    ttfts = [ts[1] - ts[0] for ts in stamps if len(ts) >= 2]
+    itls = [b - a for ts in stamps if len(ts) >= 3
+            for a, b in zip(ts[1:-1], ts[2:])]
+    # steady state: the stretches between two polls that both found every
+    # slot holding a request
+    dt = dsteps = 0
+    for (t0_, st0, busy0), (t1_, st1, busy1) in zip(samples, samples[1:]):
+        if busy0 == slots and busy1 == slots:
+            dt, dsteps = dt + t1_ - t0_, dsteps + st1 - st0
+    steady = step_ms = None
+    if dsteps:
+        steady, step_ms = dsteps * slots / dt, dt / dsteps * 1e3
+    result = dict(
+        slots=slots, requests=n_req, media_requests=n_media,
+        sampled_requests=n_sampled, new_tokens=new, seconds=elapsed,
+        tokens=total, served_tokens_per_s=total / elapsed,
+        steady_tokens_per_s=steady, steady_step_ms=step_ms, steps=steps,
+        ttft_p50_ms=statistics.median(ttfts) * 1e3,
+        ttft_p95_ms=percentile(ttfts, 0.95) * 1e3,
+        itl_p50_ms=statistics.median(itls) * 1e3,
+        itl_p95_ms=percentile(itls, 0.95) * 1e3,
+        solo_ttft_ms=solo_ttft_ms, solo_itl_ms=solo_itl_ms,
+        peak_mem_gb=peak_gb,
+        launches=launched, stats=dict(engine.stats), card=card)
+    log(json.dumps({"serve": result}))
+    return result, engine
+
+
+def profile_engine_steps(torch, engine, out_dir: Path, steps: int = 20):
+    """torch.profiler over ``steps`` decode steps of a stopped engine,
+    dispatched from this thread with every slot active: the kernels' time
+    against the wall time gives the device's idle share of a step."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    slots = list(range(engine.slots))
+    engine._ctl_dirty = True
+
+    def run(n):
+        with torch.inference_mode(), torch.cuda.stream(
+                engine._decode_stream):
+            for _ in range(n):
+                engine._dispatch(slots)
+        torch.cuda.synchronize()
+
+    engine.lengths.fill_(engine.prompt_bucket + engine.cfg.total_prefix_len)
+    run(3)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    events = prof.key_averages()
+    # kernel rows only: an operator's row repeats its kernels' time
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    table = events.table(sort_by="cuda_time_total", row_limit=25)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"profile_engine{engine.slots}.txt").write_text(table)
+    result = dict(slots=engine.slots, steps=steps, wall_ms_per_step=wall_ms
+                  / steps, device_ms_per_step=device_ms / steps,
+                  device_idle_share=1.0 - device_ms / wall_ms)
+    log(f"== profile engine{engine.slots}\n{table}")
+    log(json.dumps({"engine_step_profile": result}))
+    return result
 
 
 def train_batch(torch, cfg, a: int, b: int, s: int, seed: int):
@@ -710,10 +1222,10 @@ def small_train_parity(torch, cfg7, kernels):
     # Whisper 2 layers; the video-long attention, which trains)
     expects = {256: {"mh_attention": 4, "flash_attention": 3,
                      "flash_attention_dq": 1, "flash_attention_dkv": 1,
-                     "matvec_int8": 0},
+                     "matvec_int8": 0, "matvec_int8_pipelined": 0},
                1024: {"mh_attention": 0, "flash_attention": 7,
                       "flash_attention_dq": 3, "flash_attention_dkv": 3,
-                      "matvec_int8": 0}}
+                      "matvec_int8": 0, "matvec_int8_pipelined": 0}}
     results = {}
     for text, expect in expects.items():
         batch = {k: v[0] for k, v in
@@ -785,12 +1297,13 @@ def run_train(torch, cfg7, kernels, card: str, do_profile: bool,
         + [x for x in _tensors(state.trainable["llm"])]))
     results = {}
     # text, warm-up steps, timed steps, expected launches per step
-    plan = ((1024, 2, 5, {"mh_attention": 0, "flash_attention": 70,
+    plan = ((1024, 2, 3, {"mh_attention": 0, "flash_attention": 70,
                           "flash_attention_dq": 32,
-                          "flash_attention_dkv": 32, "matvec_int8": 0}),
+                          "flash_attention_dkv": 32, "matvec_int8": 0,
+                          "matvec_int8_pipelined": 0}),
             (256, 2, 3, {"mh_attention": 64, "flash_attention": 6,
                          "flash_attention_dq": 0, "flash_attention_dkv": 0,
-                         "matvec_int8": 0}))
+                         "matvec_int8": 0, "matvec_int8_pipelined": 0}))
     for text, warm, timed, expect in plan:
         b = 8
         batch = train_batch(torch, cfg, 1, b, text, seed=11)
@@ -837,6 +1350,49 @@ def run_train(torch, cfg7, kernels, card: str, do_profile: bool,
                 state, batch), out_dir)
     log(json.dumps({"train_init_seconds": init_s}))
     return results
+
+
+def pipelined_entry(name: str, rows, source, serve_res) -> dict:
+    """B6's entry of the kernels line: one engine decode step at 16 slots
+    (its 129 launches), with the same at 32 slots, B5 and the fp32 FMA
+    bound beside it."""
+    def step(b: int) -> dict:
+        timed = [r for r in rows if r["shape"][0] == b and "kernel_ms" in r]
+
+        def total(key):
+            if any(r[key] is None for r in timed):
+                return None
+            return sum(r[key] * r["per_step"] for r in timed)
+
+        out = {key: total(key) for key in (
+            "kernel_ms", "plain_ms", "bound_ms", "fma_bound_ms",
+            "library_ms", "matvec_int8_ms", "kernel_ms_depth1",
+            "kernel_ms_depth2")}
+        out["bound_by"] = max(timed, key=lambda r: r["bound_ms"]
+                              * r["per_step"])["bound_by"]
+        return out
+
+    s16, s32 = step(16), step(32)
+    return {
+        "name": name, "route": "cuda", "source": source[0],
+        "replaces": source[1],
+        "launches": serve_res[16]["launches"][name],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": s16["kernel_ms"], "plain_ms": s16["plain_ms"],
+        "bound_ms": s16["bound_ms"], "bound_by": s16["bound_by"],
+        "library_ms": s16["library_ms"],
+        "work": "one engine decode step at 16 slots (129 launches)",
+        "fma_bound_ms": s16["fma_bound_ms"],
+        "matvec_int8_ms": s16["matvec_int8_ms"],
+        "ms_depth1": s16["kernel_ms_depth1"],
+        "ms_depth2": s16["kernel_ms_depth2"],
+        "step_at_32_rows": s32,
+        "engine_launches": {str(slots): res["launches"][name]
+                            for slots, res in serve_res.items()},
+        "engine_steps": {str(slots): res["steps"]
+                         for slots, res in serve_res.items()},
+        "train_step_launches": 0,
+    }
 
 
 def _tensors(tree):
@@ -888,6 +1444,10 @@ def main() -> int:
     from macaw_llm_tpu_torch.ops.kernels import matvec as mv
     from macaw_llm_tpu_torch.ops.kernels import mh_attention as mh
 
+    global LOG_FILE
+    out_dir.mkdir(parents=True, exist_ok=True)
+    LOG_FILE = open(out_dir / "chip_smoke.log", "w")
+
     t_start = time.perf_counter()
     # 1. build
     info = _build.build()
@@ -909,12 +1469,15 @@ def main() -> int:
                "flash_attention": fa.flash_attention_with_lse,
                "flash_attention_dq": fa.flash_attention_dq,
                "flash_attention_dkv": fa.flash_attention_dkv,
-               "matvec_int8": mv.matvec_int8}
+               "matvec_int8": mv.matvec_int8,
+               "matvec_int8_pipelined": mv.matvec_int8_pipelined}
 
     # 3. kernels vs plain at the main-path shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = check_attention(torch, mh, fa, gen)
     checks.update(check_matvec(torch, mv, gen))
+    # 3c. the pipelined matvec, with B5 beside it at 16 and 32 rows
+    checks.update(check_matvec_pipelined(torch, mv, gen))
     # 3b. the backward kernels (and the forward at their inputs)
     bwd = check_backward(torch, fa, gen)
     checks["flash_attention"] += bwd.pop("flash_attention")
@@ -928,12 +1491,15 @@ def main() -> int:
     cfg = macaw_7b()
     small_model_parity(torch, cfg, kernels)
     torch.cuda.empty_cache()
+    # 4c. 2-layer continuous-batching engine at 7b widths: card vs CPU
+    small_engine_parity(torch, cfg, kernels)
+    torch.cuda.empty_cache()
     # 4b. 2-layer QLoRA train step at 7b widths: card vs CPU
     small_train_parity(torch, cfg, kernels)
     torch.cuda.empty_cache()
 
     # 5. full 7b prefill
-    params, cache, build_s = build_7b(torch, cfg)
+    params, cache, params_full, build_s = build_7b(torch, cfg)
     log(json.dumps({"build_7b_seconds": build_s}))
     prefill_res, batch = run_prefill(torch, params, cfg, cache, kernels)
     main_launches = dict(prefill_res["launches"])
@@ -954,8 +1520,22 @@ def main() -> int:
                 attention_mask=fused.attention_mask, max_new_tokens=n,
                 eos_id=-1), out_dir)
 
+    run_decode_variants(torch, params, cfg, fused, kernels)
+
+    # 6b. the continuous-batching engine at 16 and at 32 slots
+    del cache, batch, fused
+    engine_params = dict(params_full, llm=params["llm"])
+    serve_res = {}
+    for slots, new in ((16, 64), (32, 32)):
+        serve_res[slots], engine = run_engine(torch, engine_params, cfg,
+                                              kernels, card, slots, new)
+        if args.profile:
+            profile_engine_steps(torch, engine, out_dir)
+        del engine
+        torch.cuda.empty_cache()
+
     # 7. release the serving weights
-    del params, cache, batch, fused
+    del params, params_full, engine_params
     torch.cuda.empty_cache()
 
     # 8. the 7b QLoRA train step
@@ -963,8 +1543,9 @@ def main() -> int:
     train_launches = {name: n for text in (256, 1024) for name, n in
                       train_res[text]["launches_per_step"].items() if n}
 
-    # 9. the kernels line: per prefill (B1, B2), per decode step (B5) or
-    # per train step at text 1024 (B3, B4)
+    # 9. the kernels line: per prefill (B1, B2), per decode step (B5, at
+    # batch 4; B6, at 16 engine slots) or per train step at text 1024 (B3,
+    # B4)
     sources = {
         "mh_attention": ("macaw_llm_tpu_torch/csrc/mh_attention.cu",
                          "macaw_llm_tpu/ops/pallas/mh_attention.py:147"),
@@ -978,6 +1559,9 @@ def main() -> int:
             "macaw_llm_tpu/ops/pallas/flash_attention.py:413"),
         "matvec_int8": ("macaw_llm_tpu_torch/csrc/matvec.cu",
                         "macaw_llm_tpu/ops/pallas/matvec.py:79"),
+        "matvec_int8_pipelined": (
+            "macaw_llm_tpu_torch/csrc/matvec_pipelined.cu",
+            "macaw_llm_tpu/ops/pallas/matvec.py:175"),
     }
     entries = []
     for name, rows in checks.items():
@@ -996,6 +1580,10 @@ def main() -> int:
                 "work": "one 7b train step at text 1024 (plain and library: "
                         "the whole backward, dq, dk and dv together)",
                 "train_step_launches": train_launches[name]})
+            continue
+        if name == "matvec_int8_pipelined":
+            entries.append(pipelined_entry(name, rows, sources[name],
+                                           serve_res))
             continue
         per = "per_step" if name == "matvec_int8" else "per_prefill"
         timed = [r for r in rows if r[per]]
@@ -1017,6 +1605,14 @@ def main() -> int:
                      else "one prefill"),
             "train_step_launches": train_launches.get(name, 0),
         }
+        if name == "matvec_int8":  # one per engine admission
+            entry["engine_launches"] = {
+                str(slots): res["launches"][name]
+                for slots, res in serve_res.items()}
+        if name == "flash_attention":  # 7 per media admission
+            entry["engine_launches"] = {
+                str(slots): res["launches"][name]
+                for slots, res in serve_res.items()}
         train = [r for r in rows if r.get("call") == "llama_train"]
         if train:  # B2's 64 LLaMA launches of a train step at text 1024
             r = train[0]
@@ -1028,6 +1624,8 @@ def main() -> int:
         entries.append(entry)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"card": card, "seconds": time.perf_counter() - t_start}))
+    LOG_FILE.close()
+    LOG_FILE = None
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device,
         "count": torch.cuda.device_count()}}), flush=True)

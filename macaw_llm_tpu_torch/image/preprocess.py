@@ -1,7 +1,8 @@
-"""CLIP image preprocessing on the device.
+"""CLIP image preprocessing on the device, and the frame-sampling policy.
 
 Counterpart of ``macaw_llm_tpu/image/preprocess.py``: resize the shortest
-side to ``size`` (bicubic, antialiased), center crop, CLIP normalize.
+side to ``size`` (bicubic, antialiased), center crop, CLIP normalize;
+``sample_frame_indices`` picks the video frames.
 
 The resize reproduces ``jax.image.resize(..., "bicubic", antialias=True)``
 rather than ``torch.nn.functional.interpolate``: the Keys cubic kernel with
@@ -13,10 +14,21 @@ whose size does not change is left as it is, as JAX does.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def sample_frame_indices(n_stored: int = 120,
+                         n_sampled: int = 6) -> np.ndarray:
+    """Uniform frame subsampling with the last frame pinned: stride =
+    n_stored // n_sampled, the last index replaced by n_stored - 1."""
+    stride = n_stored // n_sampled
+    idx = np.arange(0, n_stored, stride)[:n_sampled].copy()
+    idx[-1] = n_stored - 1
+    return idx
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,12 @@ leading [L] axis (the JAX ``lax.scan`` becomes a Python loop over L),
 * no cache (prefill): with ``use_flash`` the attention goes to the
   ``mh_attention`` kernel when the whole sequence fits its shared memory,
   else to the causal ``flash_attention`` kernel;
-* cache: a preallocated bf16 ``KVCache`` written in place at
-  ``length``, attention through ``dot_product_attention`` over the whole
-  buffer with a causal + padding mask.
+* cache: a preallocated ``KVCache`` (bf16, or int8 with per-position
+  per-head scales) written in place at ``length``, one scalar for the
+  batch or one entry per row (continuous batching: every slot has its own
+  sequence length), attention through ``dot_product_attention`` or
+  ``dot_product_attention_quant`` over the whole buffer with a causal +
+  padding mask.
 
 Training: LoRA adapters on q and v (``params["layers"]["lora"]``), remat
 per decoder layer (``torch.utils.checkpoint``, non-reentrant), the shifted
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +36,8 @@ from macaw_llm_tpu_torch.config import IGNORE_ID, LlamaConfig
 from macaw_llm_tpu_torch.models import _tree
 from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
 from macaw_llm_tpu_torch.ops.activations import silu
-from macaw_llm_tpu_torch.ops.attention import dot_product_attention
+from macaw_llm_tpu_torch.ops.attention import (dot_product_attention,
+                                               dot_product_attention_quant)
 from macaw_llm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from macaw_llm_tpu_torch.ops.kernels.mh_attention import (fits_mh_attention,
                                                           mh_attention)
@@ -48,19 +52,44 @@ from macaw_llm_tpu_torch.utils import quantize as qz
 @dataclass
 class KVCache:
     """Preallocated per-layer cache, k/v [L, B, S_max, N_kv, D]; ``length``
-    positions are valid. ``forward_hidden`` writes into k/v in place and
-    advances ``length``."""
+    positions are valid: an int for the whole batch, or an int tensor [B]
+    with one length per row. ``forward_hidden`` writes into k/v (and the
+    scales) in place and advances ``length``.
+
+    dtype int8 stores the cache quantized, with symmetric
+    per-position-per-head scales in ``k_scale``/``v_scale`` [L, B, S_max,
+    N_kv] fp32: half the bytes of the decode attention read. The scales are
+    applied outside the attention dots (``dot_product_attention_quant``)."""
 
     k: torch.Tensor
     v: torch.Tensor
-    length: int = 0
+    length: Union[int, torch.Tensor] = 0
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cpu") -> "KVCache":
         shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
-        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+        if dtype == "int8":
+            dtype = torch.int8
+        cache = cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                    v=torch.zeros(shape, dtype=dtype, device=device))
+        if dtype == torch.int8:
+            cache.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                        device=device)
+            cache.v_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                        device=device)
+        return cache
+
+
+def _quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] -> (int8 [..., D], fp32 scale [...]): symmetric per-vector
+    int8 over the head dim, the contracted axis of both attention dots."""
+    xf = x.float()
+    scale = xf.abs().amax(-1) / 127.0
+    q = torch.round(xf / torch.clamp(scale, min=1e-20)[..., None])
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
 
 
 def init_params(gen: torch.Generator, cfg: LlamaConfig,
@@ -93,7 +122,7 @@ def init_params(gen: torch.Generator, cfg: LlamaConfig,
 
 def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
                mask: Optional[torch.Tensor], cos, sin,
-               cache: Optional[KVCache], li: int,
+               cache: Optional[KVCache], write_at, li: int,
                flash_bias: Optional[torch.Tensor], use_flash: bool,
                activation_quant: bool, lora: Optional[dict] = None,
                lora_scale: float = 1.0) -> torch.Tensor:
@@ -119,16 +148,39 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
     v = v2.reshape(b, s, nkv, d)
     q, k = apply_rope(q, k, cos, sin)
 
+    quant = cache is not None and cache.k_scale is not None
+    k_sc = v_sc = None
     if cache is not None:
-        pos = cache.length
-        cache.k[li, :, pos:pos + s] = k.to(cache.k.dtype)
-        cache.v[li, :, pos:pos + s] = v.to(cache.v.dtype)
-        k_full, v_full = cache.k[li].to(compute), cache.v[li].to(compute)
+        # write_at: a slice of positions (one length for the batch) or a
+        # (rows, positions) index pair (one length per row)
+        at = (li, slice(None), write_at) if isinstance(write_at, slice) \
+            else (li,) + write_at
+        if quant:
+            kw, ks = _quant_kv(k)
+            vw, vs = _quant_kv(v)
+            if not isinstance(write_at, slice) and s == 1:
+                ks, vs = ks[:, 0], vs[:, 0]
+            cache.k_scale[at] = ks
+            cache.v_scale[at] = vs
+        else:
+            kw, vw = k.to(cache.k.dtype), v.to(cache.v.dtype)
+        if not isinstance(write_at, slice) and s == 1:
+            kw, vw = kw[:, 0], vw[:, 0]
+        cache.k[at] = kw
+        cache.v[at] = vw
+        if quant:  # int8 operands, converted inside the attention
+            k_full, v_full = cache.k[li], cache.v[li]
+            k_sc, v_sc = cache.k_scale[li], cache.v_scale[li]
+        else:
+            k_full, v_full = cache.k[li].to(compute), cache.v[li].to(compute)
     else:
         k_full, v_full = k, v
     if nkv != n:
         k_full = k_full.repeat_interleave(n // nkv, dim=2)
         v_full = v_full.repeat_interleave(n // nkv, dim=2)
+        if quant:
+            k_sc = k_sc.repeat_interleave(n // nkv, dim=2)
+            v_sc = v_sc.repeat_interleave(n // nkv, dim=2)
 
     if use_flash and cache is None:
         q, k_full, v_full = (t.contiguous() for t in (q, k_full, v_full))
@@ -136,6 +188,8 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
             out = mh_attention(q, k_full, v_full, flash_bias, causal=True)
         else:
             out = flash_attention(q, k_full, v_full, flash_bias, causal=True)
+    elif quant:
+        out = dot_product_attention_quant(q, k_full, v_full, k_sc, v_sc, mask)
     else:
         out = dot_product_attention(q, k_full, v_full, mask)
     return mm(out.reshape(b, s, n * d), p["wo"])
@@ -154,13 +208,14 @@ def _mlp(p: dict, h: torch.Tensor, activation_quant: bool) -> torch.Tensor:
 
 
 def _decoder_layer(cfg: LlamaConfig, lp: dict, h: torch.Tensor, mask, cos,
-                   sin, kv_cache: Optional[KVCache], li: int, flash_bias,
+                   sin, kv_cache: Optional[KVCache], write_at, li: int,
+                   flash_bias,
                    use_flash: bool, activation_quant: bool,
                    lora_scale: float) -> torch.Tensor:
     """Pre-norm attention + residual, pre-norm SwiGLU + residual."""
     x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
-    h = h + _attention(cfg, lp["attn"], x, mask, cos, sin, kv_cache, li,
-                       flash_bias, use_flash, activation_quant,
+    h = h + _attention(cfg, lp["attn"], x, mask, cos, sin, kv_cache,
+                       write_at, li, flash_bias, use_flash, activation_quant,
                        lp.get("lora"), lora_scale)
     x = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
     return h + _mlp(lp["mlp"], x, activation_quant)
@@ -186,7 +241,12 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
 
     attention_mask: [B, S_total] {0, 1} over the full key length (the
     cache length when a cache is given). positions: [B, S] RoPE positions,
-    by default continuing from the cache length. ``activation_quant``
+    by default continuing from the cache length. With a per-row
+    ``kv_cache.length`` [B], query i of row r sits at position length[r] +
+    i, is written there (a position past the buffer, which only a slot
+    that has already finished can reach, is written to the last one
+    instead, where no live query looks) and sees the keys up to there.
+    ``activation_quant``
     turns on W8A8 for int8 weights at >= 256 rows. ``remat`` checkpoints
     each decoder layer (training without a cache): the backward recomputes
     the layer, int8 dequantization included, and keeps only its input.
@@ -197,14 +257,28 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     device = inputs_embeds.device
     mask = None
     flash_bias = None
+    write_at = None
     if kv_cache is not None:
         start = kv_cache.length
         kv_len = kv_cache.k.shape[2]
-        if positions is None:
-            positions = start + torch.arange(s, device=device)[None, :]
-        q_pos = start + torch.arange(s, device=device)[:, None]
-        k_pos = torch.arange(kv_len, device=device)[None, :]
-        mask = torch.where(k_pos <= q_pos, 0.0, NEG_INF).float()[None, None]
+        steps = torch.arange(s, device=device)
+        k_pos = torch.arange(kv_len, device=device)
+        if torch.is_tensor(start) and start.dim() == 1:
+            q_pos = start[:, None] + steps[None, :]                # [B, s]
+            if positions is None:
+                positions = q_pos
+            mask = torch.where(k_pos[None, None, :] <= q_pos[:, :, None],
+                               0.0, NEG_INF).float()[:, None]  # [B, 1, s, kv]
+            rows = torch.arange(b, device=device)
+            cols = torch.clamp(q_pos, max=kv_len - 1)
+            write_at = (rows, cols[:, 0]) if s == 1 else (rows[:, None], cols)
+        else:
+            start = int(start)
+            if positions is None:
+                positions = start + steps[None, :]
+            mask = torch.where(k_pos[None, :] <= start + steps[:, None], 0.0,
+                               NEG_INF).float()[None, None]
+            write_at = slice(start, start + s)
         if attention_mask is not None:
             mask = combine_masks(mask, padding_mask(attention_mask, s))
     else:
@@ -226,15 +300,15 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     layers = params["layers"]
     for li in range(num_layers(layers)):
         lp = layer(layers, li)
-        args = (mask, cos, sin, kv_cache, li, flash_bias, use_kernel,
-                activation_quant, lora_scale)
+        args = (mask, cos, sin, kv_cache, write_at, li, flash_bias,
+                use_kernel, activation_quant, lora_scale)
         if remat:
             h = checkpoint(partial(_decoder_layer, cfg, lp), h, *args,
                            use_reentrant=False)
         else:
             h = _decoder_layer(cfg, lp, h, *args)
     if kv_cache is not None:
-        kv_cache.length += s
+        kv_cache.length = kv_cache.length + s
     return rms_norm(h, params["norm"].to(h.dtype), cfg.rms_norm_eps)
 
 

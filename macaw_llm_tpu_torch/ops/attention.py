@@ -4,6 +4,8 @@
   softmax, additive mask clamped at float32 min (a fully masked row gets
   uniform probabilities). Used for the cached decode attention and the
   towers' short sequences.
+* ``dot_product_attention_quant``: the same core over an int8 K/V cache,
+  the K scale applied to the logits and the V scale to the probabilities.
 * ``mha_apply`` / ``pack_mha``: CLIP / Whisper multi-head attention with
   per-projection or packed q/k/v weights; long unmasked sequences go to the
   flash kernel.
@@ -40,6 +42,30 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.clamp(logits + mask, min=NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bnqk,bknd->bqnd", probs, v.to(q.dtype))
+
+
+def dot_product_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
+                                v_q: torch.Tensor, k_s: torch.Tensor,
+                                v_s: torch.Tensor,
+                                mask: Optional[torch.Tensor] = None,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """Attention over an int8-quantized K/V cache (the decode path).
+
+    q [B, Sq, N, D] float; k_q/v_q [B, Sk, N, D] int8 (or already
+    converted: integers <= 127 are exact in bf16); k_s/v_s [B, Sk, N] fp32
+    per-position-per-head scales. Each scale is constant along the
+    contracted D axis, so it commutes with its dot exactly: K's scale
+    multiplies the logits, V's folds into the probabilities."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k_q.float()) * scale
+    logits = logits * k_s.permute(0, 2, 1)[:, :, None, :]
+    if mask is not None:
+        logits = torch.clamp(logits + mask, min=NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    probs = (probs * v_s.permute(0, 2, 1)[:, :, None, :]).to(q.dtype)
+    return torch.einsum("bnqk,bknd->bqnd", probs, v_q.to(q.dtype))
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

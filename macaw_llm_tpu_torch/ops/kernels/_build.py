@@ -39,6 +39,9 @@ _SIGNATURES = {
     "macaw_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                       _I, _I, _I, _I, _F, _I, _P],
     "macaw_matvec_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "macaw_matvec_int8_pipelined": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _P],
+    "macaw_matvec_int8_pipelined_blocks_per_sm": [_I, _I, _I],
     "macaw_error_string": [_I],
 }
 

@@ -7,7 +7,11 @@ neither jax nor the reference package). Float leaves are cast to ``dtype``
 (or keep their own dtype, bf16 included, when ``dtype`` is None); int8
 records {"q", "s"} keep int8 rows and fp32 scales, and so do the (rows,
 scale) pairs of an alignment cache (scale may be None). LoRA adapters
-(``llm/layers/lora``) are plain stacked leaves and carry over as they are.
+(``llm/layers/lora``) are plain stacked leaves and carry over as they are,
+and so do the records packed for decode (``qkv``, ``gateup``): they are
+{"q", "s"} dicts like any other. ``kv_cache_from_numpy`` turns a
+reference ``KVCache`` (float or int8 with scales, scalar or per-row
+length) into the port's.
 """
 
 from __future__ import annotations
@@ -48,6 +52,23 @@ def params_from_numpy(tree, device="cpu", dtype=torch.float32):
             return (_tensor(tree[0], device), scale)
         return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
     return _tensor(tree, device, dtype)
+
+
+def kv_cache_from_numpy(k, v, length, k_scale=None, v_scale=None,
+                        device="cpu"):
+    """A reference ``KVCache``'s fields (numpy) as the port's ``KVCache``:
+    k/v keep their dtype (int8 rows stay int8, with their fp32 scales); a
+    0-d ``length`` becomes an int, a [B] one an int64 tensor."""
+    from macaw_llm_tpu_torch.models.llama import KVCache
+    length = np.asarray(length)
+    return KVCache(
+        k=_tensor(k, device), v=_tensor(v, device),
+        length=int(length) if length.ndim == 0
+        else torch.from_numpy(length.astype(np.int64)).to(device),
+        k_scale=None if k_scale is None
+        else _tensor(k_scale, device, torch.float32),
+        v_scale=None if v_scale is None
+        else _tensor(v_scale, device, torch.float32))
 
 
 def train_state_from_numpy(trainable, frozen, tx, *, step: int = 0,

@@ -4,7 +4,10 @@ Counterpart of ``macaw_llm_tpu/utils/quantize.py``: symmetric
 per-output-channel int8 records {"q": int8 [.., in, out], "s": fp32
 [.., 1, out]}, the decode packing, and ``matmul`` with its three routes:
 
-* single-row decode (x [B, 1, K]) -> the ``matvec_int8`` kernel;
+* single-row decode (x [B, 1, K]) -> a matvec kernel picked by the row
+  count B: up to 8 rows ``matvec_int8`` (8 rows per block), 9 to 32 rows
+  ``matvec_int8_pipelined`` (all rows against each weight tile, every
+  weight byte read once); more than 32 rows raise;
 * W8A8 (``activation_quant=True``, >= 256 rows): per-token int8
   activations x int8 weights through ``torch._int_mm``, both scales
   applied after the integer dot;
@@ -28,10 +31,12 @@ from typing import Tuple
 
 import torch
 
-from macaw_llm_tpu_torch.ops.kernels.matvec import matvec_int8
+from macaw_llm_tpu_torch.ops.kernels.matvec import (matvec_int8,
+                                                    matvec_int8_pipelined)
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 ACT_QUANT_MIN_ROWS = 256
+MATVEC_MAX_ROWS = 8  # single-row calls above this go to the pipelined kernel
 
 
 def is_record(w) -> bool:
@@ -179,7 +184,9 @@ def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
     q, s = w["q"], w["s"]
     if decode_kernel and x.dim() == 3 and x.shape[1] == 1 and q.dim() == 2:
         x1 = x[:, 0].to(compute).contiguous()
-        return matvec_int8(x1, q, s, out_dtype=compute)[:, None]
+        kernel = matvec_int8 if x1.shape[0] <= MATVEC_MAX_ROWS \
+            else matvec_int8_pipelined
+        return kernel(x1, q, s, out_dtype=compute)[:, None]
     rows = x.numel() // x.shape[-1]
     if activation_quant and rows >= ACT_QUANT_MIN_ROWS and q.dim() == 2:
         return w8a8_dot(x, q, s).to(compute)

@@ -110,6 +110,79 @@ def test_matvec_kernel(gen, b, k, n):
     assert err.item() <= MATVEC_REL
 
 
+# B6 at the five 7b decode shapes, at a ragged narrow shape and at row
+# counts on both sides of each of its row-block instances (8, 16, 32)
+PIPELINED_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016),
+                    (11008, 4096), (4096, 32007), (352, 250)]
+
+
+def _matvec_inputs(gen, b, k, n):
+    x = _rn(gen, b, k)
+    q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda"
+                      ).to(torch.int8)
+    s = torch.rand(1, n, generator=gen, device="cuda") * 0.01
+    return x, q, s
+
+
+@pytest.mark.parametrize("k,n", PIPELINED_SHAPES)
+@pytest.mark.parametrize("b", [9, 16, 32])
+def test_matvec_pipelined_kernel(gen, b, k, n):
+    """Every depth against the plain version (the matvec bar); the depths
+    agree bitwise with each other (same sums, same order) and a second run
+    with itself."""
+    x, q, s = _matvec_inputs(gen, b, k, n)
+    ref = mv.matvec_reference(x.float(), q, s)
+    before = mv.matvec_int8_pipelined.launches
+    outs = [mv.matvec_int8_pipelined(x, q, s, depth=d) for d in (1, 2, 4)]
+    again = mv.matvec_int8_pipelined(x, q, s, depth=4)
+    torch.cuda.synchronize()
+    assert mv.matvec_int8_pipelined.launches == before + 4
+    for out in outs:
+        err = (out.float() - ref).abs().max() / ref.abs().max()
+        assert err.item() <= MATVEC_REL
+        assert torch.equal(out, outs[0])
+    assert torch.equal(again, outs[2])
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 17])
+def test_matvec_pipelined_other_row_counts(gen, b):
+    x, q, s = _matvec_inputs(gen, b, 1000, 520)  # K no multiple of 32
+    out = mv.matvec_int8_pipelined(x, q, s, depth=3)
+    torch.cuda.synchronize()
+    ref = mv.matvec_reference(x.float(), q, s)
+    assert ((out.float() - ref).abs().max() / ref.abs().max()).item() \
+        <= MATVEC_REL
+
+
+def test_matvec_pipelined_within_one_ulp_of_matvec(gen):
+    """B6 against B5 at 16 rows: both round the same fp32 sum, taken in
+    another order, to bf16, so an output differs by at most one bf16 ulp
+    (2^-7 of its value). An output below 2^-10 of the largest is a sum
+    that cancelled, where the order of the fp32 additions shows: it is
+    measured against that floor instead."""
+    x, q, s = _matvec_inputs(gen, 16, 4096, 12288)
+    a = mv.matvec_int8_pipelined(x, q, s).float()
+    b5 = mv.matvec_int8(x, q, s).float()
+    torch.cuda.synchronize()
+    scale = b5.abs().clamp_min(2.0 ** -10 * b5.abs().max().item())
+    assert ((a - b5).abs() / scale).max().item() <= 2.0 ** -7
+
+
+def test_matvec_pipelined_on_a_layer_slice(gen):
+    """A layer's weight inside the stacked [L, K, N] tensor (an offset
+    pointer, 16-byte aligned) and a scale of shape [1, N]."""
+    k, n = 512, 1024
+    stack = torch.randint(-127, 128, (3, k, n), generator=gen, device="cuda"
+                          ).to(torch.int8)
+    s = torch.rand(3, 1, n, generator=gen, device="cuda") * 0.01
+    x = _rn(gen, 12, k)
+    out = mv.matvec_int8_pipelined(x, stack[1], s[1])
+    torch.cuda.synchronize()
+    ref = mv.matvec_reference(x.float(), stack[1], s[1])
+    assert ((out.float() - ref).abs().max() / ref.abs().max()).item() \
+        <= MATVEC_REL
+
+
 def test_wrappers_raise_instead_of_falling_back(gen):
     q = _rn(gen, 1, 16, 1, 32)  # head dim 32: no kernel instance
     with pytest.raises(ValueError):
@@ -120,6 +193,16 @@ def test_wrappers_raise_instead_of_falling_back(gen):
         mv.matvec_int8(_rn(gen, 2, 64).float(),
                        torch.zeros(64, 64, dtype=torch.int8, device="cuda"),
                        torch.ones(64, device="cuda"))
+    w = torch.zeros(64, 64, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):  # fp32 activations
+        mv.matvec_int8_pipelined(_rn(gen, 16, 64).float(), w,
+                                 torch.ones(64, device="cuda"))
+    with pytest.raises(ValueError):  # more rows than the kernel holds
+        mv.matvec_int8_pipelined(_rn(gen, 33, 64), w,
+                                 torch.ones(64, device="cuda"))
+    with pytest.raises(ValueError):
+        mv.matvec_int8_pipelined(_rn(gen, 16, 64), w,
+                                 torch.ones(64, device="cuda"), depth=0)
 
 
 # Backward (B3 dq, B4 dk/dv) against the plain backward in fp32 on the same
@@ -187,3 +270,71 @@ def test_backward_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(ValueError):
         fa.flash_attention_dkv(q, q, q, None, q, lse, lse, causal=True,
                                scale=1.0)
+
+
+def test_continuous_engine_on_the_card(gen):
+    """The tiny model's engine on the card, int8 packed weights, int8 KV,
+    16 slots: every step is 9 pipelined matvecs (4 per layer and the LM
+    head), every admission one matvec_int8; greedy requests repeat their
+    tokens and a sampled neighbour does not change them."""
+    import dataclasses
+    import threading
+
+    from macaw_llm_tpu_torch.config import tiny_model_config
+    from macaw_llm_tpu_torch.models import fusion
+    from macaw_llm_tpu_torch.serve import ContinuousEngine, Request
+    from macaw_llm_tpu_torch.utils import quantize as qz
+
+    class Tok:
+        def encode(self, text):
+            return [1] + [7 + (sum(map(ord, w)) * 131) % 31000
+                          for w in text.split()]
+
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(str(i) for i in ids)
+
+    cfg = dataclasses.replace(tiny_model_config(), dtype="bfloat16")
+    params = fusion.init_params(0, cfg, dtype=torch.bfloat16, device="cuda")
+    params["llm"] = qz.pack_llama_for_decode(qz.quantize_llama(params["llm"]))
+    eng = ContinuousEngine(params, cfg, Tok(), slots=16, prompt_bucket=32,
+                           max_new_tokens=6, align_cache="int8",
+                           kv_cache_dtype="int8")
+
+    def run(requests):
+        results = [None] * len(requests)
+
+        def worker(i):
+            results[i] = eng.generate_sync(requests[i], timeout=120)
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        return results
+
+    def requests(hot):
+        size = cfg.vision.image_size
+        image = torch.full((size, size, 3), 90, dtype=torch.uint8).numpy()
+        return [Request(prompt=f"question number {i} of the test",
+                        max_new_tokens=6, image=image if i % 3 == 0 else None,
+                        temperature=hot if i == 1 else 0.0)
+                for i in range(20)]
+
+    before = (mv.matvec_int8.launches, mv.matvec_int8_pipelined.launches)
+    eng.start()
+    try:
+        first = run(requests(0.0))
+        second = run(requests(1.5))
+    finally:
+        eng.stop()
+    assert all(r is not None and r.get("tokens") == 6 for r in first + second)
+    for i, (a, b) in enumerate(zip(first, second)):
+        if i != 1:
+            assert a == b
+    assert eng.stats["requests"] == eng.stats["admitted"] == 40
+    per_step = 4 * cfg.llm.num_layers + 1
+    assert mv.matvec_int8.launches - before[0] == 40
+    assert mv.matvec_int8_pipelined.launches - before[1] == \
+        per_step * eng.stats["steps"]

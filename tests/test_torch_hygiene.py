@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``macaw_llm_tpu_torch/`` and neither
-``chip_smoke.py`` nor ``decode_ab.py`` imports jax or the reference
-package ``macaw_llm_tpu``, and importing the port compiles nothing."""
+"""The port stands alone: no module of ``macaw_llm_tpu_torch/`` and none of
+``chip_smoke.py``, ``decode_ab.py`` and ``tools/decode_probes.py`` imports
+jax or the reference package ``macaw_llm_tpu``, and importing every module
+of the port (the server and the data helpers included) loads no jax and
+compiles nothing."""
 
 import ast
 import subprocess
@@ -11,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "macaw_llm_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "decode_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "decode_ab.py",
+    ROOT / "tools" / "decode_probes.py"]
 
 
 def _imports(path: Path):
@@ -34,8 +37,12 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_import_leaves_jax_unloaded_and_builds_nothing():
-    code = ("import sys, macaw_llm_tpu_torch.prefill, "
-            "macaw_llm_tpu_torch.generate\n"
+    code = ("import importlib, pkgutil, sys, macaw_llm_tpu_torch\n"
+            "for m in pkgutil.walk_packages(macaw_llm_tpu_torch.__path__, "
+            "'macaw_llm_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'macaw_llm_tpu_torch.serve' in sys.modules\n"
+            "assert 'macaw_llm_tpu_torch.data.loader' in sys.modules\n"
             "from macaw_llm_tpu_torch.ops.kernels import _build\n"
             "assert _build._lib is None\n"
             "print(sorted(m for m in sys.modules if m == 'jax' "
