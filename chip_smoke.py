@@ -12,11 +12,14 @@ Phases, in order (any failure raises and the script exits non-zero):
     1, 2 and 4 (bitwise equal across depths and runs, within one bf16 ulp
     of B5), timed beside B5 at 16 and 32 rows with the byte bound, the
     fp32 FMA bound, the plain version and the library call;
- 3b. the same for the backward kernels (flash dq, flash dk/dv) at the 7b
-    train shape and at the edge cases (ragged tail, a fully masked batch
-    row, an LSE cotangent, head dims 64 and 256), after holding the flash
-    forward that feeds them against its plain version in every case and
-    timing it at the train shape;
+ 3b. the same for the backward kernels (delta, flash dq, flash dk/dv) at
+    the 7b train shape and at the edge cases (ragged tail, a fully masked
+    batch row, an LSE cotangent, head dims 64 and 256), after holding the
+    flash forward that feeds them against its plain version in every case
+    and timing it at the train shape; at the train shape the gradients
+    must be the same bits on a rerun, and the whole CUDA backward (delta,
+    dq, dk/dv) is timed beside SDPA's backward (phase 1 fails if ptxas
+    reports a spill in a D = 128 backward kernel);
  4. a 2-layer model at 7b widths (batch 2, seq 256) on the card with the
     kernels against the same weights on the CPU with the plain versions;
  4b. a 2-layer QLoRA train step at 7b widths (loss and the trainable
@@ -95,6 +98,10 @@ LOGITS_REL_TOL = 3e-2  # the BASELINE.md bf16 bar
 # against 2^-10 of the whole tensor's max |ref| instead.
 BWD_ROW_REL_TOL = 2.0 ** -6
 BWD_ROW_FLOOR = 2.0 ** -10
+# delta = rowsum(dO * O) in fp32: the kernel and the plain version add the
+# same D exact products in another order, within D * 2^-24 of the row's
+# sum of |products|; 1e-5 of max |delta| covers D = 256.
+DELTA_REL_TOL = 1e-5
 
 # The 2-layer train step, card (bf16, kernels) against CPU (bf16, plain
 # versions), same weights and batch: the loss within the BASELINE.md bf16
@@ -139,6 +146,33 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_resources(build_log: str) -> dict:
+    """ptxas registers and spill bytes per kernel of an ``nvcc -Xptxas -v``
+    log, keyed by the kernel's name and template arguments
+    (``flash_bwd_dq_wgmma<128>``)."""
+    res, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"(flash_bwd_[a-z_]+?)(?:I((?:Li\d+E)+)E|E)", name)
+            if k:
+                args = re.findall(r"Li(\d+)E", k.group(2) or "")
+                name = k.group(1) + (f"<{','.join(args)}>" if args else "")
+            res[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            res[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            res[name]["registers"] = int(m.group(1))
+            name = None
+    return res
 
 
 def row_rel_err(out, ref) -> float:
@@ -278,10 +312,13 @@ def check_attention(torch, mh, fa, gen):
 # --------------------------------------------------------------------------
 
 def check_backward(torch, fa, gen):
-    """B3 and B4 at the 7b train shape (batch 8, fused length 1080, 32
-    heads of 128, causal, all-ones mask) and at the edge cases. The forward
-    (B2) that gives both sides their output and LSE is held against its
-    plain version first in every case, and timed at the train shape."""
+    """delta, B3 and B4 at the 7b train shape (batch 8, fused length 1080,
+    32 heads of 128, causal, all-ones mask) and at the edge cases. The
+    forward (B2) that gives both sides their output and LSE is held against
+    its plain version first in every case, and timed at the train shape;
+    at the train shape the three gradients must also be the same bits on a
+    second run, and the whole CUDA backward (delta, B3, B4) is timed beside
+    SDPA's backward."""
     import torch.nn.functional as F
 
     def rn(*shape):
@@ -297,7 +334,7 @@ def check_backward(torch, fa, gen):
              ("d64", 2, 300, 300, 4, 64, True, "row0", False),
              ("d256", 2, 260, 260, 2, 256, True, "tail", True))
     rows = {"flash_attention_dq": [], "flash_attention_dkv": [],
-            "flash_attention": []}
+            "flash_attention_delta": [], "flash_attention": []}
     timing = None
     for name, b, sq, sk, n, d, causal, kind, lse_grad in cases:
         q, k, v, g = rn(b, sq, n, d), rn(b, sk, n, d), rn(b, sk, n, d), \
@@ -319,11 +356,24 @@ def check_backward(torch, fa, gen):
         if not (fwd_rel <= ATTN_ROW_REL_TOL and lse_err <= LSE_TOL):
             raise AssertionError(f"flash forward at the backward case {name}:"
                                  f" row rel err {fwd_rel}, lse err {lse_err}")
-        delta = fa.backward_delta(out, g, g_lse)
+        delta = fa.flash_attention_delta(out, g, g_lse)
+        ref_delta = fa.backward_delta(out, g, g_lse)
+        delta_err = (delta - ref_delta).abs().max().item()
+        delta_rel = delta_err / ref_delta.abs().max().item()
         kw = dict(causal=causal, scale=d ** -0.5)
-        dq = fa.flash_attention_dq(q, k, v, bias, g, lse, delta, **kw)
-        dk, dv = fa.flash_attention_dkv(q, k, v, bias, g, lse, delta, **kw)
+
+        def grads():
+            dq = fa.flash_attention_dq(q, k, v, bias, g, lse, delta, **kw)
+            dk, dv = fa.flash_attention_dkv(q, k, v, bias, g, lse, delta,
+                                            **kw)
+            return dq, dk, dv
+
+        dq, dk, dv = grads()
         torch.cuda.synchronize()
+        same = None
+        if name == "train":  # no atomics, a fixed order of sums
+            same = all(torch.equal(x, y) for x, y in zip((dq, dk, dv),
+                                                         grads()))
         ref = fa.attention_backward_reference(q, k, v, bias, lse, g, delta,
                                               **kw)
         errs = {key: (grad_row_err(got, r),
@@ -334,18 +384,24 @@ def check_backward(torch, fa, gen):
                                          or dv[0].any())
         bad = {key: e for key, e in errs.items() if not e[0] <=
                BWD_ROW_REL_TOL}
-        if bad or not zero_ok:
+        if bad or not zero_ok or same is False or \
+                not delta_rel <= DELTA_REL_TOL:
             raise AssertionError(f"flash backward {name}: row errors {errs}, "
-                                 f"masked row exactly zero: {zero_ok}")
-        del ref
+                                 f"masked row exactly zero: {zero_ok}, "
+                                 f"bitwise equal on a second run: {same}, "
+                                 f"delta rel err {delta_rel}")
+        del ref, ref_delta
         case = dict(case=name, shape_q=[b, sq, n, d], shape_kv=[b, sk, n, d],
                     causal=causal, lse_cotangent=lse_grad,
-                    masked_row_zero=zero_ok if kind == "row0" else None)
+                    masked_row_zero=zero_ok if kind == "row0" else None,
+                    bitwise_equal_rerun=same)
         rows["flash_attention_dq"].append(dict(
             case, row_rel_err=errs["dq"][0], max_abs_err=errs["dq"][1]))
         rows["flash_attention_dkv"].append(dict(
             case, row_rel_err=max(errs["dk"][0], errs["dv"][0]),
             max_abs_err=max(errs["dk"][1], errs["dv"][1])))
+        rows["flash_attention_delta"].append(dict(
+            case, rel_err=delta_rel, max_abs_err=delta_err))
         fwd = dict(call=f"backward_case_{name}", shape_q=[b, sq, n, d],
                    shape_kv=[b, sk, n, d], causal=causal, max_abs_err=fwd_err,
                    row_rel_err=fwd_rel, lse_err=lse_err, per_prefill=0)
@@ -368,10 +424,21 @@ def check_backward(torch, fa, gen):
                        per_step=64)
             del qt, kt, vt
             nbytes_in = 4 * q.numel() * 2 + 2 * b * n * sq * 4
+            ms_delta = cuda_ms(torch, lambda: fa.flash_attention_delta(
+                out, g), 20)
+            plain_delta = cuda_ms(torch, lambda: fa.backward_delta(out, g),
+                                  10)
             ms_dq = cuda_ms(torch, lambda: fa.flash_attention_dq(
-                q, k, v, bias, g, lse, delta, **kw), 10)
+                q, k, v, bias, g, lse, delta, **kw), 20)
             ms_dkv = cuda_ms(torch, lambda: fa.flash_attention_dkv(
-                q, k, v, bias, g, lse, delta, **kw), 10)
+                q, k, v, bias, g, lse, delta, **kw), 20)
+
+            def whole():  # what _FlashAttention.backward launches
+                dl = fa.flash_attention_delta(out, g)
+                fa.flash_attention_dq(q, k, v, bias, g, lse, dl, **kw)
+                fa.flash_attention_dkv(q, k, v, bias, g, lse, dl, **kw)
+
+            ms_whole = cuda_ms(torch, whole, 20)
             plain = cuda_ms(torch, lambda: fa.attention_backward_reference(
                 q, k, v, bias, lse, g, delta, **kw), 3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -380,25 +447,34 @@ def check_backward(torch, fa, gen):
                                                      is_causal=True)
             gt = g.transpose(1, 2)
             lib = cuda_ms(torch, lambda: torch.autograd.grad(
-                lib_out, (qt, kt, vt), gt, retain_graph=True), 10)
+                lib_out, (qt, kt, vt), gt, retain_graph=True), 20)
             # dq: S, dP and dS K (3 products); dk/dv: S, P^T dO, dP and
-            # dS^T Q (4): 2 * D FLOPs each per (query, key) pair and head
+            # dS^T Q (4): 2 * D FLOPs each per (query, key) pair and head;
+            # delta reads O and dO and writes one fp32 per row
             b3 = bound(3 * 2 * b * n * d * pairs, nbytes_in + q.numel() * 2)
             b4 = bound(4 * 2 * b * n * d * pairs,
                        nbytes_in + 2 * k.numel() * 2)
-            timing = {"flash_attention_dq": (ms_dq, b3),
-                      "flash_attention_dkv": (ms_dkv, b4),
-                      "plain_ms": plain, "library_ms": lib}
+            bd = bound(2 * b * n * sq * d, 2 * out.numel() * 2
+                       + b * n * sq * 4)
+            timing = {"flash_attention_dq": (ms_dq, b3, plain, lib),
+                      "flash_attention_dkv": (ms_dkv, b4, plain, lib),
+                      "flash_attention_delta": (ms_delta, bd, plain_delta,
+                                                None)}
+            log(json.dumps({"backward_timing": dict(
+                shape=[b, sq, n, d], causal=True, delta_ms=ms_delta,
+                dq_ms=ms_dq, dkv_ms=ms_dkv, whole_cuda_backward_ms=ms_whole,
+                sdpa_backward_ms=lib, plain_backward_ms=plain,
+                plain_delta_ms=plain_delta,
+                bound_ms=b3[0] + b4[0] + bd[0])}))
             del qt, kt, vt, lib_out, gt
         rows["flash_attention"].append(fwd)
         del q, k, v, g, out, lse, delta, dq, dk, dv, bias
         torch.cuda.empty_cache()
     results = {"flash_attention": rows.pop("flash_attention")}
     for kname, krows in rows.items():
-        ms, (bms, by) = timing[kname]
-        krows[0].update(kernel_ms=ms, plain_ms=timing["plain_ms"],
-                        library_ms=timing["library_ms"], bound_ms=bms,
-                        bound_by=by, per_step=32)
+        ms, (bms, by), plain, lib = timing[kname]
+        krows[0].update(kernel_ms=ms, plain_ms=plain, library_ms=lib,
+                        bound_ms=bms, bound_by=by, per_step=32)
         results[kname] = krows
     return results
 
@@ -667,6 +743,7 @@ def run_prefill(torch, params, cfg, cache, kernels, steps=10, warmup=3):
     # rows: the pipelined matvec
     expect = {"mh_attention": 32, "flash_attention": 8, "matvec_int8": 0,
               "flash_attention_dq": 0, "flash_attention_dkv": 0,
+              "flash_attention_delta": 0,
               "matvec_int8_pipelined": 1}
     if launched != expect:
         raise AssertionError(f"prefill launches {launched} != {expect}")
@@ -721,6 +798,7 @@ def run_generate(torch, params, cfg, cache, batch, kernels, new=16, b=4):
     expect = {"mh_attention": 0, "flash_attention": 0,
               "matvec_int8": 1 + (new - 1) * per_step,
               "flash_attention_dq": 0, "flash_attention_dkv": 0,
+              "flash_attention_delta": 0,
               "matvec_int8_pipelined": 0}
     if launched != expect:
         raise AssertionError(f"decode launches {launched} != {expect}")
@@ -853,6 +931,7 @@ def small_engine_parity(torch, cfg7, kernels):
     # the video-long attention each
     expect = {"mh_attention": 0, "flash_attention": 4 * 3,
               "flash_attention_dq": 0, "flash_attention_dkv": 0,
+              "flash_attention_delta": 0,
               "matvec_int8": 6, "matvec_int8_pipelined": per_step * steps}
     if launched != expect:
         raise AssertionError(f"2-layer engine launches {launched} != {expect}")
@@ -1048,6 +1127,7 @@ def run_engine(torch, params, cfg, kernels, card: str, slots: int, new: int,
         expect = {"mh_attention": 0,
                   "flash_attention": flash_per_admission * n_media,
                   "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                  "flash_attention_delta": 0,
                   "matvec_int8": n_req,
                   "matvec_int8_pipelined": per_step * steps}
         if launched != expect:
@@ -1222,9 +1302,11 @@ def small_train_parity(torch, cfg7, kernels):
     # Whisper 2 layers; the video-long attention, which trains)
     expects = {256: {"mh_attention": 4, "flash_attention": 3,
                      "flash_attention_dq": 1, "flash_attention_dkv": 1,
+                     "flash_attention_delta": 1,
                      "matvec_int8": 0, "matvec_int8_pipelined": 0},
                1024: {"mh_attention": 0, "flash_attention": 7,
                       "flash_attention_dq": 3, "flash_attention_dkv": 3,
+                      "flash_attention_delta": 3,
                       "matvec_int8": 0, "matvec_int8_pipelined": 0}}
     results = {}
     for text, expect in expects.items():
@@ -1299,10 +1381,12 @@ def run_train(torch, cfg7, kernels, card: str, do_profile: bool,
     # text, warm-up steps, timed steps, expected launches per step
     plan = ((1024, 2, 3, {"mh_attention": 0, "flash_attention": 70,
                           "flash_attention_dq": 32,
-                          "flash_attention_dkv": 32, "matvec_int8": 0,
+                          "flash_attention_dkv": 32,
+                          "flash_attention_delta": 32, "matvec_int8": 0,
                           "matvec_int8_pipelined": 0}),
             (256, 2, 3, {"mh_attention": 64, "flash_attention": 6,
                          "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                         "flash_attention_delta": 0,
                          "matvec_int8": 0, "matvec_int8_pipelined": 0}))
     for text, warm, timed, expect in plan:
         b = 8
@@ -1455,6 +1539,16 @@ def main() -> int:
     for line in info["log"].splitlines():
         if line.startswith("==") or re.search(r"registers|spill", line):
             log("  " + line.strip())
+    # the backward kernels' registers and spills; the D = 128 instances of
+    # the train path must not spill
+    bwd_res = {name: r for name, r in kernel_resources(info["log"]).items()
+               if name.startswith("flash_bwd_")}
+    log(json.dumps({"backward_kernel_resources": bwd_res}))
+    spilled = {name: r for name, r in bwd_res.items()
+               if name.endswith("<128>") and r.get("spill_stores", 0)
+               + r.get("spill_loads", 0)}
+    if spilled:
+        raise AssertionError(f"backward kernels spill at D = 128: {spilled}")
     _build.library()
 
     # 2. the card
@@ -1469,6 +1563,7 @@ def main() -> int:
                "flash_attention": fa.flash_attention_with_lse,
                "flash_attention_dq": fa.flash_attention_dq,
                "flash_attention_dkv": fa.flash_attention_dkv,
+               "flash_attention_delta": fa.flash_attention_delta,
                "matvec_int8": mv.matvec_int8,
                "matvec_int8_pipelined": mv.matvec_int8_pipelined}
 
@@ -1557,6 +1652,10 @@ def main() -> int:
         "flash_attention_dkv": (
             "macaw_llm_tpu_torch/csrc/flash_attention_bwd.cu",
             "macaw_llm_tpu/ops/pallas/flash_attention.py:413"),
+        # the delta of _flash_bwd (plain jnp beside its two pallas_calls)
+        "flash_attention_delta": (
+            "macaw_llm_tpu_torch/csrc/flash_attention_bwd.cu",
+            "macaw_llm_tpu/ops/pallas/flash_attention.py:318"),
         "matvec_int8": ("macaw_llm_tpu_torch/csrc/matvec.cu",
                         "macaw_llm_tpu/ops/pallas/matvec.py:79"),
         "matvec_int8_pipelined": (
@@ -1567,6 +1666,7 @@ def main() -> int:
     for name, rows in checks.items():
         if name.startswith("flash_attention_d"):
             row = rows[0]  # the train shape, 32 launches per train step
+            lib = row["library_ms"]
             entries.append({
                 "name": name, "route": "cuda", "source": sources[name][0],
                 "replaces": sources[name][1],
@@ -1576,9 +1676,11 @@ def main() -> int:
                 "plain_ms": row["plain_ms"] * row["per_step"],
                 "bound_ms": row["bound_ms"] * row["per_step"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"] * row["per_step"],
-                "work": "one 7b train step at text 1024 (plain and library: "
-                        "the whole backward, dq, dk and dv together)",
+                "library_ms": None if lib is None else lib * row["per_step"],
+                "work": "one 7b train step at text 1024" + (
+                    "" if name.endswith("delta") else
+                    " (plain and library: the whole backward, dq, dk and "
+                    "dv together)"),
                 "train_step_launches": train_launches[name]})
             continue
         if name == "matvec_int8_pipelined":

@@ -1,12 +1,13 @@
-// Flash-attention backward: dq (B3) and dk/dv (B4), probabilities
+// Flash-attention backward: delta, dq (B3) and dk/dv (B4), probabilities
 // recomputed from the forward's log-sum-exp.
 //
 // Replaces: macaw_llm_tpu/ops/pallas/flash_attention.py:366 (_bwd_dq_kernel)
-// and :413 (_bwd_dkv_kernel), the two pallas_calls of _flash_bwd.
+// and :413 (_bwd_dkv_kernel), the two pallas_calls of _flash_bwd, and the
+// delta of _flash_bwd (:318, plain jnp there).
 //
-// Both kernels take q/dO [B, Sq, N, D], k/v [B, Sk, N, D] bf16, lse and
-// delta fp32 [B*N, Sq] (delta = rowsum(dO * O), less the LSE cotangent when
-// there is one), an optional additive fp32 padding bias [B, Sk], and recompute
+// The kernels take q/dO [B, Sq, N, D], k/v [B, Sk, N, D] bf16, lse and delta
+// fp32 [B*N, Sq] (delta = rowsum(dO * O), less the LSE cotangent when there
+// is one), an optional additive fp32 padding bias [B, Sk], and recompute
 //   S  = Q K^T * scale + bias (masked),  P = exp(S - lse),
 //   dP = dO V^T,                         dS = P * (dP - delta)  (bf16),
 //   dQ = dS K * scale,  dK = dS^T Q * scale,  dV = P^T dO  (P in bf16),
@@ -16,25 +17,55 @@
 //
 // Bound on the H100 at the train shape (B=8, S=1080, N=32, D=128, causal):
 // operations. dq does 3 and dk/dv 4 [S x S x D] products over the causal
-// half, 4.8e11 and 6.4e11 FLOP against 3.3e8 bytes of inputs and outputs.
+// half, 1.15e11 and 1.53e11 FLOP (0.116 and 0.155 ms at 989 TFLOP/s)
+// against 3.3e8 bytes of inputs and outputs (0.1 ms at 3.35 TB/s). delta is
+// bytes: it reads O and dO once (1.4e8 bytes, 0.042 ms).
 //
-// Design (first version: right and simple, no wgmma/TMA): the TPU grid's
-// sequential axis becomes a loop inside the block, and the two kernels keep
-// the TPU's split so that neither needs atomics and both are deterministic.
-//  * dq: one block per (batch x head, 64-query tile), four warps of 16 query
-//    rows. Q, dO and the fp32 dQ accumulator of a warp stay in shared memory;
-//    the block streams K/V tiles of BK keys up to the causal diagonal, each
-//    staged once for all four warps. S and dP are WMMA products (bf16
-//    operands, fp32 accumulate) through one fp32 tile; each lane turns half a
-//    row of them into P and dS in registers.
-//  * dk/dv: one block per (batch x head, 16 x WARPS keys), each warp owning
-//    16 keys with their K, V and fp32 dK, dV accumulators in shared memory;
-//    the block streams 64-query tiles of Q, dO, lse and delta from the
-//    causal diagonal down to the end and works on the transposed tiles
-//    (S^T = K Q^T, dP^T = V dO^T), so both updates are plain row-major
-//    products. Query rows past Sq carry lse NEG_INF and add nothing.
-// Head dims 64, 128 and 256. At D = 256 the dq kernel takes 32-key tiles and
-// the dk/dv kernel 32 keys per block (two warps), to stay inside 227 KB.
+// Design at D = 64 and 128 (sm_90a: TMA, mbarriers, wgmma). The TPU's split
+// into a dq kernel and a dk/dv kernel stays: neither needs atomics, each
+// keeps one family of accumulators in registers, and every sum is taken in
+// a fixed order, so the gradients are the same bits from run to run.
+//  * Both kernels run two warpgroups of consumers and no producer warp:
+//    with 8 warps a thread may hold 255 registers (dK and dV alone take
+//    128 of a dk/dv thread's), where a ninth warp on the SM's four
+//    register-file quarters caps every thread at 168. Thread 0 issues TMA
+//    loads of 64-row tiles into a 3-stage ring of 128-byte-swizzled
+//    shared-memory panels (rows of 64 bf16), guarded by a full and an empty
+//    mbarrier per stage; after each tile it refills the stage of the tile
+//    before (which the other warpgroup has most likely left), so two tiles
+//    stay in flight. In dk/dv each warpgroup copies a tile's lse and delta
+//    into shared memory with cp.async a tile ahead of their use; in dq each
+//    thread reads the padding bias of its own columns while the products
+//    run.
+//    The tensor maps describe [B, S, N, D] in 4-D (head stride N*D), so one
+//    map serves every head, and TMA fills rows past Sq or Sk with zeros.
+//  * dk/dv: one block per (batch x head, 128-key tile); block 0 of the key
+//    axis has the most causal work and starts first. Each consumer owns 64
+//    keys: its K and V are loaded once, its dK and dV (64 x D fp32 each)
+//    stay in registers. Per 64-query tile, from the causal diagonal on:
+//    S^T = K Q^T and dP^T = V dO^T (wgmma, both operands in shared
+//    memory); P^T (bias, ragged tail, causal and lse masks) and dS^T =
+//    P^T (dP^T - delta) in registers, rounded to bf16 and kept there as the
+//    A operands of dV += P^T dO and dK += dS^T Q. Issuing the products in
+//    these two groups keeps at most S^T, dP^T, dK and dV live at once.
+//  * dq: one block per (batch x head, 128-query tile), last tile first
+//    (most causal work). Each consumer owns 64 queries with Q and dO loaded
+//    once and dQ (64 x D fp32) in registers; per 64-key tile up to the
+//    causal diagonal: S = Q K^T, dP = dO V^T, dS in bf16 registers, then
+//    dQ += dS K.
+//  * A consumer whose rows a tile cannot reach (above the causal diagonal,
+//    or past Sq / Sk) skips the products but still takes the stage and
+//    releases it, so the ring's phases stay in step.
+//  * Epilogues scale, round to bf16 and store pairs of columns from the
+//    accumulator registers.
+// D = 256 keeps the first WMMA kernels (further below): two 64 x 256 fp32
+// accumulators do not fit a thread's 255 registers, and D = 256 is not on
+// the train path (Whisper is frozen, the alignment takes the einsum route).
+//
+// delta: one warp per (batch, query, head) row, 16-byte loads of O and dO,
+// an fp32 dot in a fixed order, written as [B*N, Sq].
+#include <cuda.h>
+
 #include "kernels.cuh"
 
 using namespace nvcuda;
@@ -42,9 +73,721 @@ using namespace nvcuda;
 namespace macaw {
 namespace {
 
+// ------------------------------------------------ Hopper building blocks
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// one arrival, and ``bytes`` more expected from TMA before the phase ends
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity ``parity``. A
+// wait that never ends (a fault in the ring's bookkeeping) traps after
+// 2^26 polls, seconds on the card, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// a [rows x 64] box of a 4-D [B, S, N, D] tensor map at (d0, n, s0, b)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int d0, int n,
+                                            int s0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(n),
+      "r"(s0), "r"(b)
+      : "memory");
+}
+
+// 4 bytes global -> shared, zeros when ``in`` is false
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the 128 threads of warpgroup c (named barrier 1 + c)
+__device__ __forceinline__ void warpgroup_sync(int c) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator above the wait
+// that completes it (the wgmma asm is its only visible writer).
+template <int M>
+__device__ __forceinline__ void reg_fence(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptors for 128-byte-swizzled panels: rows of
+// 128 bytes (64 bf16), 8-row groups 1024 bytes apart, panels 1024-aligned.
+__device__ __forceinline__ uint64_t desc_addr(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+}
+
+// K-major operand (a row per M or N index, K along the row); a k step of
+// 16 inside a panel adds 32 bytes to the start address
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return desc_addr(addr) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// MN-major operand (a row per k, N along the row): consecutive 64-column
+// panels ``panel_bytes`` apart; a k step of 16 is 16 rows, 2048 bytes
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr,
+                                                 uint32_t panel_bytes) {
+  return desc_addr(addr) | (static_cast<uint64_t>(panel_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The m64nNk16 accumulator of a thread (lane = 4 g + t of warp w holds rows
+// 16 w + g and + 8, columns 8 j + 2 t and + 1 in d[4 j .. 4 j + 3]) read as
+// the bf16 A operand of the next product over those columns: k step kk
+// takes columns 16 kk .. 16 kk + 15.
+__device__ __forceinline__ void acc_to_a(const float (&d)[32],
+                                         uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      a[kk][e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
+    }
+  }
+}
+
+// D[64 x 64] (+)= A B, A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] = A B (the first k step: D is written, not read), A and B
+// from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D[64 x 64] += A B, A [64 x 16] bf16 in registers, B [16 x 64] from
+// shared memory, MN-major (N contiguous)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] += A B, A [64 x 16] bf16 in registers, B [16 x 128] from
+// shared memory, MN-major (N contiguous)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n64(d, a, db, 1);
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n128(d, a, db, 1);
+}
+
 // A logit or lse at or below this is masked (NEG_INF plus a finite term).
 constexpr float kMaskedLogit = -1e30f;
 
+// ------------------------------------------------------------------ delta
+
+// delta[b*N + n, s] = sum_d dO[b, s, n, d] O[b, s, n, d] (- g_lse[b, s, n])
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_kernel(const bf16* __restrict__ out,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ g_lse,
+                           float* __restrict__ delta, int rows, int S, int N,
+                           int D) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const size_t at = static_cast<size_t>(row) * D;
+  const uint4* o = reinterpret_cast<const uint4*>(out + at);
+  const uint4* g = reinterpret_cast<const uint4*>(dout + at);
+  float acc = 0.f;
+  for (int c = lane; c < D / 8; c += 32) {
+    const uint4 a = o[c], b = g[c];
+    const bf16* pa = reinterpret_cast<const bf16*>(&a);
+    const bf16* pb = reinterpret_cast<const bf16*>(&b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc += bf2f(pa[e]) * bf2f(pb[e]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) {
+    const int n = row % N, s = (row / N) % S, b = row / (N * S);
+    if (g_lse != nullptr) acc -= g_lse[row];
+    delta[(static_cast<size_t>(b) * N + n) * S + s] = acc;
+  }
+}
+
+// ------------------------------------------------- dk/dv (B4), D 64 / 128
+
+// Two consumer warpgroups and nothing else: 8 warps, two on each of the
+// SM's four register-file quarters, so a thread may hold up to 255
+// registers (a ninth warp would cap every thread at 168). Thread 0 issues
+// the TMA loads.
+constexpr int kWgThreads = 256;
+constexpr int kStages = 3;
+
+// Ring bookkeeping shared by both kernels: thread 0 fills stage i % kStages
+// with tile i; every thread arrives on the stage's empty barrier when done
+// with it. After tile i thread 0 refills the stage of tile i - 1 (which the
+// other warpgroup has most likely left by then) with tile i + kStages - 1.
+struct Ring {
+  uint32_t full, empty;  // kStages barriers each, 8 bytes apart
+
+  __device__ uint32_t full_bar(int i) const { return full + 8 * (i % kStages); }
+  __device__ uint32_t empty_bar(int i) const {
+    return empty + 8 * (i % kStages);
+  }
+  __device__ void wait_full(int i) const {
+    mbar_wait(full_bar(i), (i / kStages) & 1);
+  }
+  // the tile whose stage is free for a refill once tile i is done, or -1
+  __device__ int refill_after(int i, int ntiles) const {
+    const int next = i + kStages - 1;
+    if (i < 1 || next >= ntiles) return -1;
+    mbar_wait(empty_bar(i - 1), ((i - 1) / kStages) & 1);
+    return next;
+  }
+};
+
+template <int D>
+struct DkvWg {
+  static constexpr int NP = D / 64;  // 64-column panels of a tile
+  static constexpr int BKV = 128, BQ = 64;
+  static constexpr int kPanelKV = BKV * 128, kPanelQ = BQ * 128;
+  static constexpr int kK = 0, kV = NP * kPanelKV;
+  static constexpr int kStage0 = 2 * NP * kPanelKV;
+  static constexpr int kStageBytes = 2 * NP * kPanelQ;  // Q, then dO
+  // per warpgroup, two buffers of a tile's lse and delta (64 + 64 fp32)
+  static constexpr int kVec = kStage0 + kStages * kStageBytes;
+  static constexpr int kBar = kVec + 2 * 2 * 2 * BQ * 4;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr uint32_t kKvTx = 2 * BKV * D * 2, kStageTx = 2 * BQ * D * 2;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
+                        int Sk, int N, float scale, int causal) {
+  using L = DkvWg<D>;
+  constexpr int NP = L::NP, BQ = L::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_kv = base + L::kBar;
+  const Ring ring{bar_kv + 8, bar_kv + 8 + 8 * kStages};
+
+  const int bn = blockIdx.x, b = bn / N, n = bn % N;
+  const int kb0 = blockIdx.y * L::BKV;
+  // causal: query tiles wholly before the block's first key add nothing
+  const int qt0 = causal ? kb0 / BQ : 0;
+  const int ntiles = max((Sq + BQ - 1) / BQ - qt0, 0);
+
+  // tile i: Q and dO rows [q0, q0 + 64) into its stage
+  auto load_tile = [&](int i) {
+    const int q0 = (qt0 + i) * BQ;
+    const uint32_t st = base + L::kStage0 + (i % kStages) * L::kStageBytes;
+    const uint32_t bar = ring.full_bar(i);
+    mbar_arrive_expect_tx(bar, L::kStageTx);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      tma_load_4d(st + p * L::kPanelQ, &tm_q, bar, 64 * p, n, q0, b);
+      tma_load_4d(st + (NP + p) * L::kPanelQ, &tm_do, bar, 64 * p, n, q0, b);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arrive_expect_tx(bar_kv, L::kKvTx);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      tma_load_4d(base + L::kK + p * L::kPanelKV, &tm_k, bar_kv, 64 * p, n,
+                  kb0, b);
+      tma_load_4d(base + L::kV + p * L::kPanelKV, &tm_v, bar_kv, 64 * p, n,
+                  kb0, b);
+    }
+    for (int i = 0; i < min(ntiles, kStages); ++i) load_tile(i);
+  }
+  __syncthreads();
+
+  // each warpgroup owns 64 keys
+  const int c = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int kw0 = kb0 + 64 * c;
+  int key[2];
+  float kbias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key[r] = kw0 + 16 * warp + g + 8 * r;
+    // a key past Sk: a zero row of K, masked
+    kbias[r] = key[r] >= Sk      ? kNegInf
+               : bias == nullptr ? 0.f
+                                 : bias[static_cast<size_t>(b) * Sk + key[r]];
+  }
+  const float* lse_b = lse + static_cast<size_t>(bn) * Sq;
+  const float* delta_b = delta + static_cast<size_t>(bn) * Sq;
+  // tile i's lse (threads 0-63) and delta (64-127) into buffer i % 2 of
+  // this warpgroup, one cp.async group per tile, a tile ahead of its use
+  const uint32_t vec = base + L::kVec + c * 2 * 2 * BQ * 4;
+  const float* vec_p = reinterpret_cast<const float*>(
+      smem_raw + (vec - smem_u32(smem_raw)));
+  auto prefetch = [&](int i) {
+    const int qi = (qt0 + i) * BQ + tid % BQ;
+    const float* src = tid < BQ ? lse_b : delta_b;
+    cp_async4(vec + ((i % 2) * 2 * BQ + tid) * 4, src + min(qi, Sq - 1),
+              qi < Sq);
+    cp_async_commit();
+  };
+  if (ntiles > 0) prefetch(0);
+  float dk_acc[D / 2], dv_acc[D / 2], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const uint32_t ka = base + L::kK + c * 64 * 128;
+  const uint32_t va = base + L::kV + c * 64 * 128;
+  mbar_wait(bar_kv, 0);
+
+  for (int i = 0; i < ntiles; ++i) {
+    ring.wait_full(i);
+    cp_async_wait_all();
+    // tile i's lse and delta are in, and no thread still reads tile i - 1's
+    warpgroup_sync(c);
+    if (i + 1 < ntiles) prefetch(i + 1);
+    const float* v = vec_p + (i % 2) * 2 * BQ;
+    const int q0 = (qt0 + i) * BQ;
+    const bool live = kw0 < Sk && !(causal && q0 + BQ - 1 < kw0);
+    const uint32_t qs = base + L::kStage0 + (i % kStages) * L::kStageBytes;
+    const uint32_t dos = qs + NP * L::kPanelQ;
+    if (live) {
+      // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries each)
+      wgmma_fence();
+      wgmma_ss_n64_first(st, desc_kmajor(ka), desc_kmajor(qs));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const int p = kk / 4, w = 32 * (kk % 4);
+        wgmma_ss_n64(st, desc_kmajor(ka + p * L::kPanelKV + w),
+                     desc_kmajor(qs + p * L::kPanelQ + w), 1);
+      }
+      wgmma_ss_n64_first(dpt, desc_kmajor(va), desc_kmajor(dos));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const int p = kk / 4, w = 32 * (kk % 4);
+        wgmma_ss_n64(dpt, desc_kmajor(va + p * L::kPanelKV + w),
+                     desc_kmajor(dos + p * L::kPanelQ + w), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      // P^T, and dS^T = P^T (dP^T - delta); both rounded to bf16 below
+      // (queries past Sq: lse NEG_INF, so P = 0)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = 8 * j + 2 * t + h;
+          const float l = q0 + col < Sq ? v[col] : kNegInf, dl = v[BQ + col];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int idx = 4 * j + 2 * r + h;
+            float sc = st[idx] * scale + kbias[r];
+            if (causal && key[r] > q0 + col) sc = kNegInf;
+            const float p = (l > kMaskedLogit && sc > kMaskedLogit)
+                                ? __expf(sc - l) : 0.f;
+            st[idx] = p;
+            dpt[idx] = p * (dpt[idx] - dl);
+          }
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+      acc_to_a(st, pa);
+      acc_to_a(dpt, da);
+      // dV += P^T dO;  dK += dS^T Q
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(dv_acc, pa[kk], desc_mnmajor(dos + kk * 2048, L::kPanelQ));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(dk_acc, da[kk], desc_mnmajor(qs + kk * 2048, L::kPanelQ));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(dv_acc);
+      reg_fence(dk_acc);
+    }
+    mbar_arrive(ring.empty_bar(i));
+    if (threadIdx.x == 0) {
+      const int next = ring.refill_after(i, ntiles);
+      if (next >= 0) load_tile(next);
+    }
+  }
+
+  reg_fence(dk_acc);
+  reg_fence(dv_acc);
+  const size_t tok = static_cast<size_t>(N) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= Sk) continue;
+    const size_t at = (static_cast<size_t>(b) * Sk + key[r]) * tok +
+                      static_cast<size_t>(n) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+          __floats2bfloat162_rn(dk_acc[4 * j + 2 * r] * scale,
+                                dk_acc[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+          __floats2bfloat162_rn(dv_acc[4 * j + 2 * r],
+                                dv_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------- dq (B3), D 64 / 128
+
+template <int D>
+struct DqWg {
+  static constexpr int NP = D / 64;
+  static constexpr int BQ = 128, BK = 64;
+  static constexpr int kPanelQ = BQ * 128, kPanelK = BK * 128;
+  static constexpr int kQ = 0, kDo = NP * kPanelQ;
+  static constexpr int kStage0 = 2 * NP * kPanelQ;
+  static constexpr int kStageBytes = 2 * NP * kPanelK;  // K, then V
+  static constexpr int kBar = kStage0 + kStages * kStageBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr uint32_t kQdTx = 2 * BQ * D * 2, kStageTx = 2 * BK * D * 2;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Sq, int Sk, int N, float scale, int causal) {
+  using L = DqWg<D>;
+  constexpr int NP = L::NP, BK = L::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_qd = base + L::kBar;
+  const Ring ring{bar_qd + 8, bar_qd + 8 + 8 * kStages};
+
+  const int bn = blockIdx.x, b = bn / N, n = bn % N;
+  // the last query tile (the most causal work) first
+  const int qb0 = (gridDim.y - 1 - blockIdx.y) * L::BQ;
+  int ntiles = (Sk + BK - 1) / BK;
+  if (causal) ntiles = min(ntiles, (min(qb0 + L::BQ, Sq) - 1) / BK + 1);
+
+  // tile i: K and V rows [64 i, 64 i + 64) into its stage
+  auto load_tile = [&](int i) {
+    const uint32_t st = base + L::kStage0 + (i % kStages) * L::kStageBytes;
+    const uint32_t bar = ring.full_bar(i);
+    mbar_arrive_expect_tx(bar, L::kStageTx);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      tma_load_4d(st + p * L::kPanelK, &tm_k, bar, 64 * p, n, i * BK, b);
+      tma_load_4d(st + (NP + p) * L::kPanelK, &tm_v, bar, 64 * p, n, i * BK,
+                  b);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_qd, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arrive_expect_tx(bar_qd, L::kQdTx);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      tma_load_4d(base + L::kQ + p * L::kPanelQ, &tm_q, bar_qd, 64 * p, n,
+                  qb0, b);
+      tma_load_4d(base + L::kDo + p * L::kPanelQ, &tm_do, bar_qd, 64 * p, n,
+                  qb0, b);
+    }
+    for (int i = 0; i < min(ntiles, kStages); ++i) load_tile(i);
+  }
+  __syncthreads();
+
+  // each warpgroup owns 64 queries
+  const int c = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int qw0 = qb0 + 64 * c;
+  int qrow[2];
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qrow[r] = qw0 + 16 * warp + g + 8 * r;
+    const bool in = qrow[r] < Sq;
+    const size_t at = static_cast<size_t>(bn) * Sq + qrow[r];
+    row_lse[r] = in ? lse[at] : kNegInf;
+    row_delta[r] = in ? delta[at] : 0.f;
+  }
+  const float* bias_b =
+      bias != nullptr ? bias + static_cast<size_t>(b) * Sk : nullptr;
+  float dq_acc[D / 2], sa[32], dpa[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  const uint32_t qa = base + L::kQ + c * 64 * 128;
+  const uint32_t doa = base + L::kDo + c * 64 * 128;
+  mbar_wait(bar_qd, 0);
+
+  for (int i = 0; i < ntiles; ++i) {
+    ring.wait_full(i);
+    __syncwarp();
+    const int k0 = i * BK;
+    const bool live = qw0 < Sq && !(causal && k0 > qw0 + 63);
+    const uint32_t ks = base + L::kStage0 + (i % kStages) * L::kStageBytes;
+    const uint32_t vs = ks + NP * L::kPanelK;
+    if (live) {
+      // S = Q K^T, dP = dO V^T (64 queries x 64 keys each)
+      wgmma_fence();
+      wgmma_ss_n64_first(sa, desc_kmajor(qa), desc_kmajor(ks));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const int p = kk / 4, w = 32 * (kk % 4);
+        wgmma_ss_n64(sa, desc_kmajor(qa + p * L::kPanelQ + w),
+                     desc_kmajor(ks + p * L::kPanelK + w), 1);
+      }
+      wgmma_ss_n64_first(dpa, desc_kmajor(doa), desc_kmajor(vs));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        const int p = kk / 4, w = 32 * (kk % 4);
+        wgmma_ss_n64(dpa, desc_kmajor(doa + p * L::kPanelQ + w),
+                     desc_kmajor(vs + p * L::kPanelK + w), 1);
+      }
+      wgmma_commit();
+      // the padding bias of this thread's 16 keys, read while the products
+      // run (keys past Sk: a zero row of K, masked)
+      float kb[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kj = k0 + 8 * j + 2 * t + h;
+          kb[2 * j + h] = kj < Sk ? (bias_b != nullptr ? bias_b[kj] : 0.f)
+                                  : kNegInf;
+        }
+      }
+      wgmma_wait_all();
+      reg_fence(sa);
+      reg_fence(dpa);
+      // dS = P (dP - delta), rounded to bf16
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = 8 * j + 2 * t + h;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int idx = 4 * j + 2 * r + h;
+            float sc = sa[idx] * scale + kb[2 * j + h];
+            if (causal && k0 + col > qrow[r]) sc = kNegInf;
+            const float p = (row_lse[r] > kMaskedLogit && sc > kMaskedLogit)
+                                ? __expf(sc - row_lse[r]) : 0.f;
+            dpa[idx] = p * (dpa[idx] - row_delta[r]);
+          }
+        }
+      }
+      uint32_t da[4][4];
+      acc_to_a(dpa, da);
+      // dQ += dS K
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs(dq_acc, da[kk], desc_mnmajor(ks + kk * 2048, L::kPanelK));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(dq_acc);
+    }
+    mbar_arrive(ring.empty_bar(i));
+    if (threadIdx.x == 0) {
+      const int next = ring.refill_after(i, ntiles);
+      if (next >= 0) load_tile(next);
+    }
+  }
+
+  reg_fence(dq_acc);
+  const size_t tok = static_cast<size_t>(N) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qrow[r] >= Sq) continue;
+    const size_t at = (static_cast<size_t>(b) * Sq + qrow[r]) * tok +
+                      static_cast<size_t>(n) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dq + at + 8 * j) =
+          __floats2bfloat162_rn(dq_acc[4 * j + 2 * r] * scale,
+                                dq_acc[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// --------------------------------------- D = 256: the first WMMA kernels
 using AFrag = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using BColFrag =
     wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
@@ -337,6 +1080,81 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// A [B, S, N, D] bf16 tensor as a 4-D TMA map (innermost first) whose box
+// is one 64-column panel of ``rows`` rows of one head, 128-byte swizzled;
+// rows past S read as zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int S, int N, int D,
+                int rows) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(N) * D * 2,
+                                 static_cast<cuuint64_t>(S) * N * D * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* bias, const void* dout,
+                            const void* lse, const void* delta, void* dq,
+                            int B, int Sq, int Sk, int N, float scale,
+                            int causal, cudaStream_t stream) {
+  using L = DqWg<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!encode_map(&mq, q, B, Sq, N, D, L::BQ) ||
+      !encode_map(&mdo, dout, B, Sq, N, D, L::BQ) ||
+      !encode_map(&mk, k, B, Sk, N, D, L::BK) ||
+      !encode_map(&mv, v, B, Sk, N, D, L::BK)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * N, (Sq + L::BQ - 1) / L::BQ);
+  flash_bwd_dq_wgmma<D><<<grid, kWgThreads, L::kBytes, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(bias),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), Sq, Sk, N, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* bias, const void* dout,
+                             const void* lse, const void* delta, void* dk,
+                             void* dv, int B, int Sq, int Sk, int N,
+                             float scale, int causal, cudaStream_t stream) {
+  using L = DkvWg<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!encode_map(&mq, q, B, Sq, N, D, L::BQ) ||
+      !encode_map(&mdo, dout, B, Sq, N, D, L::BQ) ||
+      !encode_map(&mk, k, B, Sk, N, D, L::BKV) ||
+      !encode_map(&mv, v, B, Sk, N, D, L::BKV)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * N, (Sk + L::BKV - 1) / L::BKV);
+  flash_bwd_dkv_wgmma<D><<<grid, kWgThreads, L::kBytes, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(bias),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, N, scale,
+      causal);
+  return cudaGetLastError();
+}
+
 template <int D, int BK>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* bias, const void* dout, const void* lse,
@@ -381,6 +1199,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace macaw
 
+extern "C" int macaw_flash_attention_bwd_delta(const void* out,
+                                               const void* dout,
+                                               const void* g_lse, void* delta,
+                                               int B, int S, int N, int D,
+                                               void* stream) {
+  const int rows = B * S * N;
+  if (rows == 0) return 0;
+  macaw::flash_bwd_delta_kernel<<<(rows + 7) / 8, 256, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const macaw::bf16*>(out),
+      static_cast<const macaw::bf16*>(dout),
+      static_cast<const float*>(g_lse), static_cast<float*>(delta), rows, S,
+      N, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int macaw_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* lse, const void* delta, void* dq, int B,
@@ -388,11 +1222,11 @@ extern "C" int macaw_flash_attention_bwd_dq(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return macaw::launch_dq<64, 64>(q, k, v, bias, dout, lse, delta, dq, B,
-                                      Sq, Sk, N, scale, causal, st);
+      return macaw::launch_dq_wgmma<64>(q, k, v, bias, dout, lse, delta, dq,
+                                        B, Sq, Sk, N, scale, causal, st);
     case 128:
-      return macaw::launch_dq<128, 64>(q, k, v, bias, dout, lse, delta, dq,
-                                       B, Sq, Sk, N, scale, causal, st);
+      return macaw::launch_dq_wgmma<128>(q, k, v, bias, dout, lse, delta, dq,
+                                         B, Sq, Sk, N, scale, causal, st);
     case 256:
       return macaw::launch_dq<256, 32>(q, k, v, bias, dout, lse, delta, dq,
                                        B, Sq, Sk, N, scale, causal, st);
@@ -409,11 +1243,12 @@ extern "C" int macaw_flash_attention_bwd_dkv(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return macaw::launch_dkv<64, 4>(q, k, v, bias, dout, lse, delta, dk, dv,
-                                      B, Sq, Sk, N, scale, causal, st);
+      return macaw::launch_dkv_wgmma<64>(q, k, v, bias, dout, lse, delta, dk,
+                                         dv, B, Sq, Sk, N, scale, causal, st);
     case 128:
-      return macaw::launch_dkv<128, 4>(q, k, v, bias, dout, lse, delta, dk,
-                                       dv, B, Sq, Sk, N, scale, causal, st);
+      return macaw::launch_dkv_wgmma<128>(q, k, v, bias, dout, lse, delta,
+                                          dk, dv, B, Sq, Sk, N, scale, causal,
+                                          st);
     case 256:
       return macaw::launch_dkv<256, 2>(q, k, v, bias, dout, lse, delta, dk,
                                        dv, B, Sq, Sk, N, scale, causal, st);

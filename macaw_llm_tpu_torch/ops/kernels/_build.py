@@ -34,6 +34,7 @@ _SIGNATURES = {
     "macaw_mh_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "macaw_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _F, _I, _P],
+    "macaw_flash_attention_bwd_delta": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "macaw_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _F, _I, _P],
     "macaw_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -58,6 +59,17 @@ def _nvcc() -> str:
             return str(c)
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                        "toolkit (set CUDA_HOME)")
+
+
+def _link_flags(nvcc: str) -> list:
+    """libcuda, for the TMA tensor maps (cuTensorMapEncodeTiled): linked
+    against the toolkit's stub, the installed libcuda.so.1 loaded at run
+    time."""
+    root = Path(nvcc).resolve().parents[1]
+    stubs = [d for d in (root / "lib64" / "stubs",
+                         root / "targets" / "x86_64-linux" / "lib" / "stubs")
+             if d.is_dir()]
+    return [f"-L{d}" for d in stubs] + ["-lcuda"]
 
 
 def _sources():
@@ -100,7 +112,8 @@ def build() -> dict:
     tmp = out_dir / f"libmacaw_kernels.{os.getpid()}.so"
     link = subprocess.run(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-         "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+         "-o", str(tmp), *[str(o) for _, o, _ in procs],
+         *_link_flags(nvcc)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"link failed:\n{link.stdout}")

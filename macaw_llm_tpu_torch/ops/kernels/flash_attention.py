@@ -3,9 +3,11 @@ backward.
 
 Counterpart of ``macaw_llm_tpu/ops/pallas/flash_attention.py``. On CUDA
 tensors the forward launches ``csrc/flash_attention.cu`` (B2) and the
-backward ``csrc/flash_attention_bwd.cu``: the dq kernel (B3) and the dk/dv
-kernel (B4). On CPU tensors each wrapper computes the plain PyTorch version
-written next to it. ``flash_attention`` and ``flash_attention_with_lse`` are
+backward ``csrc/flash_attention_bwd.cu``: the delta kernel, the dq kernel
+(B3) and the dk/dv kernel (B4); at head dims 64 and 128 B3 and B4 are
+wgmma kernels fed by TMA (the source note says how). On CPU tensors each
+wrapper computes the plain PyTorch version written next to it.
+``flash_attention`` and ``flash_attention_with_lse`` are
 differentiable in q, k and v (a ``torch.autograd.Function``); the padding
 bias takes no gradient, as in the reference.
 
@@ -203,17 +205,53 @@ flash_attention_dkv.launches = 0
 
 def backward_delta(out: torch.Tensor, dout: torch.Tensor,
                    g_lse: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """delta = rowsum(dO * O) [B, Sq, N] in fp32, less the LSE cotangent:
-    the LSE's own dependence on the logits adds p * g_lse to ds."""
+    """The plain version of the delta kernel: delta = rowsum(dO * O)
+    [B, Sq, N] in fp32, less the LSE cotangent (the LSE's own dependence on
+    the logits adds p * g_lse to ds). Laid out as the kernels read it,
+    [B*N, Sq] in memory, so ``_folded`` hands it over without a copy."""
     acc = _acc_dtype(out)
     delta = (dout.to(acc) * out.to(acc)).sum(-1)
     if g_lse is not None:
         delta = delta - g_lse.to(acc)
-    return delta
+    return delta.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+
+
+def flash_attention_delta(out: torch.Tensor, dout: torch.Tensor,
+                          g_lse: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """delta [B, Sq, N] fp32, as ``backward_delta`` lays it out. out, dout
+    [B, Sq, N, D]; g_lse [B, Sq, N] or None. CUDA: contiguous bf16 out and
+    dout."""
+    if out.device.type == "cpu":
+        return backward_delta(out, dout, g_lse)
+    b, sq, n, d = out.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != out.shape or t.device != out.device \
+                or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"flash_attention delta kernel: {name} must be "
+                             f"a contiguous bf16 {tuple(out.shape)} tensor "
+                             f"on {out.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention delta kernel: head dim {d} not "
+                         f"in {HEAD_DIMS}")
+    if g_lse is not None:
+        g_lse = g_lse.to(torch.float32).contiguous()
+    delta = torch.empty((b * n, sq), dtype=torch.float32, device=out.device)
+    err = _build.library().macaw_flash_attention_bwd_delta(
+        out.data_ptr(), dout.data_ptr(),
+        None if g_lse is None else g_lse.data_ptr(), delta.data_ptr(), b, sq,
+        n, d, _build.stream_ptr(out))
+    _build.check(err, "flash_attention delta")
+    flash_attention_delta.launches += 1
+    return delta.view(b, n, sq).permute(0, 2, 1)
+
+
+flash_attention_delta.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """B2 forward; B3 + B4 backward (plain versions on the CPU)."""
+    """B2 forward; delta + B3 + B4 backward (plain versions on the
+    CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, padding_bias, causal, scale):
@@ -229,7 +267,7 @@ class _FlashAttention(torch.autograd.Function):
         if g_out is None:
             g_out = torch.zeros_like(out)
         g_out = g_out.contiguous()
-        delta = backward_delta(out, g_out, g_lse)
+        delta = flash_attention_delta(out, g_out, g_lse)
         kw = dict(causal=ctx.causal, scale=ctx.scale)
         dq = flash_attention_dq(q, k, v, padding_bias, g_out, lse, delta,
                                 **kw)

@@ -233,7 +233,12 @@ def _grad_row_err(out, ref):
     (2, 77, 130, 2, 128, False, "pad", True),
     (2, 200, 1178, 2, 64, False, "tail", False),
     (2, 130, 130, 2, 256, True, "pad", False),
-    (1, 100, 300, 2, 256, False, "none", True)])
+    (1, 100, 300, 2, 256, False, "none", True),
+    # several 128-row tiles, Sq no multiple of 64: the wgmma kernels' tails
+    (2, 1080, 1080, 4, 128, True, "none", False),
+    # causal with Sq != Sk, both ways
+    (2, 300, 200, 2, 128, True, "none", False),
+    (2, 150, 400, 2, 64, True, "pad", True)])
 def test_flash_backward_kernels(gen, b, sq, sk, n, d, causal, pad, lse_grad):
     q, k, v = (_rn(gen, b, s, n, d).requires_grad_()
                for s in (sq, sk, sk))
@@ -242,14 +247,13 @@ def test_flash_backward_kernels(gen, b, sq, sk, n, d, causal, pad, lse_grad):
     g_lse = (torch.randn(b, sq, n, generator=gen, device="cuda")
              if lse_grad else None)
     out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=causal)
-    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    before = _bwd_launches()
     outs, cots = (out, lse), (g, g_lse)
     if not lse_grad:
         outs, cots = (out,), (g,)
     dq, dk, dv = torch.autograd.grad(outs, (q, k, v), cots)
     torch.cuda.synchronize()
-    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) \
-        == (before[0] + 1, before[1] + 1)
+    assert _bwd_launches() == tuple(n + 1 for n in before)
     delta = fa.backward_delta(out.detach(), g, g_lse)
     ref = fa.attention_backward_reference(
         q.detach(), k.detach(), v.detach(), bias, lse.detach(), g, delta,
@@ -261,6 +265,45 @@ def test_flash_backward_kernels(gen, b, sq, sk, n, d, causal, pad, lse_grad):
             assert not got[0].any()
 
 
+def _bwd_launches():
+    return (fa.flash_attention_delta.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_kernels_bitwise_reproducible(gen, d):
+    """No atomics and a fixed order of sums: a second run gives the same
+    bits."""
+    b, s, n = 2, 333, 3
+    q, k, v, g = (_rn(gen, b, s, n, d) for _ in range(4))
+    bias = _bias("pad", b, s, 64)
+    out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=True)
+    delta = fa.flash_attention_delta(out, g)
+    kw = dict(causal=True, scale=d ** -0.5)
+    runs = [(fa.flash_attention_dq(q, k, v, bias, g, lse, delta, **kw),)
+            + fa.flash_attention_dkv(q, k, v, bias, g, lse, delta, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, r in zip(*runs):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("d,lse_grad", [(64, False), (128, True),
+                                        (256, True)])
+def test_flash_delta_kernel(gen, d, lse_grad):
+    """delta against its plain version, laid out [B*N, Sq] in memory: the
+    same D exact products added in another fp32 order."""
+    b, s, n = 2, 77, 3
+    out, g = _rn(gen, b, s, n, d), _rn(gen, b, s, n, d)
+    g_lse = (torch.randn(b, s, n, generator=gen, device="cuda")
+             if lse_grad else None)
+    got = fa.flash_attention_delta(out, g, g_lse)
+    ref = fa.backward_delta(out, g, g_lse)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s, n) and got.permute(0, 2, 1).is_contiguous()
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
 def test_backward_wrappers_raise_instead_of_falling_back(gen):
     q = _rn(gen, 1, 16, 1, 32)  # head dim 32: no kernel instance
     lse = torch.zeros(1, 16, 1, device="cuda")
@@ -270,6 +313,11 @@ def test_backward_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(ValueError):
         fa.flash_attention_dkv(q, q, q, None, q, lse, lse, causal=True,
                                scale=1.0)
+    with pytest.raises(ValueError):
+        fa.flash_attention_delta(q, q)
+    with pytest.raises(ValueError):  # fp32 output
+        fa.flash_attention_delta(_rn(gen, 1, 16, 1, 64).float(),
+                                 _rn(gen, 1, 16, 1, 64))
 
 
 def test_continuous_engine_on_the_card(gen):

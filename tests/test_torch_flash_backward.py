@@ -144,6 +144,33 @@ def test_backward_wrappers_on_cpu_count_no_launch():
                       tfa.flash_attention_dkv.launches)
 
 
+@pytest.mark.parametrize("with_lse_grad", [False, True])
+def test_delta_plain_version_layout(with_lse_grad):
+    """The delta kernel's plain version, ``backward_delta`` (what CPU
+    tensors take through ``flash_attention_delta``), against the JAX
+    reference's delta (``_flash_bwd``: rowsum(dO * O) less the LSE
+    cotangent), laid out [B*N, Sq] in memory so that ``_folded`` hands it
+    to B3 and B4 without a copy."""
+    b, sq, n, d = 2, 13, 3, 16
+    rng = np.random.RandomState(8)
+    out, g = (rng.randn(b, sq, n, d).astype(np.float32) for _ in range(2))
+    g_lse = rng.randn(b, sq, n).astype(np.float32) if with_lse_grad else None
+    ref = np.asarray(jnp.sum(jnp.asarray(g) * jnp.asarray(out), axis=-1))
+    if with_lse_grad:
+        ref = ref - g_lse
+    t = [torch.from_numpy(a) for a in (out, g)]
+    tl = None if g_lse is None else torch.from_numpy(g_lse)
+    before = tfa.flash_attention_delta.launches
+    got = tfa.flash_attention_delta(*t, tl)
+    assert tfa.flash_attention_delta.launches == before
+    assert got.shape == (b, sq, n)
+    folded = tfa._folded(got)
+    assert folded.data_ptr() == got.data_ptr()
+    torch.testing.assert_close(folded, tfa._folded(tfa.backward_delta(*t, tl)),
+                               rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("s,causal", [(21, True), (16, False)])
 def test_mh_attention_backward_matches_jax(s, causal):
     b, n, d = 2, 2, 16

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``macaw_llm_tpu_torch/`` and none of
-``chip_smoke.py``, ``decode_ab.py`` and ``tools/decode_probes.py`` imports
-jax or the reference package ``macaw_llm_tpu``, and importing every module
-of the port (the server and the data helpers included) loads no jax and
-compiles nothing."""
+``chip_smoke.py``, ``decode_ab.py``, ``tools/decode_probes.py`` and
+``tools/flash_bwd_probe.py`` imports jax or the reference package
+``macaw_llm_tpu``, and importing every module of the port (the server and
+the data helpers included) loads no jax and compiles nothing."""
 
 import ast
 import subprocess
@@ -14,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "macaw_llm_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "decode_ab.py",
-    ROOT / "tools" / "decode_probes.py"]
+    ROOT / "tools" / "decode_probes.py",
+    ROOT / "tools" / "flash_bwd_probe.py"]
 
 
 def _imports(path: Path):
