@@ -4,9 +4,11 @@ Phases, in order (any failure raises and the script exits non-zero):
  1. build the CUDA kernels from ``macaw_llm_tpu_torch/csrc`` (nvcc, sm_90a);
  2. print the card's name and power limit (nvidia-smi);
  3. hold each forward kernel against its plain PyTorch version at the
-    main-path shapes of the 7b profile and time kernel, plain version, the
-    library call that computes the same function (where one exists) and
-    the bound;
+    main-path shapes of the 7b profile (B2 also at the batch-1 shapes of an
+    engine admission, where it splits the keys into chunks and launches
+    its combine kernel, and with every key outside one chunk masked) and
+    time kernel, plain version, the library call that computes the same
+    function (where one exists) and the bound;
  3c. the pipelined matvec (B6) against its plain version at the five 7b
     decode shapes and a ragged narrow one, at 9, 16 and 32 rows and depths
     1, 2 and 4 (bitwise equal across depths and runs, within one bf16 ulp
@@ -149,15 +151,16 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 
 def kernel_resources(build_log: str) -> dict:
-    """ptxas registers and spill bytes per kernel of an ``nvcc -Xptxas -v``
-    log, keyed by the kernel's name and template arguments
-    (``flash_bwd_dq_wgmma<128>``)."""
+    """ptxas registers and spill bytes per attention kernel of an ``nvcc
+    -Xptxas -v`` log, keyed by the kernel's name and template arguments
+    (``flash_bwd_dq_wgmma<128>``, ``flash_fwd_wgmma<256>``)."""
     res, name = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
-            k = re.search(r"(flash_bwd_[a-z_]+?)(?:I((?:Li\d+E)+)E|E)", name)
+            k = re.search(r"((?:flash_bwd|flash_fwd|mh_attention)_[a-z_]+?)"
+                          r"(?:I((?:Li\d+E)+)E|E)", name)
             if k:
                 args = re.findall(r"Li(\d+)E", k.group(2) or "")
                 name = k.group(1) + (f"<{','.join(args)}>" if args else "")
@@ -216,9 +219,46 @@ def grad_row_err(out, ref) -> float:
 # phase 3: kernels against their plain versions at the main-path shapes
 # --------------------------------------------------------------------------
 
-def check_attention(torch, mh, fa, gen):
+# B2's calls: name, B, Sq, Sk, N, D, launches per prefill (batch 16),
+# launches per media admission of the engine (batch 1)
+FLASH_CALLS = (("whisper", 16, 1500, 1500, 8, 64, 6, 0),
+               ("video_long", 16, 1176, 1178, 8, 64, 1, 0),
+               ("video_align", 16, 624, 32009, 1, 256, 1, 0),
+               ("engine_whisper", 1, 1500, 1500, 8, 64, 0, 6),
+               ("engine_video_long", 1, 1176, 1178, 8, 64, 0, 1))
+
+
+def whisper(b):
+    return (b, 1500, 1500, 8, 64, False)
+
+
+def video_long(b):
+    return (b, 1176, 1178, 8, 64, False)
+
+
+def video_align(b):  # the alignment fold: heads as batch, 39 rows a sample
+    return (16, 39 * b, 32009, 1, 256, False)
+
+
+def llama(b, s):
+    return (b, s, s, 32, 128, True)
+
+
+def combines(torch, calls) -> int:
+    """Combine launches of B2 over ``calls`` [(shape, count)] on this card:
+    one for every call whose keys ``split_plan`` cuts into chunks."""
+    from macaw_llm_tpu_torch.ops.kernels import flash_attention as fa
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sum(cnt for shape, cnt in calls
+               if len(fa.split_plan(*shape, sms)) > 1)
+
+
+def check_attention(torch, mh, fa, gen, sms: int):
     """mh_attention at the LLaMA prefill shape; flash_attention at the
-    Whisper, video-long and video-alignment shapes (batch 16)."""
+    Whisper, video-long and video-alignment shapes (batch 16) and at the
+    engine's batch-1 Whisper and video-long shapes, where it splits the
+    keys and launches its combine kernel; the combine alone, timed at the
+    video alignment, and held with every key outside one chunk masked."""
     import torch.nn.functional as F
 
     def rn(*shape):
@@ -234,9 +274,9 @@ def check_attention(torch, mh, fa, gen):
     ref, _ = fa.attention_reference(q, k, v, bias, causal=True)
     err = (out.float() - ref.float()).abs().max().item()
     rel = row_rel_err(out, ref)
-    # the same inputs with only the keys of the last, partial 16-key tile
-    # left valid
-    tail = tail_bias(torch, b, s, 16)
+    # the same inputs with only the keys of the last, partial 64-key tile
+    # (the kernel's tile width) left valid
+    tail = tail_bias(torch, b, s, 64)
     tail_rel = row_rel_err(mh.mh_attention(q, k, v, tail, causal=True),
                            fa.attention_reference(q, k, v, tail,
                                                   causal=True)[0])
@@ -259,14 +299,17 @@ def check_attention(torch, mh, fa, gen):
         per_prefill=32)]
     del q, k, v, ref, out, qt, kt, vt, tail
 
-    # B2: (Sq, Sk, N, D, launches per prefill)
-    rows = []
-    for name, sq, sk, n, d, per in (("whisper", 1500, 1500, 8, 64, 6),
-                                    ("video_long", 1176, 1178, 8, 64, 1),
-                                    ("video_align", 624, 32009, 1, 256, 1)):
-        bb = 16
+    rows, combine_rows = [], []
+    for name, bb, sq, sk, n, d, per, per_adm in FLASH_CALLS:
+        chunks = fa.split_plan(bb, sq, sk, n, d, False, sms)
         q, k, v = rn(bb, sq, n, d), rn(bb, sk, n, d), rn(bb, sk, n, d)
+        c0 = fa.flash_attention_combine.launches
         out, lse = fa.flash_attention_with_lse(q, k, v, None, causal=False)
+        torch.cuda.synchronize()
+        if fa.flash_attention_combine.launches - c0 != (len(chunks) > 1):
+            raise AssertionError(f"flash_attention {name}: {len(chunks)} "
+                                 "chunks, combine launches "
+                                 f"{fa.flash_attention_combine.launches - c0}")
         ref, ref_lse = fa.attention_reference(q, k, v, None, causal=False)
         err = (out.float() - ref.float()).abs().max().item()
         rel = row_rel_err(out, ref)
@@ -281,11 +324,19 @@ def check_attention(torch, mh, fa, gen):
         tail_rel = row_rel_err(t_out, t_ref)
         lse_err = max(lse_err, (t_lse - t_ref_lse).abs().max().item())
         del tail, t_out, t_lse, t_ref, t_ref_lse
+        split_rel = None
+        if len(chunks) > 1:  # the plain version of the split itself
+            s_out, s_lse = fa.split_attention_reference(
+                q, k, v, None, causal=False, chunks=chunks)
+            split_rel = row_rel_err(out, s_out)
+            lse_err = max(lse_err, (lse - s_lse).abs().max().item())
+            del s_out, s_lse
         if not (rel <= ATTN_ROW_REL_TOL and tail_rel <= ATTN_ROW_REL_TOL
-                and lse_err <= LSE_TOL):
+                and lse_err <= LSE_TOL
+                and (split_rel or 0.0) <= ATTN_ROW_REL_TOL):
             raise AssertionError(f"flash_attention {name}: row rel err "
-                                 f"{rel}, ragged tail {tail_rel}, lse err "
-                                 f"{lse_err}")
+                                 f"{rel}, ragged tail {tail_rel}, split "
+                                 f"plain {split_rel}, lse err {lse_err}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms = cuda_ms(torch, lambda: fa.flash_attention_with_lse(
             q, k, v, None, causal=False), 10)
@@ -296,15 +347,77 @@ def check_attention(torch, mh, fa, gen):
         nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + bb * sq * n * 4
         bms, by = bound(attn_flops(bb, sq, sk, n, d, False), nbytes)
         rows.append(dict(call=name, shape_q=[bb, sq, n, d],
-                         shape_kv=[bb, sk, n, d], max_abs_err=err,
-                         row_rel_err=rel, tail_row_rel_err=tail_rel,
+                         shape_kv=[bb, sk, n, d], chunks=len(chunks),
+                         max_abs_err=err, row_rel_err=rel,
+                         tail_row_rel_err=tail_rel,
+                         split_row_rel_err=split_rel,
                          lse_err=lse_err, kernel_ms=ms, plain_ms=plain,
                          library_ms=lib, bound_ms=bms, bound_by=by,
-                         per_prefill=per))
-        del q, k, v, out, lse, qt, kt, vt
+                         per_prefill=per, per_admission=per_adm))
+        del qt, kt, vt
+        if name == "video_align":
+            combine_rows += check_combine(torch, fa, q, k, v, chunks)
+        del q, k, v, out, lse
         torch.cuda.empty_cache()
     results["flash_attention"] = rows
+    results["flash_attention_combine"] = combine_rows
     return results
+
+
+def check_combine(torch, fa, q, k, v, chunks):
+    """The combine kernel at the video alignment: every key outside one
+    chunk masked (the other chunks' partials carry weight 0), against
+    both plain versions; then the combine alone on that call's partials,
+    against its plain version, timed with its byte bound."""
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    k0, k1 = chunks[len(chunks) // 2]
+    bias = torch.full((b, sk), torch.finfo(torch.float32).min, device="cuda")
+    bias[:, k0:k1] = 0.0
+    out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=False)
+    ref, ref_lse = fa.attention_reference(q, k, v, bias, causal=False)
+    s_out, s_lse = fa.split_attention_reference(q, k, v, bias, causal=False,
+                                                chunks=chunks)
+    rel, split_rel = row_rel_err(out, ref), row_rel_err(out, s_out)
+    lse_err = max((lse - ref_lse).abs().max().item(),
+                  (lse - s_lse).abs().max().item())
+    del ref, ref_lse, s_out, s_lse
+    # the partials of the unmasked call, made by the plain per-chunk version
+    parts = [fa.chunk_reference(q, k, v, None, causal=False, scale=d ** -0.5,
+                                k0=c0, k1=c1) for c0, c1 in chunks]
+    part_o = torch.stack([o for o, _ in parts]).contiguous()
+    part_lse = torch.stack([x for _, x in parts]).contiguous()
+    del parts
+    got, got_lse = fa.flash_attention_combine(part_o, part_lse)
+    want, want_lse = fa.combine_reference(part_o, part_lse, torch.bfloat16)
+    c_rel = row_rel_err(got, want)
+    c_err = (got.float() - want.float()).abs().max().item()
+    c_lse = (got_lse - want_lse).abs().max().item()
+    if not (rel <= ATTN_ROW_REL_TOL and split_rel <= ATTN_ROW_REL_TOL
+            and lse_err <= LSE_TOL and c_rel <= ATTN_ROW_REL_TOL
+            and c_lse <= LSE_TOL):
+        raise AssertionError(
+            f"flash_attention one live chunk: row rel err {rel}, split "
+            f"plain {split_rel}, lse err {lse_err}; combine alone: row rel "
+            f"err {c_rel}, lse err {c_lse}")
+    ms = cuda_ms(torch, lambda: fa.flash_attention_combine(part_o,
+                                                           part_lse), 20)
+    plain = cuda_ms(torch, lambda: fa.combine_reference(
+        part_o, part_lse, torch.bfloat16), 5)
+    # reads every partial once, writes out (bf16) and lse; an exp and two
+    # FMAs per chunk and column are far below the tensor-core line
+    nbytes = part_o.numel() * 4 + part_lse.numel() * 4 \
+        + b * sq * n * (d * 2 + 4)
+    bms, by = bound(0.0, nbytes)
+    del part_o, part_lse, out, lse, got, want, bias
+    return [dict(call="video_align", chunks=len(chunks),
+                 shape_q=[b, sq, n, d], shape_kv=[b, sk, n, d],
+                 one_live_chunk=[k0, k1], row_rel_err=rel,
+                 split_row_rel_err=split_rel, lse_err=lse_err,
+                 combine_row_rel_err=c_rel, max_abs_err=c_err,
+                 combine_lse_err=c_lse, kernel_ms=ms, plain_ms=plain,
+                 library_ms=None, bound_ms=bms, bound_by=by, per_prefill=1,
+                 per_admission=0)]
 
 
 # --------------------------------------------------------------------------
@@ -694,7 +807,9 @@ def small_model_parity(torch, cfg7, kernels):
     gpu = prefill(params, cfg, batch, cache)
     torch.cuda.synchronize()
     launched = counts(kernels)
-    if launched["mh_attention"] != 2 or launched["flash_attention"] != 3:
+    want_combine = combines(torch, ((whisper(2), 2), (video_long(2), 1)))
+    if launched["mh_attention"] != 2 or launched["flash_attention"] != 3 \
+            or launched["flash_attention_combine"] != want_combine:
         raise AssertionError(f"2-layer model launches {launched}")
     t0 = time.perf_counter()
     cpu = prefill(to_device(params, "cpu"), cfg, to_device(batch, "cpu"),
@@ -742,6 +857,8 @@ def run_prefill(torch, params, cfg, cache, kernels, steps=10, warmup=3):
     # the 16 last positions' logits are one single-row int8 matmul of 16
     # rows: the pipelined matvec
     expect = {"mh_attention": 32, "flash_attention": 8, "matvec_int8": 0,
+              "flash_attention_combine": combines(torch, (
+                  (whisper(b), 6), (video_long(b), 1), (video_align(b), 1))),
               "flash_attention_dq": 0, "flash_attention_dkv": 0,
               "flash_attention_delta": 0,
               "matvec_int8_pipelined": 1}
@@ -796,6 +913,7 @@ def run_generate(torch, params, cfg, cache, batch, kernels, new=16, b=4):
     launched = counts(kernels)
     per_step = 4 * cfg.llm.num_layers + 1
     expect = {"mh_attention": 0, "flash_attention": 0,
+              "flash_attention_combine": 0,
               "matvec_int8": 1 + (new - 1) * per_step,
               "flash_attention_dq": 0, "flash_attention_dkv": 0,
               "flash_attention_delta": 0,
@@ -930,6 +1048,8 @@ def small_engine_parity(torch, cfg7, kernels):
     # 3 media admissions and the zero-media prefix: 2 Whisper layers and
     # the video-long attention each
     expect = {"mh_attention": 0, "flash_attention": 4 * 3,
+              "flash_attention_combine": combines(torch, (
+                  (whisper(1), 4 * 2), (video_long(1), 4))),
               "flash_attention_dq": 0, "flash_attention_dkv": 0,
               "flash_attention_delta": 0,
               "matvec_int8": 6, "matvec_int8_pipelined": per_step * steps}
@@ -1126,6 +1246,8 @@ def run_engine(torch, params, cfg, kernels, card: str, slots: int, new: int,
         steps = engine.stats["steps"] - base_steps
         expect = {"mh_attention": 0,
                   "flash_attention": flash_per_admission * n_media,
+                  "flash_attention_combine": n_media * combines(torch, (
+                      (whisper(1), 6), (video_long(1), 1))),
                   "flash_attention_dq": 0, "flash_attention_dkv": 0,
                   "flash_attention_delta": 0,
                   "matvec_int8": n_req,
@@ -1300,11 +1422,15 @@ def small_train_parity(torch, cfg7, kernels):
 
     # text, expected launches (2 layers: forward and remat recompute;
     # Whisper 2 layers; the video-long attention, which trains)
+    towers = combines(torch, ((whisper(1), 2), (video_long(1), 1)))
     expects = {256: {"mh_attention": 4, "flash_attention": 3,
+                     "flash_attention_combine": towers,
                      "flash_attention_dq": 1, "flash_attention_dkv": 1,
                      "flash_attention_delta": 1,
                      "matvec_int8": 0, "matvec_int8_pipelined": 0},
                1024: {"mh_attention": 0, "flash_attention": 7,
+                      "flash_attention_combine": towers + combines(
+                          torch, ((llama(1, 1080), 4),)),
                       "flash_attention_dq": 3, "flash_attention_dkv": 3,
                       "flash_attention_delta": 3,
                       "matvec_int8": 0, "matvec_int8_pipelined": 0}}
@@ -1379,12 +1505,16 @@ def run_train(torch, cfg7, kernels, card: str, do_profile: bool,
         + [x for x in _tensors(state.trainable["llm"])]))
     results = {}
     # text, warm-up steps, timed steps, expected launches per step
+    towers = ((whisper(8), 6),)
     plan = ((1024, 2, 3, {"mh_attention": 0, "flash_attention": 70,
+                          "flash_attention_combine": combines(
+                              torch, towers + ((llama(8, 1080), 64),)),
                           "flash_attention_dq": 32,
                           "flash_attention_dkv": 32,
                           "flash_attention_delta": 32, "matvec_int8": 0,
                           "matvec_int8_pipelined": 0}),
             (256, 2, 3, {"mh_attention": 64, "flash_attention": 6,
+                         "flash_attention_combine": combines(torch, towers),
                          "flash_attention_dq": 0, "flash_attention_dkv": 0,
                          "flash_attention_delta": 0,
                          "matvec_int8": 0, "matvec_int8_pipelined": 0}))
@@ -1537,13 +1667,18 @@ def main() -> int:
     info = _build.build()
     log(f"kernel build: {info['seconds']:.1f} s (cached={info['cached']})")
     for line in info["log"].splitlines():
-        if line.startswith("==") or re.search(r"registers|spill", line):
+        if line.startswith("==") or re.search(r"registers|spill|warn", line):
             log("  " + line.strip())
     # the backward kernels' registers and spills; the D = 128 instances of
     # the train path must not spill
-    bwd_res = {name: r for name, r in kernel_resources(info["log"]).items()
+    res = kernel_resources(info["log"])
+    bwd_res = {name: r for name, r in res.items()
                if name.startswith("flash_bwd_")}
     log(json.dumps({"backward_kernel_resources": bwd_res}))
+    # the forward attention kernels (B1, B2 and its combine), logged
+    log(json.dumps({"forward_kernel_resources": {
+        name: r for name, r in res.items()
+        if name.startswith(("flash_fwd_", "mh_attention_"))}}))
     spilled = {name: r for name, r in bwd_res.items()
                if name.endswith("<128>") and r.get("spill_stores", 0)
                + r.get("spill_loads", 0)}
@@ -1559,8 +1694,10 @@ def main() -> int:
     log(card)
     device = torch.cuda.get_device_name(0)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     kernels = {"mh_attention": mh.mh_attention,
                "flash_attention": fa.flash_attention_with_lse,
+               "flash_attention_combine": fa.flash_attention_combine,
                "flash_attention_dq": fa.flash_attention_dq,
                "flash_attention_dkv": fa.flash_attention_dkv,
                "flash_attention_delta": fa.flash_attention_delta,
@@ -1569,7 +1706,7 @@ def main() -> int:
 
     # 3. kernels vs plain at the main-path shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
-    checks = check_attention(torch, mh, fa, gen)
+    checks = check_attention(torch, mh, fa, gen, sms)
     checks.update(check_matvec(torch, mv, gen))
     # 3c. the pipelined matvec, with B5 beside it at 16 and 32 rows
     checks.update(check_matvec_pipelined(torch, mv, gen))
@@ -1646,6 +1783,11 @@ def main() -> int:
                          "macaw_llm_tpu/ops/pallas/mh_attention.py:147"),
         "flash_attention": ("macaw_llm_tpu_torch/csrc/flash_attention.cu",
                             "macaw_llm_tpu/ops/pallas/flash_attention.py:188"),
+        # the merge of B2's split over keys (the TPU kernel walks every key
+        # block of a row in one grid row and needs none)
+        "flash_attention_combine": (
+            "macaw_llm_tpu_torch/csrc/flash_attention.cu",
+            "macaw_llm_tpu/ops/pallas/flash_attention.py:188"),
         "flash_attention_dq": (
             "macaw_llm_tpu_torch/csrc/flash_attention_bwd.cu",
             "macaw_llm_tpu/ops/pallas/flash_attention.py:366"),
@@ -1711,10 +1853,19 @@ def main() -> int:
             entry["engine_launches"] = {
                 str(slots): res["launches"][name]
                 for slots, res in serve_res.items()}
-        if name == "flash_attention":  # 7 per media admission
+        if name.startswith("flash_attention"):  # 7 B2 per media admission
             entry["engine_launches"] = {
                 str(slots): res["launches"][name]
                 for slots, res in serve_res.items()}
+        adm = [r for r in rows if r.get("per_admission")]
+        if adm:  # B2 at an engine admission's batch 1, split over keys
+            entry["engine_admission"] = {
+                key: sum(r[key] * r["per_admission"] for r in adm)
+                for key in ("kernel_ms", "plain_ms", "library_ms",
+                            "bound_ms")}
+            entry["engine_admission"].update(
+                launches=sum(r["per_admission"] for r in adm),
+                chunks={r["call"]: r["chunks"] for r in adm})
         train = [r for r in rows if r.get("call") == "llama_train"]
         if train:  # B2's 64 LLaMA launches of a train step at text 1024
             r = train[0]

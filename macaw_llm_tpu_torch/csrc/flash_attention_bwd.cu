@@ -64,276 +64,12 @@
 //
 // delta: one warp per (batch, query, head) row, 16-byte loads of O and dO,
 // an fp32 dot in a fixed order, written as [B*N, Sq].
-#include <cuda.h>
-
-#include "kernels.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
 namespace macaw {
 namespace {
-
-// ------------------------------------------------ Hopper building blocks
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// one arrival, and ``bytes`` more expected from TMA before the phase ends
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity ``parity``. A
-// wait that never ends (a fault in the ring's bookkeeping) traps after
-// 2^26 polls, seconds on the card, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// a [rows x 64] box of a 4-D [B, S, N, D] tensor map at (d0, n, s0, b)
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int d0, int n,
-                                            int s0, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(n),
-      "r"(s0), "r"(b)
-      : "memory");
-}
-
-// 4 bytes global -> shared, zeros when ``in`` is false
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// the 128 threads of warpgroup c (named barrier 1 + c)
-__device__ __forceinline__ void warpgroup_sync(int c) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads of an accumulator above the wait
-// that completes it (the wgmma asm is its only visible writer).
-template <int M>
-__device__ __forceinline__ void reg_fence(float (&d)[M]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptors for 128-byte-swizzled panels: rows of
-// 128 bytes (64 bf16), 8-row groups 1024 bytes apart, panels 1024-aligned.
-__device__ __forceinline__ uint64_t desc_addr(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
-}
-
-// K-major operand (a row per M or N index, K along the row); a k step of
-// 16 inside a panel adds 32 bytes to the start address
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return desc_addr(addr) | (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// MN-major operand (a row per k, N along the row): consecutive 64-column
-// panels ``panel_bytes`` apart; a k step of 16 is 16 rows, 2048 bytes
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr,
-                                                 uint32_t panel_bytes) {
-  return desc_addr(addr) | (static_cast<uint64_t>(panel_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The m64nNk16 accumulator of a thread (lane = 4 g + t of warp w holds rows
-// 16 w + g and + 8, columns 8 j + 2 t and + 1 in d[4 j .. 4 j + 3]) read as
-// the bf16 A operand of the next product over those columns: k step kk
-// takes columns 16 kk .. 16 kk + 15.
-__device__ __forceinline__ void acc_to_a(const float (&d)[32],
-                                         uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      a[kk][e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
-    }
-  }
-}
-
-// D[64 x 64] (+)= A B, A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] = A B (the first k step: D is written, not read), A and B
-// from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da,
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-// D[64 x 64] += A B, A [64 x 16] bf16 in registers, B [16 x 64] from
-// shared memory, MN-major (N contiguous)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 128] += A B, A [64 x 16] bf16 in registers, B [16 x 128] from
-// shared memory, MN-major (N contiguous)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  wgmma_rs_n64(d, a, db, 1);
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  wgmma_rs_n128(d, a, db, 1);
-}
-
-// A logit or lse at or below this is masked (NEG_INF plus a finite term).
-constexpr float kMaskedLogit = -1e30f;
 
 // ------------------------------------------------------------------ delta
 
@@ -377,29 +113,6 @@ __global__ void __launch_bounds__(256)
 constexpr int kWgThreads = 256;
 constexpr int kStages = 3;
 
-// Ring bookkeeping shared by both kernels: thread 0 fills stage i % kStages
-// with tile i; every thread arrives on the stage's empty barrier when done
-// with it. After tile i thread 0 refills the stage of tile i - 1 (which the
-// other warpgroup has most likely left by then) with tile i + kStages - 1.
-struct Ring {
-  uint32_t full, empty;  // kStages barriers each, 8 bytes apart
-
-  __device__ uint32_t full_bar(int i) const { return full + 8 * (i % kStages); }
-  __device__ uint32_t empty_bar(int i) const {
-    return empty + 8 * (i % kStages);
-  }
-  __device__ void wait_full(int i) const {
-    mbar_wait(full_bar(i), (i / kStages) & 1);
-  }
-  // the tile whose stage is free for a refill once tile i is done, or -1
-  __device__ int refill_after(int i, int ntiles) const {
-    const int next = i + kStages - 1;
-    if (i < 1 || next >= ntiles) return -1;
-    mbar_wait(empty_bar(i - 1), ((i - 1) / kStages) & 1);
-    return next;
-  }
-};
-
 template <int D>
 struct DkvWg {
   static constexpr int NP = D / 64;  // 64-column panels of a tile
@@ -431,7 +144,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_kv = base + L::kBar;
-  const Ring ring{bar_kv + 8, bar_kv + 8 + 8 * kStages};
+  const Ring<kStages> ring{bar_kv + 8, bar_kv + 8 + 8 * kStages};
 
   const int bn = blockIdx.x, b = bn / N, n = bn % N;
   const int kb0 = blockIdx.y * L::BKV;
@@ -632,7 +345,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_qd = base + L::kBar;
-  const Ring ring{bar_qd + 8, bar_qd + 8 + 8 * kStages};
+  const Ring<kStages> ring{bar_qd + 8, bar_qd + 8 + 8 * kStages};
 
   const int bn = blockIdx.x, b = bn / N, n = bn % N;
   // the last query tile (the most causal work) first
@@ -1080,27 +793,6 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-// A [B, S, N, D] bf16 tensor as a 4-D TMA map (innermost first) whose box
-// is one 64-column panel of ``rows`` rows of one head, 128-byte swizzled;
-// rows past S read as zeros.
-bool encode_map(CUtensorMap* map, const void* ptr, int B, int S, int N, int D,
-                int rows) {
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(N),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(N) * D * 2,
-                                 static_cast<cuuint64_t>(S) * N * D * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return cuTensorMapEncodeTiled(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,

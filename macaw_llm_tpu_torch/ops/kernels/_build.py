@@ -31,9 +31,11 @@ _lib = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: every one returns cudaGetLastError() as an int
 _SIGNATURES = {
-    "macaw_mh_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-    "macaw_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _F, _I, _P],
+    "macaw_mh_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "macaw_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _F, _I, _I, _I, _P],
+    "macaw_flash_attention_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _P],
     "macaw_flash_attention_bwd_delta": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "macaw_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _F, _I, _P],

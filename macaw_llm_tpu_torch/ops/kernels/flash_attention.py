@@ -2,11 +2,13 @@
 backward.
 
 Counterpart of ``macaw_llm_tpu/ops/pallas/flash_attention.py``. On CUDA
-tensors the forward launches ``csrc/flash_attention.cu`` (B2) and the
-backward ``csrc/flash_attention_bwd.cu``: the delta kernel, the dq kernel
-(B3) and the dk/dv kernel (B4); at head dims 64 and 128 B3 and B4 are
-wgmma kernels fed by TMA (the source note says how). On CPU tensors each
-wrapper computes the plain PyTorch version written next to it.
+tensors the forward launches ``csrc/flash_attention.cu`` (B2, a wgmma
+kernel fed by TMA) and, where ``split_plan`` cuts the keys into chunks,
+that file's combine kernel; the backward launches
+``csrc/flash_attention_bwd.cu``: the delta kernel, the dq kernel (B3) and
+the dk/dv kernel (B4); at head dims 64 and 128 B3 and B4 are wgmma kernels
+fed by TMA (the source notes say how). On CPU tensors each wrapper
+computes the plain PyTorch version written next to it, with no split.
 ``flash_attention`` and ``flash_attention_with_lse`` are
 differentiable in q, k and v (a ``torch.autograd.Function``); the padding
 bias takes no gradient, as in the reference.
@@ -19,7 +21,8 @@ backward's ``exp(s - lse)`` is 1 there.)
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +32,20 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 HEAD_DIMS = (64, 128, 256)  # template instances of the kernels
 # a logit or lse at or below this is masked (NEG_INF plus a finite term)
 MASKED_LOGIT = -1e30
+# B2's block: 128 query rows (two warpgroups of 64) over key tiles of
+# BLOCK_K keys, 128 at head dim 128 (FwdWg in the .cu file)
+BLOCK_Q, BLOCK_K = 128, 64
+
+
+def block_k(d: int) -> int:
+    """Keys per K/V tile of B2 at head dim ``d``."""
+    return 128 if d == 128 else BLOCK_K
+
+# split_plan's limits: at most this many key chunks (the workspace holds
+# an fp32 copy of the output per chunk), and a block's fixed cost (its Q
+# load, its epilogue, its share of the combine) in key tiles
+MAX_CHUNKS = 32
+CHUNK_COST_TILES = 2
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -36,15 +53,17 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.promote_types(t.dtype, torch.float32)
 
 
-def _scores(q, k, padding_bias, causal: bool, scale: float) -> torch.Tensor:
-    """Masked, scaled logits [B, N, Sq, Sk] in the accumulate dtype."""
+def _scores(q, k, padding_bias, causal: bool, scale: float,
+            k0: int = 0) -> torch.Tensor:
+    """Masked, scaled logits [B, N, Sq, Sk] in the accumulate dtype; k holds
+    the keys from index ``k0`` on (the causal mask's key indices)."""
     acc = _acc_dtype(q)
     logits = torch.einsum("bqnd,bknd->bnqk", q.to(acc), k.to(acc)) * scale
     if padding_bias is not None:
         logits = logits + padding_bias.to(acc)[:, None, None, :]
     if causal:
         sq, sk = q.shape[1], k.shape[1]
-        keep = (torch.arange(sk, device=q.device)[None, :]
+        keep = (torch.arange(k0, k0 + sk, device=q.device)[None, :]
                 <= torch.arange(sq, device=q.device)[:, None])
         logits = torch.where(keep, logits, NEG_INF)
     return torch.clamp(logits, min=NEG_INF)
@@ -102,6 +121,104 @@ def attention_backward_reference(q, k, v, padding_bias, lse, dout, delta, *,
     return dq, dk, dv
 
 
+@functools.lru_cache(maxsize=256)
+def split_plan(b: int, sq: int, sk: int, n: int, d: int, causal: bool,
+               sms: int) -> Tuple[Tuple[int, int], ...]:
+    """B2's key chunks ((k0, k1), ...): whole key tiles (``block_k(d)``
+    keys) covering [0, sk), none empty, one chunk unless a split fills the
+    card better.
+
+    B2 runs one block of 128 query rows per (batch x head, chunk); an SM
+    holds one block at a time, two at D = 64 (``kMinBlocks`` in the .cu
+    file). Without a split there are ``b * n * ceil(sq / 128)`` blocks;
+    when they fill fewer slots than the card has, SMs idle while each block
+    walks every key tile. A split into ``c`` chunks runs ``c`` times the
+    blocks, each over ``ceil(tiles / c)`` tiles plus a fixed cost
+    (CHUNK_COST_TILES), in ``ceil(blocks * c / slots)`` waves; the plan
+    takes the ``c`` with the fewest tile-times in all (the smaller on a
+    tie). At the video alignment (80 blocks of 501 tiles, D = 256) that is
+    8 chunks: 640 blocks in 5 waves of 65 tile-times, against one wave of
+    503. A causal block's work is at most the full walk, so causal shapes
+    take the same count."""
+    del causal
+    slots = sms * (2 if d == 64 else 1)
+    bk = block_k(d)
+    tiles = -(-sk // bk)
+    blocks = b * n * -(-sq // BLOCK_Q)
+    if tiles <= 1 or blocks >= slots:
+        return ((0, sk),)
+    best, best_cost = 1, None
+    for c in range(1, min(tiles, MAX_CHUNKS) + 1):
+        per = -(-tiles // c)
+        if -(-tiles // per) != c:  # the same chunks as a smaller count
+            continue
+        cost = -(-(blocks * c) // slots) * (per + CHUNK_COST_TILES)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    per = -(-tiles // best) * bk
+    return tuple((k0, min(k0 + per, sk)) for k0 in range(0, sk, per))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def chunk_reference(q, k, v, padding_bias, *, causal: bool, scale: float,
+                    k0: int, k1: int):
+    """The plain version of one chunk's block of B2: attention of q over
+    keys [k0, k1) alone (the causal mask by the keys' own indices). Returns
+    the normalized partial output in the accumulate dtype (fp32) and its
+    log-sum-exp [B, Sq, N], NEG_INF on a row with no valid key in the
+    chunk."""
+    acc = _acc_dtype(q)
+    logits = _scores(q, k[:, k0:k1], None if padding_bias is None
+                     else padding_bias[:, k0:k1], causal, scale, k0)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - torch.clamp(m, min=-1e30))
+    l_sum = p.sum(-1, keepdim=True)
+    out = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).to(acc),
+                       v[:, k0:k1].to(acc))
+    out = out / torch.where(l_sum == 0.0, 1.0, l_sum).permute(0, 2, 1, 3)
+    lse = torch.where(l_sum > 0.0, m + torch.log(l_sum), NEG_INF)
+    return out, lse[..., 0].permute(0, 2, 1)
+
+
+def combine_reference(part_out: torch.Tensor, part_lse: torch.Tensor,
+                      dtype: torch.dtype):
+    """The plain version of the combine kernel: chunks' partial outputs
+    [C, B, Sq, N, D] and log-sum-exps [C, B, Sq, N] (fp32) merged as
+    lse = log sum_i exp(lse_i), out = sum_i exp(lse_i - lse) out_i, in
+    chunk order. A chunk whose lse is NEG_INF weighs 0; a row with no valid
+    key in any chunk gives zeros and NEG_INF. Returns (out in ``dtype``,
+    lse [B, Sq, N])."""
+    mx = part_lse.amax(0)
+    live = mx > MASKED_LOGIT
+    # exp(NEG_INF - NEG_INF) never runs: a dead row is taken against 0
+    mref = torch.where(live, mx, 0.0)
+    total = torch.where(live, mref + torch.log(torch.exp(
+        part_lse - mref).sum(0)), 0.0)
+    w = torch.exp(part_lse - total)
+    out = (w[..., None] * part_out).sum(0)
+    out = torch.where(live[..., None], out, 0.0)
+    return out.to(dtype), torch.where(live, total, NEG_INF)
+
+
+def split_attention_reference(q, k, v, padding_bias=None, *, causal: bool,
+                              scale: Optional[float] = None,
+                              chunks: Sequence[Tuple[int, int]]):
+    """B2 with its keys split: the plain per-chunk partials
+    (``chunk_reference``) over ``chunks`` (``split_plan``'s), merged by
+    ``combine_reference``. Used by the tests and ``chip_smoke.py``; the
+    wrappers compute ``attention_reference`` on the CPU."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    parts = [chunk_reference(q, k, v, padding_bias, causal=causal,
+                             scale=scale, k0=k0, k1=k1) for k0, k1 in chunks]
+    return combine_reference(torch.stack([o for o, _ in parts]),
+                             torch.stack([lse for _, lse in parts]), q.dtype)
+
+
 def _check_cuda(q, k, v, padding_bias, what: str, extra=()) -> None:
     b, sq, n, d = q.shape
     sk = k.shape[1]
@@ -132,16 +249,71 @@ def _forward(q, k, v, padding_bias, causal: bool, scale: float):
                                    scale=scale)
     _check_cuda(q, k, v, padding_bias, "flash_attention")
     b, sq, n, d = q.shape
+    sk = k.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty((b * n, sq), dtype=torch.float32, device=q.device)
+    chunks = split_plan(b, sq, sk, n, d, causal,
+                        _sm_count(q.device.index or 0))
+    part_o = part_lse = None
+    if len(chunks) > 1:  # the workspace of the split, one plane a chunk
+        part_o = torch.empty((len(chunks), b, sq, n, d), dtype=torch.float32,
+                             device=q.device)
+        part_lse = torch.empty((len(chunks), b, sq, n), dtype=torch.float32,
+                               device=q.device)
+    bk = block_k(d)
+    chunk_tiles = (chunks[0][1] - chunks[0][0]) // bk if len(chunks) > 1 \
+        else -(-sk // bk)
     err = _build.library().macaw_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if padding_bias is None else padding_bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], n, d, float(scale),
-        int(causal), _build.stream_ptr(q))
+        out.data_ptr(), lse.data_ptr(),
+        None if part_o is None else part_o.data_ptr(),
+        None if part_lse is None else part_lse.data_ptr(), b, sq, sk, n, d,
+        float(scale), int(causal), chunk_tiles, len(chunks),
+        _build.stream_ptr(q))
     _build.check(err, "flash_attention")
     flash_attention_with_lse.launches += 1
+    if part_o is not None:
+        _combine(part_o, part_lse, out, lse)
     return out, lse.view(b, n, sq).permute(0, 2, 1)
+
+
+def _combine(part_out, part_lse, out, lse) -> None:
+    c, b, sq, n, d = part_out.shape
+    err = _build.library().macaw_flash_attention_combine(
+        part_out.data_ptr(), part_lse.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, sq, n, d, c, _build.stream_ptr(part_out))
+    _build.check(err, "flash_attention combine")
+    flash_attention_combine.launches += 1
+
+
+def flash_attention_combine(part_out: torch.Tensor, part_lse: torch.Tensor):
+    """B2's combine: chunks' partials [C, B, Sq, N, D] and [C, B, Sq, N]
+    (fp32) -> (out [B, Sq, N, D] bf16, lse [B, Sq, N] fp32, laid out
+    [B*N, Sq] in memory). ``_forward`` launches it after a split; this
+    entry, which checks its inputs, serves the tests and ``chip_smoke.py``.
+    CPU: ``combine_reference``."""
+    c, b, sq, n, d = part_out.shape
+    if part_out.device.type == "cpu":
+        return combine_reference(part_out, part_lse, torch.bfloat16)
+    if d not in HEAD_DIMS or part_lse.shape != (c, b, sq, n):
+        raise ValueError(f"flash_attention combine kernel: partials "
+                         f"{tuple(part_out.shape)}, {tuple(part_lse.shape)}")
+    for name, t in (("part_out", part_out), ("part_lse", part_lse)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != part_out.device:
+            raise ValueError(f"flash_attention combine kernel: {name} must "
+                             f"be a contiguous fp32 tensor on "
+                             f"{part_out.device}")
+    out = torch.empty((b, sq, n, d), dtype=torch.bfloat16,
+                      device=part_out.device)
+    lse = torch.empty((b * n, sq), dtype=torch.float32,
+                      device=part_out.device)
+    _combine(part_out, part_lse, out, lse)
+    return out, lse.view(b, n, sq).permute(0, 2, 1)
+
+
+flash_attention_combine.launches = 0
 
 
 def _folded(t: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Whole-sequence self-attention for short sequences (S_q == S_k).
 
 Counterpart of ``macaw_llm_tpu/ops/pallas/mh_attention.py``. On CUDA
-tensors the wrapper launches ``csrc/mh_attention.cu``, which stages the
-whole K and V of one head in shared memory; on CPU tensors it computes the
-plain version (``attention_reference``). Rows with no valid key give
+tensors the wrapper launches ``csrc/mh_attention.cu``, a wgmma kernel that
+holds every K and V tile a block of 192 queries can reach in shared memory
+(loaded by TMA); on CPU tensors it computes the plain version
+(``attention_reference``). Rows with no valid key give
 zeros. Differentiable in q, k and v: the backward recomputes through the
 reference package's einsum math (``mh_reference``), as the reference does;
 no TPU kernel exists for it.
@@ -25,32 +26,23 @@ __all__ = ["NEG_INF", "attention_reference", "fits_mh_attention",
 # dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_BUDGET = 232448
 HEAD_DIMS = (64, 128)  # template instances of the kernel
+BLOCK_Q, BLOCK_K = 192, 64  # query rows per block, keys per K/V tile
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def smem_bytes(s: int, d: int, warps: int) -> int:
-    """Shared memory of one block (mirrors MhLayout in the .cu file):
-    K and V of the padded sequence at pitch d + 8, plus per warp a 16-row
-    Q stage, a 16 x 16 fp32 logit tile and a 16 x 16 bf16 prob tile."""
-    pitch = d + 8
-    return (2 * _round_up(s, 16) * pitch * 2
-            + warps * (16 * pitch * 2 + 16 * 16 * 4 + 16 * 24 * 2))
+def smem_bytes(s: int, d: int) -> int:
+    """Shared memory of one block (mirrors MhWg in the .cu file): a Q tile
+    of 192 rows, K and V of every 64-key tile of the sequence (rows of d
+    bf16), an mbarrier for Q and one per tile, and 1024 bytes that align
+    the swizzled panels."""
+    tiles = -(-s // BLOCK_K)
+    return (BLOCK_Q * d * 2 + tiles * 2 * BLOCK_K * d * 2
+            + 8 * (1 + tiles) + 1024)
 
 
 def fits_mh_attention(sq: int, sk: int, d: int) -> bool:
-    """True when the whole padded K and V of one head fit a block's
-    shared memory next to one warp's tiles."""
-    return sq == sk and smem_bytes(sq, d, 1) <= SMEM_BUDGET
-
-
-def _warps(s: int, d: int) -> int:
-    for w in (8, 4, 2):
-        if smem_bytes(s, d, w) <= SMEM_BUDGET:
-            return w
-    return 1
+    """True when every K and V tile of one head fits a block's shared
+    memory beside its Q tile (S <= 320 at D = 128, <= 768 at D = 64)."""
+    return sq == sk and smem_bytes(sq, d) <= SMEM_BUDGET
 
 
 def mh_reference(q, k, v, padding_bias, scale: float,
@@ -138,7 +130,7 @@ def _forward(q, k, v, padding_bias, causal: bool, scale: float):
     err = _build.library().macaw_mh_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if padding_bias is None else padding_bias.data_ptr(),
-        out.data_ptr(), b, s, n, d, float(scale), int(causal), _warps(s, d),
+        out.data_ptr(), b, s, n, d, float(scale), int(causal),
         _build.stream_ptr(q))
     _build.check(err, "mh_attention")
     mh_attention.launches += 1

@@ -65,7 +65,7 @@ def _row_rel_err(out, ref):
     (2, 312, 4, 128, True, "tail"), (2, 200, 3, 128, False, "tail")])
 def test_mh_attention_kernel(gen, b, s, n, d, causal, pad):
     q, k, v = (_rn(gen, b, s, n, d) for _ in range(3))
-    bias = _bias(pad, b, s, 16)
+    bias = _bias(pad, b, s, 64)
     before = mh.mh_attention.launches
     out = mh.mh_attention(q, k, v, bias, causal=causal)
     torch.cuda.synchronize()
@@ -93,6 +93,91 @@ def test_flash_attention_kernel(gen, b, sq, sk, n, d, causal, pad):
     assert _row_rel_err(out, ref) <= ATTN_ROW_REL
     assert (lse[ok] - ref_lse[ok]).abs().max().item() <= LSE_TOL
     assert (lse[~ok] < -1e30).all()
+
+
+def _gate_max_s(d):
+    """The largest S that mh_attention's shared-memory gate admits."""
+    return max(s for s in range(1, 4096) if mh.fits_mh_attention(s, s, d))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 17, 64, 311, 312, "max"])
+def test_mh_attention_kernel_tail_tile(gen, s, d):
+    """B1 at every sequence length class up to the gate's largest, causal,
+    with a padding bias that leaves only the keys of the last 64-key tile
+    valid (the rows before that tile have no valid key: zeros)."""
+    s = _gate_max_s(d) if s == "max" else s
+    b, n = 2, 2
+    q, k, v = (_rn(gen, b, s, n, d) for _ in range(3))
+    bias = _bias("tail", b, s, 64)
+    out = mh.mh_attention(q, k, v, bias, causal=True)
+    again = mh.mh_attention(q, k, v, bias, causal=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.attention_reference(q, k, v, bias, causal=True)
+    assert _row_rel_err(out, ref) <= ATTN_ROW_REL
+    assert not out[ref_lse <= -1e30].any()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("b,sq,sk,n,d,pad", [
+    (2, 100, 5000, 1, 256, "none"),   # long K, few blocks: split
+    (1, 1500, 1500, 8, 64, "none"),   # Whisper at an engine admission
+    (1, 1176, 1178, 8, 64, "tail"),   # video-long at an engine admission
+    (2, 100, 5000, 1, 256, "chunk"),  # every key outside one chunk masked
+    (2, 300, 3000, 2, 128, "pad"),    # rows with no valid key
+])
+def test_flash_attention_split_kernel(gen, b, sq, sk, n, d, pad):
+    """B2 where split_plan cuts the keys into chunks: one combine launch
+    per call, out and lse against the unsplit and the split plain versions,
+    masked rows zeros and NEG_INF, the same bits on a rerun."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunks = fa.split_plan(b, sq, sk, n, d, False, sms)
+    assert len(chunks) > 1
+    q, k, v = _rn(gen, b, sq, n, d), _rn(gen, b, sk, n, d), \
+        _rn(gen, b, sk, n, d)
+    if pad == "chunk":
+        k0, k1 = chunks[len(chunks) // 2]
+        bias = torch.full((b, sk), fa.NEG_INF, device="cuda")
+        bias[:, k0:k1] = 0.0
+    else:
+        bias = _bias(pad, b, sk, 64)
+    before = (fa.flash_attention_with_lse.launches,
+              fa.flash_attention_combine.launches)
+    out, lse = fa.flash_attention_with_lse(q, k, v, bias, causal=False)
+    out2, lse2 = fa.flash_attention_with_lse(q, k, v, bias, causal=False)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_with_lse.launches,
+            fa.flash_attention_combine.launches) == tuple(
+                x + 2 for x in before)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for ref, ref_lse in (
+            fa.attention_reference(q, k, v, bias, causal=False),
+            fa.split_attention_reference(q, k, v, bias, causal=False,
+                                         chunks=chunks)):
+        ok = ref_lse > -1e30
+        assert _row_rel_err(out, ref) <= ATTN_ROW_REL
+        assert (lse[ok] - ref_lse[ok]).abs().max().item() <= LSE_TOL
+        assert (lse[~ok] == fa.NEG_INF).all() and not out[~ok].any()
+
+
+def test_flash_attention_combine_kernel(gen):
+    """The combine kernel alone against its plain version, with a chunk
+    whose lse is NEG_INF everywhere and a row NEG_INF in every chunk."""
+    c, b, sq, n, d = 5, 2, 70, 3, 128
+    part_o = torch.randn(c, b, sq, n, d, generator=gen, device="cuda")
+    part_lse = torch.randn(c, b, sq, n, generator=gen, device="cuda")
+    part_lse[2] = fa.NEG_INF
+    part_lse[:, 1, 7, 2] = fa.NEG_INF
+    before = fa.flash_attention_combine.launches
+    out, lse = fa.flash_attention_combine(part_o, part_lse)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_combine.launches == before + 1
+    ref, ref_lse = fa.combine_reference(part_o, part_lse, torch.bfloat16)
+    assert _row_rel_err(out, ref) <= ATTN_ROW_REL
+    ok = ref_lse > -1e30
+    assert (lse[ok] - ref_lse[ok]).abs().max().item() <= 1e-5
+    assert lse[1, 7, 2].item() == fa.NEG_INF and not out[1, 7, 2].any()
+    assert torch.isfinite(out.float()).all()
 
 
 @pytest.mark.parametrize("b,k,n", [(1, 4096, 4096), (2, 512, 1000),
@@ -189,6 +274,19 @@ def test_wrappers_raise_instead_of_falling_back(gen):
         mh.mh_attention(q, q, q)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    q64 = _rn(gen, 1, 16, 1, 64)
+    with pytest.raises(ValueError):  # fp32 inputs
+        fa.flash_attention(q64.float(), q64.float(), q64.float())
+    with pytest.raises(ValueError):  # a non-contiguous layout
+        fa.flash_attention(q64.transpose(1, 2), q64, q64)
+    with pytest.raises(ValueError):  # past the shared-memory gate
+        s = _gate_max_s(128) + 1
+        x = _rn(gen, 1, s, 1, 128)
+        mh.mh_attention(x, x, x)
+    with pytest.raises(ValueError):  # fp32 partials
+        fa.flash_attention_combine(
+            torch.zeros(2, 1, 4, 1, 64, device="cuda", dtype=torch.bfloat16),
+            torch.zeros(2, 1, 4, 1, device="cuda"))
     with pytest.raises(ValueError):
         mv.matvec_int8(_rn(gen, 2, 64).float(),
                        torch.zeros(64, 64, dtype=torch.int8, device="cuda"),

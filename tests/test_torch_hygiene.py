@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``macaw_llm_tpu_torch/`` and none of
-``chip_smoke.py``, ``decode_ab.py``, ``tools/decode_probes.py`` and
-``tools/flash_bwd_probe.py`` imports jax or the reference package
+``chip_smoke.py``, ``decode_ab.py``, ``tools/decode_probes.py``,
+``tools/flash_bwd_probe.py`` and ``tools/flash_fwd_probe.py`` imports jax or the reference package
 ``macaw_llm_tpu``, and importing every module of the port (the server and
 the data helpers included) loads no jax and compiles nothing."""
 
@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "macaw_llm_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "decode_ab.py",
     ROOT / "tools" / "decode_probes.py",
-    ROOT / "tools" / "flash_bwd_probe.py"]
+    ROOT / "tools" / "flash_bwd_probe.py",
+    ROOT / "tools" / "flash_fwd_probe.py"]
 
 
 def _imports(path: Path):

@@ -107,9 +107,10 @@ def test_matvec_plain_matches_pallas(b, k, n):
 
 def test_mh_gate_from_shared_memory_budget():
     """The 7b prefill shape (S=312, D=128) fits one block's shared memory
-    with 8 warps; a sequence whose K/V exceed 227 KB does not."""
+    (a 192-query Q tile beside every 64-key K/V tile of the sequence); a
+    sequence whose K/V exceed 227 KB does not, nor does S_q != S_k."""
     assert tmh.fits_mh_attention(312, 312, 128)
-    assert tmh.smem_bytes(312, 128, 8) <= tmh.SMEM_BUDGET
+    assert tmh.smem_bytes(312, 128) <= tmh.SMEM_BUDGET
     assert not tmh.fits_mh_attention(1500, 1500, 64)
     assert not tmh.fits_mh_attention(312, 300, 128)
 
