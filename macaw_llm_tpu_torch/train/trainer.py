@@ -238,6 +238,10 @@ class Trainer:
                 params = dict(params, llm=quantize_llama(params["llm"]))
         trainable, frozen = split_params(params, t.freeze_encoders,
                                          lora=t.lora_rank > 0)
+        # AdamW writes the trainable leaves in place, and ``.to`` on their
+        # own device returns the caller's tensors: copy them so that the
+        # caller's tree never changes (frozen leaves are never written)
+        trainable = _tree_map(torch.clone, trainable)
         if frozen and t.frozen_dtype != "param":
             frozen = _cast_frozen(frozen, getattr(torch, t.frozen_dtype))
         if t.pack_frozen_towers and t.freeze_encoders:

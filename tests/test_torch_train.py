@@ -75,14 +75,17 @@ def _cfgs(**fusion_kw):
 
 @pytest.fixture(scope="module")
 def weights():
-    """Port-made fp32 weights with LoRA adapters (B nonzero, so the
-    adapters move the loss), and the same tree for JAX."""
+    """Port-made fp32 weights with LoRA adapters (both B nonzero, so the
+    adapters move the loss and every A gets a gradient), and the same tree
+    for JAX."""
     _, tcfg = _cfgs()
     tp = tfusion.init_params(0, tcfg, dtype=torch.float32, device="cpu")
     tp["llm"]["lm_head"] = tp["llm"]["lm_head"] * 10.0
     lo = tlora.init_lora(torch.Generator().manual_seed(1), tcfg.llm, 4)
     lo["qb"] = torch.randn(lo["qb"].shape, generator=torch.Generator()
                            .manual_seed(2)) * 0.05
+    lo["vb"] = torch.randn(lo["vb"].shape, generator=torch.Generator()
+                           .manual_seed(3)) * 0.05
     tp["llm"]["layers"]["lora"] = lo
     return tp
 
@@ -512,6 +515,33 @@ def test_remat_gives_the_same_grads(weights):
         torch.testing.assert_close(grads[1][k].grad, grads[0][k].grad,
                                    rtol=1e-5, atol=1e-7)
         assert grads[0][k].grad.abs().max() > 0, k
+
+
+@pytest.mark.parametrize("lora", [True, False], ids=["qlora", "full"])
+def test_train_step_leaves_the_callers_tree_unchanged(weights, lora):
+    """``init_state`` + two ``train_step`` never write the tensors they were
+    given (on their own device ``.to`` returns them, and AdamW updates the
+    trainable leaves in place); the JAX Trainer never changes its input."""
+    _, tcfg = _cfgs()
+    tp = dict(weights)
+    if not lora:
+        tp["llm"] = dict(tp["llm"], layers={
+            k: v for k, v in tp["llm"]["layers"].items() if k != "lora"})
+    before = {k: v.clone() for k, v in _leaves(tp).items()}
+    tt = tconfig.TrainConfig(learning_rate=1e-2, warmup_ratio=0.0,
+                             lora_rank=4 if lora else 0, quantize_base=lora)
+    tr = ttrainer.Trainer(tcfg, tt, total_steps=10, device="cpu")
+    state = tr.init_state(tp)
+    for seed in (7, 8):  # the first step runs at learning rate 0
+        batch = _batch(tcfg, seed=seed)
+        del batch["audios"], batch["videos"]
+        state, _ = tr.train_step(state, _torch_batch(batch))
+    assert any(not torch.equal(v, before[k])  # the step did train
+               for k, v in _leaves(state.trainable).items())
+    after = _leaves(tp)
+    assert sorted(after) == sorted(before)
+    for k, v in before.items():
+        assert torch.equal(after[k], v), k
 
 
 def _check_align_kv_training(weights, align_cache):
