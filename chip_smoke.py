@@ -9,11 +9,17 @@ Phases, in order (any failure raises and the script exits non-zero):
     its combine kernel, and with every key outside one chunk masked) and
     time kernel, plain version, the library call that computes the same
     function (where one exists) and the bound;
- 3c. the pipelined matvec (B6) against its plain version at the five 7b
-    decode shapes and a ragged narrow one, at 9, 16 and 32 rows and depths
-    1, 2 and 4 (bitwise equal across depths and runs, within one bf16 ulp
-    of B5), timed beside B5 at 16 and 32 rows with the byte bound, the
-    fp32 FMA bound, the plain version and the library call;
+ 3a. the int8 matvec (B5) against its plain version at the five 7b
+    decode shapes and two ragged ones (N no multiple of 16, K no multiple
+    of 64) at 4, 16 and 32 rows, bitwise on a rerun; timed at the 7b
+    shapes by device time (a CUDA graph of the wrapper's launches, each
+    call's weight one of >= 128 MB of distinct copies) beside PR 1-5's
+    back-to-back event time, the plain version, the byte bound and, at 4
+    rows, the library call;
+ 3c. the pipelined matvec (B6) at the same shapes, at 9, 16 and 32 rows and
+    depths 1, 2, 4 and 8 (bitwise equal across depths and runs, within one
+    bf16 ulp of B5), timed the same way at 16 and 32 rows at every depth,
+    with B5, the fp32 FMA bound and the library call beside it;
  3b. the same for the backward kernels (delta, flash dq, flash dk/dv) at
     the 7b train shape and at the edge cases (ragged tail, a fully masked
     batch row, an LSE cotangent, head dims 64 and 256), after holding the
@@ -76,7 +82,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12  # outside the tensor cores: B6's FMAs
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores: PR 3's B6 design
 PEAK_BYTES = 3.35e12
 
 # Attention outputs, kernel vs plain, bf16 compared in fp32, each output
@@ -151,18 +157,19 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 
 def kernel_resources(build_log: str) -> dict:
-    """ptxas registers and spill bytes per attention kernel of an ``nvcc
-    -Xptxas -v`` log, keyed by the kernel's name and template arguments
-    (``flash_bwd_dq_wgmma<128>``, ``flash_fwd_wgmma<256>``)."""
+    """ptxas registers and spill bytes per attention or matvec kernel of an
+    ``nvcc -Xptxas -v`` log, keyed by the kernel's name and template
+    arguments (``flash_bwd_dq_wgmma<128>``, ``matvec_wgmma<32,1>``: rows,
+    TMA path)."""
     res, name = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
-            k = re.search(r"((?:flash_bwd|flash_fwd|mh_attention)_[a-z_]+?)"
-                          r"(?:I((?:Li\d+E)+)E|E)", name)
+            k = re.search(r"((?:flash_bwd|flash_fwd|mh_attention|matvec)_"
+                          r"[a-z_]+?)(?:I((?:L[ib]\d+E)+)E|E)", name)
             if k:
-                args = re.findall(r"Li(\d+)E", k.group(2) or "")
+                args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
                 name = k.group(1) + (f"<{','.join(args)}>" if args else "")
             res[name] = {}
             continue
@@ -618,98 +625,147 @@ def library_int8_mm(torch, x, ws, s, ref, cycle):
     return ms, rel, None
 
 
-def check_matvec(torch, mv, gen, batch: int = 4):
-    """matvec_int8 at every decode-step shape. Timing cycles through
-    enough distinct weights (>= 128 MB) that no call finds its weight in
-    the 50 MB L2, as in decode, where every layer streams its own."""
-    rows = []
-    for name, k, n, per in DECODE_MATVECS:
-        copies = max(1, -(-(128 << 20) // (k * n)))
-        ws = [torch.randint(-127, 128, (k, n), generator=gen,
-                            device="cuda").to(torch.int8)
-              for _ in range(copies)]
-        s = torch.rand(1, n, generator=gen, device="cuda") * 0.01
-        x = torch.randn(batch, k, generator=gen, device="cuda").to(
-            torch.bfloat16)
-        out = mv.matvec_int8(x, ws[0], s)
-        ref = mv.matvec_reference(x, ws[0], s).float()
-        torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        if not rel <= MATVEC_REL_TOL:
-            raise AssertionError(f"matvec_int8 {name}: rel err {rel}")
-        i = [0]
+def graph_ms(torch, fn, n: int, replays: int = 5) -> float:
+    """Device time (ms) per call of ``fn``: ``n`` calls captured in one
+    CUDA graph, the graph replayed, CUDA events around the replays. Unlike
+    ``cuda_ms`` over back-to-back wrapper calls, the host's issue time of a
+    call (tens of us) does not enter: a call under about 60 us is timed
+    here and not by its issue."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * n)
 
-        def cycle(fn):
-            def call():
-                i[0] = (i[0] + 1) % copies
-                return fn(ws[i[0]])
-            return call
 
-        ms = cuda_ms(torch, cycle(lambda w: mv.matvec_int8(x, w, s)),
-                     8 * copies)
-        plain = cuda_ms(torch, cycle(lambda w: mv.matvec_reference(x, w, s)),
-                        4 * copies)
+# ragged shapes beside the 7b ones: N no multiple of 16 (the cp.async
+# path), K no multiple of the kernel's 64-row k tile
+RAGGED_MATVECS = (("ragged", 352, 250, 0), ("ragged_k", 1000, 520, 0))
+MATVEC_ROWS = (4, 16, 32)  # generate's batch 4; the engine's 16 and 32
+
+
+def matvec_weights(torch, gen, k: int, n: int, per: int):
+    """Distinct int8 weights of >= 128 MB (one for a ragged shape), so that
+    no timed call finds its weight in the 50 MB L2, as in decode, where
+    every layer streams its own; their scale; a cycling call maker."""
+    copies = max(1, -(-(128 << 20) // (k * n))) if per else 1
+    ws = [torch.randint(-127, 128, (k, n), generator=gen,
+                        device="cuda").to(torch.int8)
+          for _ in range(copies)]
+    s = torch.rand(1, n, generator=gen, device="cuda") * 0.01
+    i = [0]
+
+    def cycle(fn):
+        def call():
+            i[0] = (i[0] + 1) % copies
+            return fn(ws[i[0]])
+        return call
+    return ws, s, cycle
+
+
+def matvec_times(torch, mv, fn, x, ws, s, cycle, ref, library: bool):
+    """A matvec's times at one shape and row count: device time per call
+    (``kernel_ms``, a CUDA graph of 4 calls a weight copy, at least 8),
+    the back-to-back event time of PR 1-5's rows (``event_ms``), the plain
+    version, the library call (where asked) and the byte bound."""
+    b, k = x.shape
+    n = ws[0].shape[1]
+    iters = max(8, 4 * len(ws))
+    row = {"kernel_ms": graph_ms(torch, cycle(fn), iters),
+           "event_ms": cuda_ms(torch, cycle(fn), iters),
+           "plain_ms": cuda_ms(torch, cycle(
+               lambda w: mv.matvec_reference(x, w, s)), 2 * len(ws))}
+    if library:
         lib, lib_err, lib_note = library_int8_mm(torch, x, ws, s, ref, cycle)
-        nbytes = k * n + n * 4 + batch * k * 2 + batch * n * 2
-        bms, by = bound(2 * batch * k * n, nbytes)
-        rows.append(dict(call=name, shape=[batch, k, n], max_abs_err=err,
-                         rel_err=rel, kernel_ms=ms, plain_ms=plain,
-                         library_ms=lib, library_rel_err=lib_err,
-                         library_note=lib_note, bound_ms=bms, bound_by=by,
-                         per_step=per))
-        del ws, ref, out
+        row.update(library_ms=lib, library_rel_err=lib_err,
+                   library_note=lib_note)
+    bms, by = bound(2 * b * k * n, k * n + n * 4 + b * k * 2 + b * n * 2)
+    row.update(bound_ms=bms, bound_by=by)
+    return row
+
+
+def check_matvec(torch, mv, gen):
+    """matvec_int8 (B5) at every decode-step shape and two ragged ones, at
+    4, 16 and 32 rows, against the plain version and bitwise on a rerun;
+    timed at the 7b shapes (the library call at 4 rows, where ``generate``
+    routes it)."""
+    rows = []
+    for name, k, n, per in DECODE_MATVECS + RAGGED_MATVECS:
+        ws, s, cycle = matvec_weights(torch, gen, k, n, per)
+        for b in MATVEC_ROWS:
+            x = torch.randn(b, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            out = mv.matvec_int8(x, ws[0], s)
+            again = mv.matvec_int8(x, ws[0], s)
+            ref = mv.matvec_reference(x, ws[0], s).float()
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            if not (rel <= MATVEC_REL_TOL and torch.equal(out, again)):
+                raise AssertionError(f"matvec_int8 {name} at {b} rows: rel "
+                                     f"err {rel}, rerun equal "
+                                     f"{torch.equal(out, again)}")
+            row = dict(call=name, shape=[b, k, n], max_abs_err=err,
+                       rel_err=rel, per_step=per)
+            if per:
+                row.update(matvec_times(
+                    torch, mv, lambda w: mv.matvec_int8(x, w, s), x, ws, s,
+                    cycle, ref, library=b == 4))
+            rows.append(row)
+        del ws
         torch.cuda.empty_cache()
     return {"matvec_int8": rows}
 
 
 # rows per engine step: (slots, depth) cases of B6; B5 beside it
 PIPELINED_ROWS = (9, 16, 32)
-PIPELINED_DEPTHS = (1, 2, 4)
+PIPELINED_DEPTHS = (1, 2, 4, 8)
 ULP_FLOOR = 2.0 ** -10
 
 
 def check_matvec_pipelined(torch, mv, gen):
-    """B6 at every decode-step shape and a ragged narrow one: each depth
+    """B6 at every decode-step shape and the ragged ones: each depth
     against the plain version at 9, 16 and 32 rows, bitwise equal across
     depths and on a second run, within one bf16 ulp of B5 at 16 rows (an
     output below 2^-10 of the largest, a sum that cancelled, is measured
-    against that floor). Timed at 16 and 32 rows beside B5, cycling
-    through >= 128 MB of distinct weights as ``check_matvec`` does."""
+    against that floor). Timed at 16 and 32 rows at every depth, with B5's
+    device time beside it, cycling through >= 128 MB of distinct weights
+    as ``check_matvec`` does."""
     rows = []
-    for name, k, n, per in DECODE_MATVECS + (("ragged", 352, 250, 0),):
-        copies = max(1, -(-(128 << 20) // (k * n))) if per else 1
-        ws = [torch.randint(-127, 128, (k, n), generator=gen,
-                            device="cuda").to(torch.int8)
-              for _ in range(copies)]
-        s = torch.rand(1, n, generator=gen, device="cuda") * 0.01
-        i = [0]
-
-        def cycle(fn):
-            def call():
-                i[0] = (i[0] + 1) % copies
-                return fn(ws[i[0]])
-            return call
-
-        worst = 0.0
+    for name, k, n, per in DECODE_MATVECS + RAGGED_MATVECS:
+        ws, s, cycle = matvec_weights(torch, gen, k, n, per)
         for b in PIPELINED_ROWS:
             x = torch.randn(b, k, generator=gen, device="cuda").to(
                 torch.bfloat16)
             ref = mv.matvec_reference(x, ws[0], s).float()
             outs = [mv.matvec_int8_pipelined(x, ws[0], s, depth=d)
                     for d in PIPELINED_DEPTHS]
-            again = mv.matvec_int8_pipelined(x, ws[0], s,
-                                             depth=PIPELINED_DEPTHS[-1])
+            again = mv.matvec_int8_pipelined(x, ws[0], s, depth=4)
             torch.cuda.synchronize()
             err = (outs[-1].float() - ref).abs().max().item()
             rel = err / ref.abs().max().item()
             same = all(torch.equal(o, outs[0]) for o in outs) and \
-                torch.equal(again, outs[-1])
+                torch.equal(again, outs[0])
             if not (rel <= MATVEC_REL_TOL and same):
                 raise AssertionError(
                     f"matvec_int8_pipelined {name} at {b} rows: rel err "
                     f"{rel}, bitwise equal across depths and runs: {same}")
-            worst = max(worst, rel)
             row = dict(call=name, shape=[b, k, n], max_abs_err=err,
                        rel_err=rel, bitwise_across_depths_and_runs=same,
                        per_step=per)
@@ -722,29 +778,22 @@ def check_matvec_pipelined(torch, mv, gen):
                                          f"{ulp} from matvec_int8 (bar 2^-7)")
                 row["rel_to_matvec_int8"] = ulp
             if per and b in (16, 32):
-                iters = 8 * copies
+                row.update(matvec_times(
+                    torch, mv,
+                    lambda w: mv.matvec_int8_pipelined(x, w, s, depth=4),
+                    x, ws, s, cycle, ref, library=True))
+                iters = max(8, 4 * len(ws))
                 for d in PIPELINED_DEPTHS:
-                    row[f"kernel_ms_depth{d}"] = cuda_ms(torch, cycle(
+                    row[f"kernel_ms_depth{d}"] = graph_ms(torch, cycle(
                         lambda w: mv.matvec_int8_pipelined(x, w, s, depth=d)),
                         iters)
-                row["kernel_ms"] = row[
-                    f"kernel_ms_depth{PIPELINED_DEPTHS[-1]}"]
-                row["matvec_int8_ms"] = cuda_ms(torch, cycle(
+                row["matvec_int8_ms"] = graph_ms(torch, cycle(
                     lambda w: mv.matvec_int8(x, w, s)), iters)
-                row["plain_ms"] = cuda_ms(torch, cycle(
-                    lambda w: mv.matvec_reference(x, w, s)), 4 * copies)
-                lib, lib_err, lib_note = library_int8_mm(torch, x, ws, s,
-                                                         ref, cycle)
-                flops = 2 * b * k * n
-                bms, by = bound(flops, k * n + n * 4 + b * k * 2 + b * n * 2)
-                row.update(library_ms=lib, library_rel_err=lib_err,
-                           library_note=lib_note, bound_ms=bms, bound_by=by,
-                           fma_bound_ms=flops / PEAK_FP32_FLOPS * 1e3)
+                row["fma_bound_ms"] = 2 * b * k * n / PEAK_FP32_FLOPS * 1e3
             rows.append(row)
         del ws
         torch.cuda.empty_cache()
     return {"matvec_int8_pipelined": rows}
-
 
 
 # --------------------------------------------------------------------------
@@ -1566,27 +1615,57 @@ def run_train(torch, cfg7, kernels, card: str, do_profile: bool,
     return results
 
 
+def step_totals(rows, b: int, keys) -> dict:
+    """One decode step of the timed rows at ``b`` rows: each key summed
+    over the 7b shapes times their launches a step (None where a row has
+    none), and what bounds the largest share of the bound."""
+    timed = [r for r in rows if r["shape"][0] == b and "kernel_ms" in r]
+
+    def total(key):
+        if any(r.get(key) is None for r in timed):
+            return None
+        return sum(r[key] * r["per_step"] for r in timed)
+
+    out = {key: total(key) for key in keys}
+    out["bound_by"] = max(timed, key=lambda r: r["bound_ms"]
+                          * r["per_step"])["bound_by"]
+    out["per_shape_ms"] = {r["call"]: r["kernel_ms"] for r in timed}
+    return out
+
+
+STEP_KEYS = ("kernel_ms", "event_ms", "plain_ms", "bound_ms", "library_ms")
+
+
+def matvec_entry(name: str, rows, source, launches: int,
+                 serve_res) -> dict:
+    """B5's entry of the kernels line: one `generate` decode step at 4 rows
+    (its 129 launches), with the same at 16 and 32 rows beside it."""
+    s4 = step_totals(rows, 4, STEP_KEYS)
+    return {
+        "name": name, "route": "cuda", "source": source[0],
+        "replaces": source[1], "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": s4["kernel_ms"], "plain_ms": s4["plain_ms"],
+        "bound_ms": s4["bound_ms"], "bound_by": s4["bound_by"],
+        "library_ms": s4["library_ms"],
+        "work": "one generate decode step at 4 rows (129 launches); ms is "
+                "device time (CUDA graph), event_ms PR 1-5's event time",
+        "event_ms": s4["event_ms"], "per_shape_ms": s4["per_shape_ms"],
+        "step_at_16_rows": step_totals(rows, 16, STEP_KEYS[:-1]),
+        "step_at_32_rows": step_totals(rows, 32, STEP_KEYS[:-1]),
+        "engine_launches": {str(slots): res["launches"][name]
+                            for slots, res in serve_res.items()},
+        "train_step_launches": 0,
+    }
+
+
 def pipelined_entry(name: str, rows, source, serve_res) -> dict:
     """B6's entry of the kernels line: one engine decode step at 16 slots
-    (its 129 launches), with the same at 32 slots, B5 and the fp32 FMA
-    bound beside it."""
-    def step(b: int) -> dict:
-        timed = [r for r in rows if r["shape"][0] == b and "kernel_ms" in r]
-
-        def total(key):
-            if any(r[key] is None for r in timed):
-                return None
-            return sum(r[key] * r["per_step"] for r in timed)
-
-        out = {key: total(key) for key in (
-            "kernel_ms", "plain_ms", "bound_ms", "fma_bound_ms",
-            "library_ms", "matvec_int8_ms", "kernel_ms_depth1",
-            "kernel_ms_depth2")}
-        out["bound_by"] = max(timed, key=lambda r: r["bound_ms"]
-                              * r["per_step"])["bound_by"]
-        return out
-
-    s16, s32 = step(16), step(32)
+    (its 129 launches), with the same at 32 slots, B5, every depth and the
+    fp32 FMA bound beside it."""
+    keys = STEP_KEYS + ("fma_bound_ms", "matvec_int8_ms") + tuple(
+        f"kernel_ms_depth{d}" for d in PIPELINED_DEPTHS)
+    s16, s32 = step_totals(rows, 16, keys), step_totals(rows, 32, keys)
     return {
         "name": name, "route": "cuda", "source": source[0],
         "replaces": source[1],
@@ -1595,11 +1674,14 @@ def pipelined_entry(name: str, rows, source, serve_res) -> dict:
         "ms": s16["kernel_ms"], "plain_ms": s16["plain_ms"],
         "bound_ms": s16["bound_ms"], "bound_by": s16["bound_by"],
         "library_ms": s16["library_ms"],
-        "work": "one engine decode step at 16 slots (129 launches)",
+        "work": "one engine decode step at 16 slots (129 launches), depth "
+                "4; ms is device time (CUDA graph), event_ms PR 1-5's "
+                "event time",
+        "event_ms": s16["event_ms"], "per_shape_ms": s16["per_shape_ms"],
         "fma_bound_ms": s16["fma_bound_ms"],
         "matvec_int8_ms": s16["matvec_int8_ms"],
-        "ms_depth1": s16["kernel_ms_depth1"],
-        "ms_depth2": s16["kernel_ms_depth2"],
+        "ms_by_depth": {str(d): s16[f"kernel_ms_depth{d}"]
+                        for d in PIPELINED_DEPTHS},
         "step_at_32_rows": s32,
         "engine_launches": {str(slots): res["launches"][name]
                             for slots, res in serve_res.items()},
@@ -1684,6 +1766,15 @@ def main() -> int:
                + r.get("spill_loads", 0)}
     if spilled:
         raise AssertionError(f"backward kernels spill at D = 128: {spilled}")
+    # the matvec kernels (B5, B6 and their reduce) must not spill
+    mv_res = {name: r for name, r in res.items()
+              if name.startswith("matvec_")}
+    log(json.dumps({"matvec_kernel_resources": mv_res}))
+    spilled = {name: r for name, r in mv_res.items()
+               if r.get("spill_stores", 0) + r.get("spill_loads", 0)}
+    if not mv_res or spilled:
+        raise AssertionError(f"matvec kernels: none in the build log, or a "
+                             f"spill: {spilled}")
     _build.library()
 
     # 2. the card
@@ -1801,7 +1892,7 @@ def main() -> int:
         "matvec_int8": ("macaw_llm_tpu_torch/csrc/matvec.cu",
                         "macaw_llm_tpu/ops/pallas/matvec.py:79"),
         "matvec_int8_pipelined": (
-            "macaw_llm_tpu_torch/csrc/matvec_pipelined.cu",
+            "macaw_llm_tpu_torch/csrc/matvec.cu",
             "macaw_llm_tpu/ops/pallas/matvec.py:175"),
     }
     entries = []
@@ -1829,7 +1920,11 @@ def main() -> int:
             entries.append(pipelined_entry(name, rows, sources[name],
                                            serve_res))
             continue
-        per = "per_step" if name == "matvec_int8" else "per_prefill"
+        if name == "matvec_int8":
+            entries.append(matvec_entry(name, rows, sources[name],
+                                        main_launches[name], serve_res))
+            continue
+        per = "per_prefill"
         timed = [r for r in rows if r[per]]
 
         def total(key):
@@ -1845,14 +1940,9 @@ def main() -> int:
             "bound_by": max(timed, key=lambda r: r["bound_ms"] * r[per]
                             )["bound_by"],
             "library_ms": lib,
-            "work": ("one decode step" if name == "matvec_int8"
-                     else "one prefill"),
+            "work": "one prefill",
             "train_step_launches": train_launches.get(name, 0),
         }
-        if name == "matvec_int8":  # one per engine admission
-            entry["engine_launches"] = {
-                str(slots): res["launches"][name]
-                for slots, res in serve_res.items()}
         if name.startswith("flash_attention"):  # 7 B2 per media admission
             entry["engine_launches"] = {
                 str(slots): res["launches"][name]

@@ -196,7 +196,7 @@ def test_matvec_kernel(gen, b, k, n):
 
 
 # B6 at the five 7b decode shapes, at a ragged narrow shape and at row
-# counts on both sides of each of its row-block instances (8, 16, 32)
+# counts on both sides of the kernel's row instances (8, 16, 24, 32)
 PIPELINED_SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016),
                     (11008, 4096), (4096, 32007), (352, 250)]
 
@@ -237,6 +237,52 @@ def test_matvec_pipelined_other_row_counts(gen, b):
     ref = mv.matvec_reference(x.float(), q, s)
     assert ((out.float() - ref).abs().max() / ref.abs().max()).item() \
         <= MATVEC_REL
+
+
+@pytest.mark.parametrize("k,n", [(1000, 520), (4096, 32007)])
+@pytest.mark.parametrize("b", [1, 8, 9, 24, 32])
+def test_matvec_ragged_row_counts(gen, b, k, n):
+    """Both wrappers at a ragged N (rows not 16-byte aligned: the cp.async
+    path with the byte offset shifted out in the conversion), K no multiple
+    of the 64-row k tile, at row counts on both sides of the 8-row
+    instances; the two agree bitwise (one kernel, the same grid)."""
+    x, q, s = _matvec_inputs(gen, b, k, n)
+    ref = mv.matvec_reference(x.float(), q, s)
+    a = mv.matvec_int8(x, q, s)
+    p = mv.matvec_int8_pipelined(x, q, s)
+    torch.cuda.synchronize()
+    assert ((a.float() - ref).abs().max() / ref.abs().max()).item() \
+        <= MATVEC_REL
+    assert torch.equal(a, p)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 12288), (11008, 4096),
+                                 (4096, 32007), (1000, 520)])
+def test_matvec_pipelined_depths_bitwise(gen, k, n):
+    """Depth 1 (no overlap) and 8 (the deepest ring) give the same bits."""
+    x, q, s = _matvec_inputs(gen, 32, k, n)
+    one = mv.matvec_int8_pipelined(x, q, s, depth=1)
+    eight = mv.matvec_int8_pipelined(x, q, s, depth=8)
+    torch.cuda.synchronize()
+    assert torch.equal(one, eight)
+
+
+def test_matvec_on_an_unaligned_layer_slice(gen):
+    """A layer of a stacked [L, K, N] tensor whose start is not 16-byte
+    aligned (K N = 257000 bytes a layer): the ragged path, reading the
+    aligned chunks around the layer's bytes."""
+    k, n = 1000, 257
+    stack = torch.randint(-127, 128, (3, k, n), generator=gen, device="cuda"
+                          ).to(torch.int8)
+    s = torch.rand(3, 1, n, generator=gen, device="cuda") * 0.01
+    for b in (4, 20):
+        x = _rn(gen, b, k)
+        for layer in (1, 2):
+            out = mv.matvec_int8_pipelined(x, stack[layer], s[layer])
+            torch.cuda.synchronize()
+            ref = mv.matvec_reference(x.float(), stack[layer], s[layer])
+            assert ((out.float() - ref).abs().max()
+                    / ref.abs().max()).item() <= MATVEC_REL
 
 
 def test_matvec_pipelined_within_one_ulp_of_matvec(gen):
@@ -301,6 +347,9 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(ValueError):
         mv.matvec_int8_pipelined(_rn(gen, 16, 64), w,
                                  torch.ones(64, device="cuda"), depth=0)
+    with pytest.raises(ValueError):  # K no multiple of 8: no TMA map of x
+        mv.matvec_int8(_rn(gen, 4, 60), w[:60],
+                       torch.ones(64, device="cuda"))
 
 
 # Backward (B3 dq, B4 dk/dv) against the plain backward in fp32 on the same

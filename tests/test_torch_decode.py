@@ -92,26 +92,33 @@ def test_matvec_pipelined_rejects_bad_arguments():
         tmv.matvec_int8_pipelined(x, q[:8], s)
 
 
-def test_pipelined_grid_covers_k():
-    """Every K range is a whole number of 32-row chunks, the ranges cover
-    K, and the grid stays within one resident wave at the 7b shapes, for
-    the 16-byte and the byte copy path and 2 or 3 resident blocks."""
+@pytest.mark.parametrize("tile_k", [tmv.TILE_K, tmv.RAGGED_TILE_K])
+def test_pipelined_grid_covers_k(tile_k):
+    """The K ranges of the matvec kernel's grid are whole k tiles (64 rows
+    on the TMA path, 128 on the ragged one), cover K with none empty, stay
+    within ``MAX_SPLITS`` and, at the 7b decode shapes and the edge cases,
+    within one wave of ``BLOCKS_PER_SM`` blocks an SM; the plan does not
+    depend on the ring depth (it takes none), so the output is the same
+    bits at every depth."""
     for k, n in ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
                  (4096, 32007), (352, 250), (64, 64), (1000, 520),
                  (4096, 200000)):
-        for vec in (True, False):
-            for resident in (2, 3):
-                splits, rps = tmv.pipelined_splits(k, n, vec, resident)
-                assert rps % 32 == 0 and splits >= 1
-                assert splits * rps >= k > (splits - 1) * rps
-                if n <= 32007:
-                    assert -(-n // 256) * splits <= resident * 132
-    # the grids measured best on the H100 (3 resident blocks, 132 SMs)
-    assert tmv.pipelined_splits(4096, 12288) == (8, 512)
-    assert tmv.pipelined_splits(4096, 4096) == (16, 256)
-    assert tmv.pipelined_splits(4096, 22016) == (3, 1376)
-    assert tmv.pipelined_splits(11008, 4096) == (16, 704)
-    assert tmv.pipelined_splits(4096, 32007, vec=False) == (3, 1376)
+        for sms in (132, 114):
+            splits = tmv.matvec_splits(k, n, sms, tile_k)
+            tiles = -(-k // tile_k)
+            per = -(-tiles // splits)
+            assert 1 <= splits <= min(tmv.MAX_SPLITS, tiles)
+            assert splits * per >= tiles > (splits - 1) * per
+            blocks = -(-n // tmv.TILE_N) * splits
+            if n <= 32007:
+                assert blocks <= tmv.BLOCKS_PER_SM * sms
+    # the grids measured best on an H100 (132 SMs; tools/decode_probes.py
+    # sweep)
+    assert tmv.matvec_splits(4096, 12288) == 4
+    assert tmv.matvec_splits(4096, 4096) == 8
+    assert tmv.matvec_splits(4096, 22016) == 2
+    assert tmv.matvec_splits(11008, 4096) == 8
+    assert tmv.matvec_splits(4096, 32007, tile_k=tmv.RAGGED_TILE_K) == 1
 
 
 @pytest.mark.parametrize("rows,expect", [(1, "matvec_int8"),

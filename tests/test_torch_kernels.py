@@ -116,10 +116,16 @@ def test_mh_gate_from_shared_memory_budget():
 
 
 def test_kernel_splits_cover_k():
-    for k, n in ((4096, 12288), (11008, 4096), (4096, 32007), (64, 100)):
-        splits = tmv.k_splits(k, n)
-        rows = -(-k // splits)
-        assert 1 <= splits <= k and rows <= 1024 and splits * rows >= k
+    """Each K range is a whole number of k tiles, and the ranges cover K
+    (the last one may be short); a narrow N splits K further than a wide
+    one."""
+    for k, n in ((4096, 12288), (11008, 4096), (4096, 32007), (64, 100),
+                 (1000, 520)):
+        for tile_k in (tmv.TILE_K, tmv.RAGGED_TILE_K):
+            splits = tmv.matvec_splits(k, n, 132, tile_k)
+            rows = -(-(-(-k // tile_k)) // splits) * tile_k
+            assert splits * rows >= k > (splits - 1) * rows
+    assert tmv.matvec_splits(4096, 4096) > tmv.matvec_splits(4096, 22016)
 
 
 def test_cpu_calls_count_no_launch():
