@@ -1377,11 +1377,8 @@ def profile_engine_steps(torch, engine, out_dir: Path, steps: int = 20):
         t0 = time.perf_counter()
         run(steps)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
     events = prof.key_averages()
-    # kernel rows only: an operator's row repeats its kernels' time
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
+    device_ms = device_busy_ms(prof)
     table = events.table(sort_by="cuda_time_total", row_limit=25)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"profile_engine{engine.slots}.txt").write_text(table)
@@ -1697,6 +1694,22 @@ def _tensors(tree):
     return [tree]
 
 
+def device_busy_ms(prof) -> float:
+    """The time (ms) in which at least one kernel ran on the card: the
+    union of the profiler's kernel intervals. A sum of kernel times would
+    count twice the matvec's reduce kernel, which launches early as a
+    programmatic dependent and waits for the main kernel."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
 def profile(torch, name: str, fn, out_dir: Path) -> None:
     """torch.profiler table (device time by kernel) of one call of fn."""
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -1711,6 +1724,7 @@ def profile(torch, name: str, fn, out_dir: Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"profile_{name}.txt").write_text(table)
     log(f"== profile {name}\n{table}")
+    log(json.dumps({"profile": name, "device_busy_ms": device_busy_ms(prof)}))
 
 
 # --------------------------------------------------------------------------
