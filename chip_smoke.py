@@ -13,7 +13,7 @@ Phases, in order (any failure raises and the script exits non-zero):
     decode shapes and two ragged ones (N no multiple of 16, K no multiple
     of 64) at 4, 16 and 32 rows, bitwise on a rerun; timed at the 7b
     shapes by device time (a CUDA graph of the wrapper's launches, each
-    call's weight one of >= 128 MB of distinct copies) beside PR 1-5's
+    call's weight one of >= 128 MB of distinct copies) beside the
     back-to-back event time, the plain version, the byte bound and, at 4
     rows, the library call;
  3c. the pipelined matvec (B6) at the same shapes, at 9, 16 and 32 rows and
@@ -82,7 +82,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12  # outside the tensor cores: PR 3's B6 design
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores: an FMA per weight and row
 PEAK_BYTES = 3.35e12
 
 # Attention outputs, kernel vs plain, bf16 compared in fp32, each output
@@ -682,8 +682,9 @@ def matvec_weights(torch, gen, k: int, n: int, per: int):
 def matvec_times(torch, mv, fn, x, ws, s, cycle, ref, library: bool):
     """A matvec's times at one shape and row count: device time per call
     (``kernel_ms``, a CUDA graph of 4 calls a weight copy, at least 8),
-    the back-to-back event time of PR 1-5's rows (``event_ms``), the plain
-    version, the library call (where asked) and the byte bound."""
+    the back-to-back event time that earlier rows report (``event_ms``),
+    the plain version, the library call (where asked) and the byte
+    bound."""
     b, k = x.shape
     n = ws[0].shape[1]
     iters = max(8, 4 * len(ws))
@@ -1646,7 +1647,7 @@ def matvec_entry(name: str, rows, source, launches: int,
         "bound_ms": s4["bound_ms"], "bound_by": s4["bound_by"],
         "library_ms": s4["library_ms"],
         "work": "one generate decode step at 4 rows (129 launches); ms is "
-                "device time (CUDA graph), event_ms PR 1-5's event time",
+                "device time (CUDA graph), event_ms back-to-back event time",
         "event_ms": s4["event_ms"], "per_shape_ms": s4["per_shape_ms"],
         "step_at_16_rows": step_totals(rows, 16, STEP_KEYS[:-1]),
         "step_at_32_rows": step_totals(rows, 32, STEP_KEYS[:-1]),
@@ -1672,7 +1673,7 @@ def pipelined_entry(name: str, rows, source, serve_res) -> dict:
         "bound_ms": s16["bound_ms"], "bound_by": s16["bound_by"],
         "library_ms": s16["library_ms"],
         "work": "one engine decode step at 16 slots (129 launches), depth "
-                "4; ms is device time (CUDA graph), event_ms PR 1-5's "
+                "4; ms is device time (CUDA graph), event_ms back-to-back "
                 "event time",
         "event_ms": s16["event_ms"], "per_shape_ms": s16["per_shape_ms"],
         "fma_bound_ms": s16["fma_bound_ms"],

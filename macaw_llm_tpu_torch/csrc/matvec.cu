@@ -35,7 +35,8 @@
 //     the other resident blocks (up to three an SM) overlap each block's
 //     conversion and products: on an H100 more resident blocks beat a
 //     second panel that would overlap them inside a block, and a ring of 3
-//     to 4 stages beats deeper ones (tools/decode_probes.py sweep).
+//     to 4 stages beats deeper ones, whose shared memory cuts the blocks
+//     an SM holds.
 // A ragged N (the 32007-wide lm_head: rows 32007 bytes apart, which no 2-D
 // TMA map takes) uses one map per class of rows k = j (mod P) (QMaps
 // below) and stages of 128 rows; the conversion shifts each row's byte
@@ -71,7 +72,7 @@ __host__ __device__ constexpr int class_bytes(int kt, int log_p) {
 
 // A stage holds KT weight rows: 64 on the TMA path; 128 on the ragged one,
 // whose 16 row classes then take boxes of 8 rows (half the TMA operations
-// a byte of 4-row boxes would take; measured 75 to 55 us at the lm_head).
+// a byte that 4-row boxes take, which was faster at the lm_head).
 template <int R, bool VEC>
 struct MvLayout {
   static constexpr int KT = VEC ? 64 : 128;

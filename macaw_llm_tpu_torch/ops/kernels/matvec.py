@@ -4,7 +4,7 @@ Counterparts of ``macaw_llm_tpu/ops/pallas/matvec.py``: ``matvec_int8``
 and ``matvec_int8_pipelined`` compute the same function with one kernel
 (``csrc/matvec.cu``): every int8 weight converted to bf16 once, the
 product on the tensor cores (wgmma, the weights on its 64-row side), the
-weights streamed by TMA through a ring of 4 stages (``matvec_int8``) or
+weights streamed by TMA through a ring of 3 stages (``matvec_int8``) or
 ``depth`` stages (``matvec_int8_pipelined``). On CUDA tensors a wrapper
 launches the kernel; on CPU tensors it computes the plain version
 ``(x @ q) * s`` with the int8 weight converted to x's dtype (exact:
@@ -20,13 +20,13 @@ import torch
 from macaw_llm_tpu_torch.ops.kernels import _build
 
 MAX_ROWS = 32
-TILE_K = 64     # csrc/matvec.cu MvLayout::KT: weight rows per ring stage,
-RAGGED_TILE_K = 128  # on the TMA path and on the ragged one
-TILE_N = 128    # csrc/matvec.cu kTileN: columns per block
+# csrc/matvec.cu: weight rows per ring stage (MvLayout::KT) on the TMA
+# path and on the ragged one, and columns per block (kTileN)
+TILE_K, RAGGED_TILE_K, TILE_N = 64, 128, 128
 PIPE_MAX_DEPTH = 8
 MAX_SPLITS = 8  # csrc/matvec.cu kMaxSplits: bounds the fp32 partials
-# blocks an SM holds at once at 32 rows and 4 stages (67-71 KB of shared
-# memory each): one wave of the grid
+# blocks an SM holds at once on the TMA path at up to 32 rows and 4 stages
+# (at most 67 KB of shared memory each): one wave of the grid
 BLOCKS_PER_SM = 3
 _SMS = 132      # H100 SXM; the wrappers ask the device
 
@@ -42,13 +42,13 @@ def matvec_reference(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 def matvec_splits(k: int, n: int, sms: int = _SMS,
                   tile_k: int = TILE_K) -> int:
     """How many K ranges (of whole ``tile_k``-row tiles) the kernel's grid
-    splits
-    the contraction into: the most, up to ``MAX_SPLITS``, whose blocks fit
-    one wave of ``BLOCKS_PER_SM`` blocks an SM. A block streams its range at a rate its SM shares with the
-    other blocks there, so more blocks, up to what the SMs hold at once,
-    keep more bytes in flight (measured best at every 7b shape on an H100
-    by ``tools/decode_probes.py sweep``). The plan depends on the shape
-    and the SM count only, so the output is the same bits at every ring
+    splits the contraction into: the most, up to ``MAX_SPLITS``, whose
+    blocks fit one wave of ``BLOCKS_PER_SM`` blocks an SM. A block streams
+    its range at a rate its SM shares with the other blocks there, so more
+    blocks, up to what the SMs hold at once, keep more bytes in flight
+    (measured best at every 7b shape on an H100 by
+    ``tools/decode_probes.py sweep``). The plan depends on the shape and
+    the SM count only, so the output is the same bits at every ring
     depth."""
     tiles_k, tiles_n = -(-k // tile_k), -(-n // TILE_N)
     for want in range(min(MAX_SPLITS, tiles_k), 0, -1):
@@ -124,10 +124,11 @@ matvec_int8.launches = 0
 
 def matvec_int8_pipelined(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                           depth: int = 4, out_dtype=None) -> torch.Tensor:
-    """The same function as ``matvec_int8`` through a ``depth``-stage TMA
-    ring of weight tiles (depth 1: no overlap of copy and math; clamped to
-    8); the output is the same bits at every depth. CUDA: bf16 x and
-    output, contiguous operands; anything else raises."""
+    """The same function as ``matvec_int8`` with ``depth`` 64-row weight
+    tiles in flight in the kernel's TMA ring (depth 1: no overlap of copy
+    and math; clamped to 8 and to what fits the shared memory); the output
+    is the same bits at every depth. CUDA: bf16 x and output, contiguous
+    operands; anything else raises."""
     b, k = x.shape
     k2, n = q.shape
     if k != k2 or s.numel() != n:

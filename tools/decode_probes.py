@@ -10,12 +10,14 @@ microseconds (a CUDA graph of the launches) and the count that
 checked against.
 
 ``--against DIR``: builds ``DIR/matvec.cu`` and ``DIR/matvec_pipelined.cu``
-(the CUDA-core B5 and B6 of PR 1-5, with their C interface and grid plans)
+(the earlier CUDA-core B5 and B6, with their C interface and grid plans)
 and times them A B B A beside this checkout's kernels at the five 7b
 shapes and 4, 16 and 32 rows, each through a wrapper that allocates as
 the port's does, by device time (a CUDA graph of the launches: the
 profiler's kernel records would count the reduce kernel's early,
-programmatic launch twice); one JSON line per shape and row count. DIR is filled from git, for example:
+programmatic launch twice); one JSON line per shape and row count,
+after one with each wrapper's host time per call (2000 calls at a one-tile
+shape, on the TMA path and the ragged one). DIR is filled from git, for example:
     mkdir -p build/parent; for f in matvec.cu matvec_pipelined.cu \
       kernels.cuh; do git show <commit>:macaw_llm_tpu_torch/csrc/$f \
       > build/parent/$f; done
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -156,7 +159,7 @@ def sweep(torch) -> None:
 
 
 # ------------------------------------------------ the CUDA-core B5 and B6
-# of PR 1-5 (their grid plans, as ops/kernels/matvec.py had them)
+# this kernel replaced (their grid plans, as ops/kernels/matvec.py had them)
 
 def _parent_b5_splits(k: int, n: int) -> int:
     tiles = -(-n // 512)
@@ -207,6 +210,8 @@ def against(torch, src_dir: Path) -> None:
     b6.macaw_matvec_int8_pipelined_blocks_per_sm.argtypes = [I, I, I]
     b6.macaw_matvec_int8_pipelined_blocks_per_sm.restype = I
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = functools.lru_cache(maxsize=None)(
+        b6.macaw_matvec_int8_pipelined_blocks_per_sm)  # as the wrapper did
 
     def old_b5(x, q, s):  # the previous wrapper's allocations and launch
         b, k = x.shape
@@ -225,9 +230,8 @@ def against(torch, src_dir: Path) -> None:
         n = q.shape[1]
         rows = 8 if b <= 8 else 16 if b <= 16 else 32
         vec = n % 16 == 0 and q.data_ptr() % 16 == 0
-        resident = b6.macaw_matvec_int8_pipelined_blocks_per_sm(
-            rows, int(vec), depth)
-        splits, rps = _parent_b6_plan(k, n, vec, resident, sms)
+        splits, rps = _parent_b6_plan(k, n, vec,
+                                      resident(rows, int(vec), depth), sms)
         depth = min(depth, rps // 32)
         scratch = torch.empty(k * rows + splits * b * n,
                               dtype=torch.float32, device="cuda")
@@ -240,6 +244,26 @@ def against(torch, src_dir: Path) -> None:
         return out
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # the host's time per wrapper call: 2000 calls at a one-tile shape,
+    # whose device time is below the host's, issued back to back
+    x = torch.randn(16, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    res = {"call": "host_us_per_call", "k": 64, "n": 128, "rows": 16}
+    for n in (128, 127):  # the TMA path and the ragged one
+        q = torch.ones(64, n, dtype=torch.int8, device="cuda")
+        s = torch.ones(n, device="cuda")
+        for label, fn in (("this_b6", lambda: mv.matvec_int8_pipelined(
+                              x, q, s)),
+                          ("parent_b6", lambda: old_b6(x, q, s)),
+                          ("this_b5", lambda: mv.matvec_int8(x, q, s)),
+                          ("parent_b5", lambda: old_b5(x, q, s))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            torch.cuda.synchronize()
+            res[f"{label}_n{n}"] = (time.perf_counter() - t0) / 2000 * 1e6
+    print(json.dumps(res), flush=True)
     for name, k, n, per in SHAPES:
         ws, s, cycle = weights(torch, gen, k, n)
         iters = max(8, 4 * len(ws))
