@@ -51,15 +51,27 @@ Phases, in order (any failure raises and the script exits non-zero):
     (fused 312: 2 + 3): int8 frozen base, frozen towers and int8 alignment
     cache, remat, chunked loss, alignment dropout 0.1, AdamW with a cosine
     schedule over 1000 steps;
- 9. one ``{"kernels": [...]}`` line, then the contract line
+ 10. the 1b full fine-tune through the command-line entry points, on a
+    copy of ``bench_artifacts/train_1b_chip.json`` (b8, text 256, fused
+    312, fp32 masters, bf16 grads and Adam m, frozen bf16 towers, remat,
+    chunked loss; synthetic zero-media batches): 10a ``run_train.main``,
+    2 warm-up + 5 timed steps (launches asserted per step), --do-eval and
+    the forced final save; 10b ``run_inference.restore_params`` of that
+    checkpoint (bit for bit against the state in memory) and 8 x 16 greedy
+    tokens from it, the same as from the state in memory; 10c at 2 layers
+    a stack, 4 steps straight against 2 steps stopped by SIGTERM and a
+    resume to 4 (the restored state bit for bit, steps 3-4's losses within
+    1e-3); the checkpoints are deleted when the phase ends;
+ 11. one ``{"kernels": [...]}`` line, then the contract line
     ``{"ok": true, "device": {...}}`` last.
 
 Weights are random, made on the card from a seed. Usage, from the root of
 a checkout:  python3 chip_smoke.py [--profile]
 (--profile adds torch.profiler tables of one prefill, of greedy decode
 with 1 and 4 new tokens, of 20 engine decode steps at 16 slots (with the
-device's idle share of a step) and of one train step at text 1024, written
-to chiprun_out/.) Every line the script logs is also kept in
+device's idle share of a step), of one train step at text 1024 and of one
+more (untimed) loop iteration of the 1b run, with its device busy time,
+written to chiprun_out/.) Every line the script logs is also kept in
 chiprun_out/chip_smoke.log.
 """
 
@@ -70,6 +82,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1613,6 +1626,284 @@ def run_train(torch, cfg7, kernels, card: str, do_profile: bool,
     return results
 
 
+# --------------------------------------------------------------------------
+# phase 10: the 1b full fine-tune through the command-line entry points
+# --------------------------------------------------------------------------
+
+def _leaf_map(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaf_map(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def state_leaves(state) -> dict:
+    out = {}
+    for name, tree in (("trainable", state.trainable),
+                       ("frozen", state.frozen),
+                       ("mu", state.opt_state.mu),
+                       ("nu", state.opt_state.nu)):
+        out.update(_leaf_map(tree, name))
+    return out
+
+
+def differing_leaves(torch, a: dict, b: dict) -> list:
+    """Leaves of two trees (of the same layout) whose bits differ."""
+    if sorted(a) != sorted(b):
+        raise AssertionError("trees of another layout")
+    return [k for k in a if a[k].dtype != b[k].dtype
+            or not torch.equal(a[k], b[k])]
+
+
+def states_equal(torch, a, b) -> list:
+    """Leaves (and step, count, generator) in which two states differ."""
+    diff = differing_leaves(torch, state_leaves(a), state_leaves(b))
+    if a.step != b.step or a.opt_state.count != b.opt_state.count:
+        diff.append("step")
+    if not torch.equal(a.rng.get_state(), b.rng.get_state()):
+        diff.append("rng")
+    return diff
+
+
+def phase10_config(cfg_path: Path, out: Path, layers=None, **train):
+    """A copy of the committed 1b run file with the phase's cadence (and,
+    for the resume, the depth of every stack cut to ``layers``)."""
+    from macaw_llm_tpu_torch.config import Config
+    cfg = Config.from_json(cfg_path.read_text())
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             **train))
+    if layers is not None:
+        m = cfg.model
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            m, llm=dataclasses.replace(m.llm, num_layers=layers),
+            vision=dataclasses.replace(m.vision, num_layers=layers),
+            audio=dataclasses.replace(m.audio, encoder_layers=layers)))
+    out.write_text(cfg.to_json())
+    return cfg
+
+
+def metrics_rows(run_dir: Path) -> list:
+    with open(run_dir / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def run_train_1b(torch, kernels, card: str, work: Path, cfg_path: Path,
+                 device="cuda", expect=None, warm=2, timed=5,
+                 out_dir=None):
+    """10a: ``run_train.main`` on the 1b run file (synthetic zero-media
+    batches), 2 warm-up + 5 timed steps, then --do-eval and the forced
+    final save; every step synchronized and its launches read by the
+    ``on_step`` hook. With ``out_dir`` one more step runs under
+    torch.profiler (untimed; its table goes to out_dir). Returns the
+    result line and the trained state."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from macaw_llm_tpu_torch import run_train
+    cfg = phase10_config(cfg_path, work / "train_1b.json", save_steps=1000,
+                         log_steps=1)
+    run_dir = work / "run_1b"
+    n_steps = warm + timed + (out_dir is not None)
+    steps = []
+    mark = [time.perf_counter()]
+    prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(step, state, metrics):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        row = dict(step=step, step_ms=(now - mark[0]) * 1e3,
+                   loss=float(metrics["loss"]),
+                   grad_norm=float(metrics["grad_norm"]),
+                   loader_wait_s=metrics["loader_wait_s"],
+                   launches=counts(kernels))
+        if device == "cuda":
+            row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        steps.append(row)
+        log(json.dumps({"train_1b_step": row}))
+        if out_dir is not None and step == n_steps:  # one loop iteration
+            prof.__exit__(None, None, None)
+            table = prof.key_averages().table(sort_by="cuda_time_total",
+                                              row_limit=25)
+            (out_dir / "profile_train1b.txt").write_text(table)
+            log(f"== profile train1b\n{table}")
+            log(json.dumps({"profile": "train1b", "wall_ms": row["step_ms"],
+                            "device_busy_ms": device_busy_ms(prof)}))
+        reset_counts(kernels)
+        if out_dir is not None and step == n_steps - 1:
+            prof.__enter__()
+        mark[0] = time.perf_counter()
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    state = run_train.main([
+        "--config", str(work / "train_1b.json"), "--synthetic",
+        "--steps", str(n_steps), "--do-eval", "--output-dir",
+        str(run_dir), "--device", device], on_step=on_step)
+    wall = time.perf_counter() - t0
+    eval_launches = counts(kernels)  # after the last step: eval only
+    if expect is not None:
+        bad = [r for r in steps if r["launches"] != expect]
+        if bad:
+            raise AssertionError(f"1b train step launches {bad[0]['launches']}"
+                                 f" != {expect}")
+    losses = [r["loss"] for r in steps]
+    if not all(map(math.isfinite, losses)) or losses[-1] > 1.5 * losses[0]:
+        raise AssertionError(f"1b train losses: {losses}")
+    rows = metrics_rows(run_dir)
+    save = [r for r in rows if "ckpt_bytes" in r]
+    ev = [r for r in rows if "eval_loss" in r]
+    if state.step != n_steps or len(save) != 1 or len(ev) != 1:
+        raise AssertionError(f"1b run: step {state.step}, saves {save}, "
+                             f"eval {ev}")
+    if not math.isfinite(ev[0]["eval_loss"]):
+        raise AssertionError(f"1b eval: {ev[0]}")
+    times = [r["step_ms"] for r in steps[warm:warm + timed]]
+    b = cfg.train.per_device_batch_size * cfg.train.grad_accum_steps
+    fused = cfg.data.max_text_len + cfg.model.total_prefix_len
+    step_ms = statistics.median(times)
+    result = dict(
+        batch=b, text=cfg.data.max_text_len, fused_len=fused,
+        step_ms_median=step_ms, step_ms_min=min(times),
+        step_ms_max=max(times), tokens_per_s=b * fused / (step_ms / 1e3),
+        peak_mem_gb=steps[-1].get("peak_mem_gb"), losses=losses,
+        eval_loss=ev[0]["eval_loss"],
+        eval_token_accuracy=ev[0]["eval_token_accuracy"],
+        save_blocking_ms=save[0]["ckpt_blocking_ms"],
+        save_write_s=save[0]["ckpt_write_s"], save_bytes=save[0]["ckpt_bytes"],
+        save_snapshot=bool(save[0]["ckpt_snapshot"]),
+        launches_per_step=steps[-1]["launches"], eval_launches=eval_launches,
+        loader_wait_s_max=max(r["loader_wait_s"] for r in steps),
+        run_wall_s=wall, card=card)
+    log(json.dumps({"train_1b": result}))
+    return result, state, cfg, run_dir
+
+
+def restored_generation(torch, state, cfg, run_dir: Path, device="cuda",
+                        new=16):
+    """10b: ``run_inference.restore_params`` on the checkpoint of 10a, held
+    bit for bit against the trained state still in memory, and 8 prompts x
+    ``new`` greedy tokens from each: the same tokens."""
+    from macaw_llm_tpu_torch import run_inference
+    from macaw_llm_tpu_torch.eval import batch_inference_generation
+    from macaw_llm_tpu_torch.train.checkpoint import load_config
+    from macaw_llm_tpu_torch.train.state import merge_params
+    t0 = time.perf_counter()
+    saved_cfg = load_config(str(run_dir))
+    if saved_cfg != cfg:
+        raise AssertionError("config.json differs from the run's config")
+    restored = run_inference.restore_params(str(run_dir), saved_cfg,
+                                            device=device)
+    restore_s = time.perf_counter() - t0
+    trained = merge_params(state.trainable, state.frozen)
+    diff = differing_leaves(torch, _leaf_map(restored), _leaf_map(trained))
+    if diff:
+        raise AssertionError(f"restored params differ from the saved state: "
+                             f"{diff[:8]}")
+    examples = [{"instruction": f"describe what happens in clip {i}",
+                 "response": "", "image": "None", "video": "None",
+                 "audio": "None"} for i in range(8)]
+    gens = {}
+    for name, params in (("restored", restored), ("in_memory", trained)):
+        t1 = time.perf_counter()
+        out = batch_inference_generation(params, cfg, BenchTok(), examples,
+                                         batch_size=8, max_new_tokens=new,
+                                         device=device)
+        gens[name] = ([r["generation"] for r in out],
+                      time.perf_counter() - t1)
+    if gens["restored"][0] != gens["in_memory"][0]:
+        raise AssertionError(f"restored generation differs: {gens}")
+    result = dict(prompts=len(examples), new_tokens=new, restore_s=restore_s,
+                  leaves=len(_leaf_map(restored)),
+                  generate_s=gens["restored"][1],
+                  tokens=[g.split()[:4] for g in gens["restored"][0][:2]])
+    log(json.dumps({"restore_1b": result}))
+    return result
+
+
+def resume_1b(torch, work: Path, cfg_path: Path, device="cuda", layers=2):
+    """10c: at 1b width and ``layers`` layers a stack, 4 uninterrupted
+    steps against 2 steps stopped by SIGTERM (the checkpoint-and-exit
+    path) and a second call of ``main`` that resumes to 4: the checkpoint
+    restores the saved state bit for bit, steps 3-4 give the same losses
+    within 1e-3, and the final states are compared bit for bit (the
+    leaves that differ are listed where they are not the same)."""
+    import signal
+    from macaw_llm_tpu_torch import run_train
+    from macaw_llm_tpu_torch.train.checkpoint import CheckpointManager
+    phase10_config(cfg_path, work / "resume.json", layers=layers,
+                   save_steps=1000, log_steps=1)
+
+    def args(name):
+        return ["--config", str(work / "resume.json"), "--synthetic",
+                "--steps", "4", "--output-dir", str(work / name),
+                "--device", device]
+
+    t0 = time.perf_counter()
+    straight = run_train.main(args("straight"))
+
+    def preempt(step, state, metrics):
+        if step == 2:
+            signal.raise_signal(signal.SIGTERM)
+
+    stopped = run_train.main(args("stopped"), on_step=preempt)
+    if stopped.step != 2:
+        raise AssertionError(f"SIGTERM run stopped at step {stopped.step}")
+    back = CheckpointManager(str(work / "stopped")).restore(stopped)
+    diff = states_equal(torch, back, stopped)
+    if diff:
+        raise AssertionError(f"restored state differs from the saved one: "
+                             f"{diff[:8]}")
+    del back
+    resumed = run_train.main(args("stopped"))
+    wall = time.perf_counter() - t0
+    losses = {name: {r["step"]: r["loss"] for r in metrics_rows(work / name)
+                     if "loss" in r} for name in ("straight", "stopped")}
+    rel = max(abs(losses["stopped"][k] - losses["straight"][k])
+              / abs(losses["straight"][k]) for k in (3, 4))
+    if resumed.step != 4 or rel > 1e-3:
+        raise AssertionError(f"resume: step {resumed.step}, losses {losses}")
+    final_diff = states_equal(torch, resumed, straight)
+    result = dict(layers=layers, losses_straight=losses["straight"],
+                  losses_resumed=losses["stopped"], loss_rel_err_3_4=rel,
+                  restored_state_bitwise=True,
+                  final_state_bitwise=not final_diff,
+                  final_differing_leaves=final_diff[:12],
+                  final_differing_count=len(final_diff), wall_s=wall)
+    log(json.dumps({"resume_1b": result}))
+    return result
+
+
+def run_phase10(torch, kernels, card: str, out_dir: Path, device="cuda",
+                cfg_path=None, expect=None, resume_layers=2, new=16,
+                do_profile=False):
+    """Phase 10 (10a, 10b, 10c) in a directory under ``out_dir`` that is
+    deleted when the phase ends, whatever happens."""
+    cfg_path = cfg_path or ROOT / "bench_artifacts" / "train_1b_chip.json"
+    work = out_dir / "phase10"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        log(json.dumps({"phase10_disk_free_gb":
+                        shutil.disk_usage(work).free / 1e9}))
+        t0 = time.perf_counter()
+        train, state, cfg, run_dir = run_train_1b(
+            torch, kernels, card, work, cfg_path, device, expect,
+            out_dir=out_dir if do_profile else None)
+        restore = restored_generation(torch, state, cfg, run_dir, device,
+                                      new)
+        del state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        resume = resume_1b(torch, work, cfg_path, device, resume_layers)
+        log(json.dumps({"phase10_seconds": time.perf_counter() - t0}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(train=train, restore=restore, resume=resume)
+
+
 def step_totals(rows, b: int, keys) -> dict:
     """One decode step of the timed rows at ``b`` rows: each key summed
     over the 7b shapes times their launches a step (None where a row has
@@ -1880,8 +2171,23 @@ def main() -> int:
     train_res = run_train(torch, cfg, kernels, card, args.profile, out_dir)
     train_launches = {name: n for text in (256, 1024) for name, n in
                       train_res[text]["launches_per_step"].items() if n}
+    torch.cuda.empty_cache()
 
-    # 9. the kernels line: per prefill (B1, B2), per decode step (B5, at
+    # 10. the 1b full fine-tune through run_train, run_inference and a
+    # resume; per step: B1 in every LLaMA layer, forward and the remat
+    # recompute, and B2 in Whisper's 6 layers
+    towers = ((whisper(8), 6),)
+    expect_1b = {"mh_attention": 32, "flash_attention": 6,
+                 "flash_attention_combine": combines(torch, towers),
+                 "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                 "flash_attention_delta": 0, "matvec_int8": 0,
+                 "matvec_int8_pipelined": 0}
+    phase10 = run_phase10(torch, kernels, card, out_dir, expect=expect_1b,
+                          do_profile=args.profile)
+    train_1b_launches = phase10["train"]["launches_per_step"]
+    torch.cuda.empty_cache()
+
+    # 11. the kernels line: per prefill (B1, B2), per decode step (B5, at
     # batch 4; B6, at 16 engine slots) or per train step at text 1024 (B3,
     # B4)
     sources = {
@@ -1958,6 +2264,8 @@ def main() -> int:
             "work": "one prefill",
             "train_step_launches": train_launches.get(name, 0),
         }
+        if name in ("mh_attention", "flash_attention"):
+            entry["train_1b_step_launches"] = train_1b_launches[name]
         if name.startswith("flash_attention"):  # 7 B2 per media admission
             entry["engine_launches"] = {
                 str(slots): res["launches"][name]

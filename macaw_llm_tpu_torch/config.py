@@ -1,13 +1,20 @@
-"""Model configuration: the port's own copy of the reference package's
-config dataclasses (``macaw_llm_tpu/config.py``), trimmed to what the
-serving and training paths read. Defaults are the reference's (LLaMA-7B +
-CLIP ViT-B/16 + Whisper-base, Macaw-LLM's MM_LLMs_Config; the optimizer of
-its train.sh and DeepSpeed config)."""
+"""Configuration: the port's own copy of the reference package's config
+dataclasses (``macaw_llm_tpu/config.py``): model / mesh / train / data in
+one ``Config`` tree with the same fields, defaults and JSON form, so a run
+config written by either package loads in the other. Defaults are the
+reference's (LLaMA-7B + CLIP ViT-B/16 + Whisper-base, Macaw-LLM's
+MM_LLMs_Config; the optimizer of its train.sh and DeepSpeed config).
+
+Some values select paths the port has not ported yet; ``validate`` raises
+``NotImplementedError`` for them, naming the ROADMAP item that ports them,
+instead of ignoring them."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 # Special-token vocabulary (Macaw-LLM llm_trainer.py:126-133; pad id 32006).
 IMAGE_START = 32000   # <image>
@@ -20,6 +27,15 @@ PAD_ID = 32006        # [PAD]
 BOS_ID = 1
 EOS_ID = 2
 IGNORE_ID = -100      # loss-mask label
+
+SPECIAL_TOKENS = {
+    "<image>": IMAGE_START,
+    "</image>": IMAGE_END,
+    "<audio>": AUDIO_START,
+    "</audio>": AUDIO_END,
+    "<video>": VIDEO_START,
+    "</video>": VIDEO_END,
+}
 
 
 def _conv_out_len(length: int, kernel: int, stride: int) -> int:
@@ -47,6 +63,7 @@ class LlamaConfig:
     pad_token_id: int = PAD_ID
     bos_token_id: int = BOS_ID
     eos_token_id: int = EOS_ID
+    tie_word_embeddings: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -60,6 +77,15 @@ class LlamaConfig:
     def padded_vocab(self) -> int:
         """Storage vocab width (embed_tokens rows / lm_head cols)."""
         return self.vocab_pad_to or self.vocab_size
+
+    def validate(self) -> None:
+        if self.hidden_size % self.num_heads:
+            raise ValueError(f"hidden_size {self.hidden_size} not divisible "
+                             f"by num_heads {self.num_heads}")
+        if self.vocab_pad_to is not None \
+                and self.vocab_pad_to < self.vocab_size:
+            raise ValueError(f"vocab_pad_to {self.vocab_pad_to} < vocab "
+                             f"{self.vocab_size}")
 
 
 @dataclass(frozen=True)
@@ -75,6 +101,7 @@ class ClipVisionConfig:
     projection_dim: int = 512
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
+    hidden_act: str = "quick_gelu"
 
     @property
     def num_patches(self) -> int:
@@ -97,6 +124,9 @@ class WhisperConfig:
     max_source_positions: int = 1500
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
+    # LayerDrop rate of the training forward (0 in whisper-base; not
+    # ported: ``ModelConfig.validate`` refuses a rate above 0)
+    encoder_layerdrop: float = 0.0
     sample_rate: int = 16000
     n_fft: int = 400
     hop_length: int = 160
@@ -144,11 +174,19 @@ class ModelConfig:
     audio: WhisperConfig = field(default_factory=WhisperConfig)
     fusion: FusionConfig = field(default_factory=FusionConfig)
     dtype: str = "bfloat16"   # compute dtype
+    param_dtype: str = "float32"  # dtype of the master weights
+    # training: torch.utils.checkpoint per decoder layer, which recomputes
+    # the whole layer in the backward (the reference's policy "nothing";
+    # "dots", which saves the matmul outputs, is not ported)
+    remat: bool = False
+    remat_policy: str = "nothing"
     use_flash: bool = False   # attention kernels in the LLM prefill
     tower_flash: bool = False  # streaming kernel in the CLIP/Whisper towers
-    # training: torch.utils.checkpoint per decoder layer, which recomputes
-    # the whole layer in the backward (the reference's policy "nothing")
-    remat: bool = False
+    # sequence sharding and ring attention over a device mesh (not ported)
+    shard_sequence: bool = False
+    ring_attention: bool = False
+    ring_axis: str = "tensor"
+    ring_layout: str = "zigzag"
     # training: shifted CE over chunks of this many positions straight from
     # the hidden states (no [B, S, V] fp32 logits); 0 = full logits
     loss_chunk: int = 0
@@ -179,12 +217,63 @@ class ModelConfig:
         return (self.image_prefix_len + self.video_prefix_len
                 + self.audio_prefix_len + 6)
 
+    def validate(self) -> None:
+        """The reference's geometry checks, then the values whose paths the
+        port has not ported (``NotImplementedError`` naming the ROADMAP
+        item)."""
+        self.llm.validate()
+        h = self.fusion.attention_heads
+        if self.llm.hidden_size % (h * 2):
+            raise ValueError(f"align attention heads {h}*2 must divide llm "
+                             f"hidden size {self.llm.hidden_size}")
+        if self.vision.projection_dim % h:
+            raise ValueError(f"align attention heads {h} must divide the "
+                             f"CLIP projection dim "
+                             f"{self.vision.projection_dim}")
+        if self.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r}: only 'nothing' is "
+                "ported (ROADMAP A4)")
+        if self.audio.encoder_layerdrop > 0:
+            raise NotImplementedError(
+                "encoder_layerdrop > 0: Whisper LayerDrop is not ported "
+                "(ROADMAP A4)")
+        if self.ring_attention or self.shard_sequence:
+            raise NotImplementedError(
+                "ring_attention / shard_sequence: the parallel layer is not "
+                "ported (ROADMAP A5)")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh axes of the reference (dcn x data x fsdp x tensor; -1 =
+    all remaining devices). The port runs on one device: ``Config.validate``
+    refuses a mesh of more than one (ROADMAP A5)."""
+
+    dcn: int = 1
+    data: int = 1
+    fsdp: int = -1
+    tensor: int = 1
+
+    def resolved(self, n_devices: int) -> Tuple[int, int, int, int]:
+        c, d, f, t = self.dcn, self.data, self.fsdp, self.tensor
+        prod = 1
+        for x in (c, d, f, t):
+            if x != -1:
+                prod *= x
+        if -1 in (c, d, f, t):
+            rem = n_devices // prod
+            c, d, f, t = (rem if x == -1 else x for x in (c, d, f, t))
+        if c * d * f * t != n_devices:
+            raise ValueError(f"mesh {c}x{d}x{f}x{t} != {n_devices} devices")
+        return c, d, f, t
+
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Optimization schedule and the fine-tune's form (the reference's
-    train.sh and DeepSpeed config: AdamW, lr 3e-5, cosine with 3% warmup,
-    grad-clip 1.0). The fields the port's trainer reads."""
+    """Optimization schedule, the fine-tune's form and the run's cadence
+    (the reference's train.sh and DeepSpeed config: AdamW, lr 3e-5, cosine
+    with 3% warmup, grad-clip 1.0, a checkpoint every 5000 steps, keep 1)."""
 
     learning_rate: float = 3e-5
     adam_b1: float = 0.9
@@ -193,6 +282,8 @@ class TrainConfig:
     weight_decay: float = 0.0
     warmup_ratio: float = 0.03
     lr_schedule: str = "cosine"      # "cosine" | "linear" | "constant"
+    num_epochs: int = 3
+    per_device_batch_size: int = 4
     grad_accum_steps: int = 3
     max_grad_norm: float = 1.0
     seed: int = 1
@@ -209,7 +300,93 @@ class TrainConfig:
     # ("off"). A cache freezes the align in-proj K/V rows and bias_k/bias_v.
     align_cache: str = "int8"
     quantize_base: bool = False      # LoRA only: int8 frozen LLaMA base
+    # AdamW moments in host memory (not ported: ``Config.validate`` refuses
+    # it, ROADMAP A5)
+    offload_optimizer: bool = False
     pack_frozen_towers: bool = False  # one [h, 3h] in-proj per tower layer
+    save_steps: int = 5000           # checkpoint cadence; 0 = no checkpoints
+    save_total_limit: int = 1        # checkpoints kept
+    # checkpoint saves copy the mutable state on the device and write it
+    # from a background thread; False (or too little free device memory)
+    # copies it to the host before the save returns
+    ckpt_snapshot: bool = True
+    log_steps: int = 10              # metrics.jsonl rows flushed this often
+    # every N optimizer steps, `eval_batches` forward-only eval batches
+    # (eval loss and token accuracy); 0 = only the final --do-eval pass
+    eval_steps: int = 0
+    eval_batches: int = 8
+    checkpoint_dir: str = "checkpoints"
+    resume: bool = True              # resume from the newest checkpoint
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Data pipeline (the reference's preprocess scripts and trainer
+    globals): text length, stored and sampled video frames, media dirs."""
+
+    max_text_len: int = 256
+    n_stored_frames: int = 120
+    n_sampled_frames: int = 6
+    image_dir: str = "data/avsd/frames/"
+    audio_dir: str = "data/avsd/audios/"
+    coco_dir: str = "data/coco/train2014/"
+    cache_path: str = "data/train_total_new_vname.cache"
+    max_eval_samples: int = 2000
+    max_new_tokens: int = 128
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        return _from_dict(cls, d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        return cls.from_dict(json.loads(s))
+
+    def validate(self) -> None:
+        """``ModelConfig.validate``, then the run settings the port cannot
+        honour yet: optimizer offload and a mesh of more than one device
+        (ROADMAP A5)."""
+        self.model.validate()
+        if self.train.offload_optimizer:
+            raise NotImplementedError(
+                "offload_optimizer: optimizer offload is not ported "
+                "(ROADMAP A5)")
+        try:
+            self.mesh.resolved(1)
+        except ValueError:
+            raise NotImplementedError(
+                f"mesh {self.mesh}: the port runs on one device; meshes "
+                "(DDP/FSDP) are not ported (ROADMAP A5)") from None
+
+
+def _from_dict(cls: Any, d: dict) -> Any:
+    """A dataclass from a dict: unknown keys are ignored, missing ones
+    take their defaults, nested dataclass fields recurse."""
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        factory = f.default_factory
+        if factory is not dataclasses.MISSING \
+                and dataclasses.is_dataclass(factory):
+            kwargs[f.name] = _from_dict(factory, d[f.name])
+        else:
+            kwargs[f.name] = d[f.name]
+    return cls(**kwargs)
 
 
 def tiny_model_config() -> ModelConfig:
@@ -229,6 +406,7 @@ def tiny_model_config() -> ModelConfig:
                             video_conv_kernel=6, video_conv_stride=4,
                             audio_conv_kernel=240, audio_conv_stride=220),
         dtype="float32",
+        param_dtype="float32",
     )
 
 
@@ -236,3 +414,16 @@ def macaw_7b() -> ModelConfig:
     """Reference-parity flagship: LLaMA-7B + 2x CLIP ViT-B/16 +
     Whisper-base, ~7.3B params, attention kernels on."""
     return ModelConfig(use_flash=True, tower_flash=True)
+
+
+def macaw_1b() -> ModelConfig:
+    """Single-device profile: the reference's CLIP/Whisper towers and
+    fusion geometry with LLaMA scaled to ~1.1B (hidden 2048, 16 layers,
+    16 heads), bf16 compute, attention kernels on."""
+    return ModelConfig(
+        llm=LlamaConfig(hidden_size=2048, intermediate_size=5504,
+                        num_layers=16, num_heads=16),
+        dtype="bfloat16",
+        use_flash=True,
+        tower_flash=True,
+    )

@@ -1,6 +1,5 @@
 """Serving layer: batched multimodal generation over HTTP (counterpart of
-``macaw_llm_tpu/serve.py``; the command line, which needs checkpoints, is
-not ported yet).
+``macaw_llm_tpu/serve.py``).
 
   * ContinuousEngine (default): slot-based continuous batching: admission
     prefill on its own thread (and, on the GPU, its own CUDA stream),
@@ -409,6 +408,79 @@ def serve(params: dict, cfg: ModelConfig, tokenizer, *,
     server.engine = engine
     logger.info("serving on %s:%d (max_batch=%d)", host, port, max_batch)
     return server
+
+
+def build_server(argv=None) -> ThreadingHTTPServer:
+    """The command line's server: parse the flags, restore the checkpoint,
+    quantize and pack the LLaMA weights as asked, start the engine and
+    bind the HTTP server (not yet serving)."""
+    import argparse
+    from macaw_llm_tpu_torch.config import Config
+    from macaw_llm_tpu_torch.run_inference import restore_params
+    from macaw_llm_tpu_torch.train.checkpoint import load_config
+
+    p = argparse.ArgumentParser(description="Macaw serving (PyTorch)")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--tokenizer", required=True)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--batch-timeout-ms", type=float, default=20.0)
+    p.add_argument("--max-new-tokens", type=int, default=128)
+    eng_group = p.add_mutually_exclusive_group()
+    eng_group.add_argument("--static", action="store_true",
+                           help="static request batcher (no streaming) "
+                                "instead of the default continuous "
+                                "batching engine")
+    eng_group.add_argument("--continuous", action="store_true",
+                           help="(default) slot-based continuous batching")
+    p.add_argument("--kv-cache-dtype", default=None,
+                   choices=[None, "int8"],
+                   help="int8-quantized KV cache: half the decode "
+                        "attention memory read")
+    p.add_argument("--align-cache", default="int8",
+                   choices=["int8", "bf16", "off"],
+                   help="precomputed alignment K/V projections (int8 "
+                        "halves the cache memory; off recomputes per "
+                        "prefill)")
+    p.add_argument("--quantize", default=None, choices=[None, "int8"],
+                   help="int8 weight-only LLM")
+    p.add_argument("--no-pack", action="store_true",
+                   help="keep the unpacked wq/wk/wv and gate/up layout "
+                        "(the packed qkv/gateup streams take one matvec "
+                        "each in decode)")
+    p.add_argument("--device", default="cuda",
+                   help="device to serve on (default: the GPU)")
+    args = p.parse_args(argv)
+
+    cfg = load_config(args.checkpoint) or Config()
+    params = restore_params(args.checkpoint, cfg, device=args.device)
+    from macaw_llm_tpu_torch.utils.quantize import (pack_llama_for_decode,
+                                                    quantize_llama)
+    with torch.no_grad():
+        if args.quantize == "int8":
+            params["llm"] = quantize_llama(params["llm"])
+        if not args.no_pack:
+            params["llm"] = pack_llama_for_decode(params["llm"])
+    from transformers import AutoTokenizer
+    tokenizer = AutoTokenizer.from_pretrained(args.tokenizer)
+    return serve(params, cfg.model, tokenizer, host=args.host,
+                 port=args.port, max_batch=args.max_batch,
+                 batch_timeout_ms=args.batch_timeout_ms,
+                 max_new_tokens=args.max_new_tokens,
+                 continuous=not args.static, align_cache=args.align_cache,
+                 kv_cache_dtype=args.kv_cache_dtype, device=args.device)
+
+
+def main(argv=None):
+    from macaw_llm_tpu_torch.utils.logging import setup_logging
+    setup_logging()
+    server = build_server(argv)
+    try:
+        server.serve_forever()
+    finally:
+        server.engine.stop()
+        server.server_close()
 
 
 # ---------------------------------------------------------------------------
@@ -839,3 +911,7 @@ class ContinuousEngine:
                 self._process_readback(pending.popleft())
         while pending:
             self._process_readback(pending.popleft())
+
+
+if __name__ == "__main__":
+    main()
