@@ -533,3 +533,29 @@ def test_continuous_engine_on_the_card(gen):
     assert mv.matvec_int8.launches - before[0] == 40
     assert mv.matvec_int8_pipelined.launches - before[1] == \
         per_step * eng.stats["steps"]
+
+
+def test_prefetch_side_stream_copies_equal_the_host_batches(gen):
+    """``data.loader.device_prefetch`` on the card: pinned copies on a side
+    stream, 2 batches ahead, handed out after an event wait; the default
+    stream then reads tensors equal to the host batches (int32 columns as
+    int64), also while it is busy with other work."""
+    import numpy as np
+    from macaw_llm_tpu_torch.data.loader import device_prefetch
+    rng = np.random.RandomState(0)
+    host = [{"input_ids": rng.randint(0, 32000, (1, 8, 256)).astype(np.int32),
+             "audios": rng.randn(1, 8, 480000).astype(np.float32),
+             "videos": rng.randint(0, 255, (1, 8, 6, 224, 224, 3)
+                                   ).astype(np.uint8)} for _ in range(5)]
+    busy = torch.randn(4096, 4096, device="cuda", generator=gen)
+    got = []
+    for batch in device_prefetch(iter(host), device="cuda"):
+        for _ in range(8):  # keep the default stream busy meanwhile
+            busy = busy @ busy * 1e-3
+        got.append({k: v.clone() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert len(got) == len(host)
+    for g, r in zip(got, host):
+        assert g["input_ids"].dtype == torch.int64 and g["audios"].is_cuda
+        for k in r:
+            assert np.array_equal(g[k].cpu().numpy(), r[k]), k
