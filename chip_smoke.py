@@ -1667,11 +1667,14 @@ def states_equal(torch, a, b) -> list:
     return diff
 
 
-def phase10_config(cfg_path: Path, out: Path, layers=None, **train):
+TRAIN_1B_RUN = ROOT / "bench_artifacts" / "train_1b_chip.json"
+
+
+def phase10_config(out: Path, layers=None, **train):
     """A copy of the committed 1b run file with the phase's cadence (and,
     for the resume, the depth of every stack cut to ``layers``)."""
     from macaw_llm_tpu_torch.config import Config
-    cfg = Config.from_json(cfg_path.read_text())
+    cfg = Config.from_json(TRAIN_1B_RUN.read_text())
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                              **train))
     if layers is not None:
@@ -1689,8 +1692,7 @@ def metrics_rows(run_dir: Path) -> list:
         return [json.loads(line) for line in f]
 
 
-def run_train_1b(torch, kernels, card: str, work: Path, cfg_path: Path,
-                 device="cuda", expect=None, warm=2, timed=5,
+def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
                  out_dir=None):
     """10a: ``run_train.main`` on the 1b run file (synthetic zero-media
     batches), 2 warm-up + 5 timed steps, then --do-eval and the forced
@@ -1700,25 +1702,24 @@ def run_train_1b(torch, kernels, card: str, work: Path, cfg_path: Path,
     result line and the trained state."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from macaw_llm_tpu_torch import run_train
-    cfg = phase10_config(cfg_path, work / "train_1b.json", save_steps=1000,
+    cfg = phase10_config(work / "train_1b.json", save_steps=1000,
                          log_steps=1)
     run_dir = work / "run_1b"
+    warm, timed = 2, 5
     n_steps = warm + timed + (out_dir is not None)
     steps = []
     mark = [time.perf_counter()]
     prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def on_step(step, state, metrics):
-        if device == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         now = time.perf_counter()
         row = dict(step=step, step_ms=(now - mark[0]) * 1e3,
                    loss=float(metrics["loss"]),
                    grad_norm=float(metrics["grad_norm"]),
                    loader_wait_s=metrics["loader_wait_s"],
-                   launches=counts(kernels))
-        if device == "cuda":
-            row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                   launches=counts(kernels),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         steps.append(row)
         log(json.dumps({"train_1b_step": row}))
         if out_dir is not None and step == n_steps:  # one loop iteration
@@ -1734,21 +1735,19 @@ def run_train_1b(torch, kernels, card: str, work: Path, cfg_path: Path,
             prof.__enter__()
         mark[0] = time.perf_counter()
 
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
     t0 = time.perf_counter()
     state = run_train.main([
         "--config", str(work / "train_1b.json"), "--synthetic",
         "--steps", str(n_steps), "--do-eval", "--output-dir",
-        str(run_dir), "--device", device], on_step=on_step)
+        str(run_dir), "--device", "cuda"], on_step=on_step)
     wall = time.perf_counter() - t0
     eval_launches = counts(kernels)  # after the last step: eval only
-    if expect is not None:
-        bad = [r for r in steps if r["launches"] != expect]
-        if bad:
-            raise AssertionError(f"1b train step launches {bad[0]['launches']}"
-                                 f" != {expect}")
+    bad = [r for r in steps if r["launches"] != expect]
+    if bad:
+        raise AssertionError(f"1b train step launches {bad[0]['launches']}"
+                             f" != {expect}")
     losses = [r["loss"] for r in steps]
     if not all(map(math.isfinite, losses)) or losses[-1] > 1.5 * losses[0]:
         raise AssertionError(f"1b train losses: {losses}")
@@ -1768,7 +1767,7 @@ def run_train_1b(torch, kernels, card: str, work: Path, cfg_path: Path,
         batch=b, text=cfg.data.max_text_len, fused_len=fused,
         step_ms_median=step_ms, step_ms_min=min(times),
         step_ms_max=max(times), tokens_per_s=b * fused / (step_ms / 1e3),
-        peak_mem_gb=steps[-1].get("peak_mem_gb"), losses=losses,
+        peak_mem_gb=steps[-1]["peak_mem_gb"], losses=losses,
         eval_loss=ev[0]["eval_loss"],
         eval_token_accuracy=ev[0]["eval_token_accuracy"],
         save_blocking_ms=save[0]["ckpt_blocking_ms"],
@@ -1781,11 +1780,10 @@ def run_train_1b(torch, kernels, card: str, work: Path, cfg_path: Path,
     return result, state, cfg, run_dir
 
 
-def restored_generation(torch, state, cfg, run_dir: Path, device="cuda",
-                        new=16):
+def restored_generation(torch, state, cfg, run_dir: Path):
     """10b: ``run_inference.restore_params`` on the checkpoint of 10a, held
     bit for bit against the trained state still in memory, and 8 prompts x
-    ``new`` greedy tokens from each: the same tokens."""
+    16 greedy tokens from each: the same tokens."""
     from macaw_llm_tpu_torch import run_inference
     from macaw_llm_tpu_torch.eval import batch_inference_generation
     from macaw_llm_tpu_torch.train.checkpoint import load_config
@@ -1795,7 +1793,7 @@ def restored_generation(torch, state, cfg, run_dir: Path, device="cuda",
     if saved_cfg != cfg:
         raise AssertionError("config.json differs from the run's config")
     restored = run_inference.restore_params(str(run_dir), saved_cfg,
-                                            device=device)
+                                            device="cuda")
     restore_s = time.perf_counter() - t0
     trained = merge_params(state.trainable, state.frozen)
     diff = differing_leaves(torch, _leaf_map(restored), _leaf_map(trained))
@@ -1805,12 +1803,13 @@ def restored_generation(torch, state, cfg, run_dir: Path, device="cuda",
     examples = [{"instruction": f"describe what happens in clip {i}",
                  "response": "", "image": "None", "video": "None",
                  "audio": "None"} for i in range(8)]
+    new = 16
     gens = {}
     for name, params in (("restored", restored), ("in_memory", trained)):
         t1 = time.perf_counter()
         out = batch_inference_generation(params, cfg, BenchTok(), examples,
                                          batch_size=8, max_new_tokens=new,
-                                         device=device)
+                                         device="cuda")
         gens[name] = ([r["generation"] for r in out],
                       time.perf_counter() - t1)
     if gens["restored"][0] != gens["in_memory"][0]:
@@ -1823,8 +1822,8 @@ def restored_generation(torch, state, cfg, run_dir: Path, device="cuda",
     return result
 
 
-def resume_1b(torch, work: Path, cfg_path: Path, device="cuda", layers=2):
-    """10c: at 1b width and ``layers`` layers a stack, 4 uninterrupted
+def resume_1b(torch, work: Path):
+    """10c: at 1b width and 2 layers a stack, 4 uninterrupted
     steps against 2 steps stopped by SIGTERM (the checkpoint-and-exit
     path) and a second call of ``main`` that resumes to 4: the checkpoint
     restores the saved state bit for bit, steps 3-4 give the same losses
@@ -1833,13 +1832,14 @@ def resume_1b(torch, work: Path, cfg_path: Path, device="cuda", layers=2):
     import signal
     from macaw_llm_tpu_torch import run_train
     from macaw_llm_tpu_torch.train.checkpoint import CheckpointManager
-    phase10_config(cfg_path, work / "resume.json", layers=layers,
-                   save_steps=1000, log_steps=1)
+    layers = 2
+    phase10_config(work / "resume.json", layers=layers, save_steps=1000,
+                   log_steps=1)
 
     def args(name):
         return ["--config", str(work / "resume.json"), "--synthetic",
                 "--steps", "4", "--output-dir", str(work / name),
-                "--device", device]
+                "--device", "cuda"]
 
     t0 = time.perf_counter()
     straight = run_train.main(args("straight"))
@@ -1876,12 +1876,10 @@ def resume_1b(torch, work: Path, cfg_path: Path, device="cuda", layers=2):
     return result
 
 
-def run_phase10(torch, kernels, card: str, out_dir: Path, device="cuda",
-                cfg_path=None, expect=None, resume_layers=2, new=16,
-                do_profile=False):
+def run_phase10(torch, kernels, card: str, out_dir: Path, expect: dict,
+                do_profile: bool):
     """Phase 10 (10a, 10b, 10c) in a directory under ``out_dir`` that is
     deleted when the phase ends, whatever happens."""
-    cfg_path = cfg_path or ROOT / "bench_artifacts" / "train_1b_chip.json"
     work = out_dir / "phase10"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1890,14 +1888,12 @@ def run_phase10(torch, kernels, card: str, out_dir: Path, device="cuda",
                         shutil.disk_usage(work).free / 1e9}))
         t0 = time.perf_counter()
         train, state, cfg, run_dir = run_train_1b(
-            torch, kernels, card, work, cfg_path, device, expect,
+            torch, kernels, card, work, expect,
             out_dir=out_dir if do_profile else None)
-        restore = restored_generation(torch, state, cfg, run_dir, device,
-                                      new)
+        restore = restored_generation(torch, state, cfg, run_dir)
         del state
-        if device == "cuda":
-            torch.cuda.empty_cache()
-        resume = resume_1b(torch, work, cfg_path, device, resume_layers)
+        torch.cuda.empty_cache()
+        resume = resume_1b(torch, work)
         log(json.dumps({"phase10_seconds": time.perf_counter() - t0}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2182,8 +2178,8 @@ def main() -> int:
                  "flash_attention_dq": 0, "flash_attention_dkv": 0,
                  "flash_attention_delta": 0, "matvec_int8": 0,
                  "matvec_int8_pipelined": 0}
-    phase10 = run_phase10(torch, kernels, card, out_dir, expect=expect_1b,
-                          do_profile=args.profile)
+    phase10 = run_phase10(torch, kernels, card, out_dir, expect_1b,
+                          args.profile)
     train_1b_launches = phase10["train"]["launches_per_step"]
     torch.cuda.empty_cache()
 

@@ -227,13 +227,13 @@ class BatchLoader:
         training step, in order, on assembly threads
 
     The last partial batch of an epoch is always dropped (shapes stay
-    static): steps_per_epoch = n // (global_batch * processes).
+    static): steps_per_epoch = n // global_batch. The port runs in one
+    process; sharding the order across processes waits on ROADMAP A5.
     """
 
     def __init__(self, ds: TokenizedDataset, media: Optional[MediaSource],
                  global_batch: int, accum: int = 1, seed: int = 0,
-                 prefetch: int = 2, num_workers: int = 8,
-                 process_index: int = 0, process_count: int = 1):
+                 prefetch: int = 2, num_workers: int = 8):
         assert global_batch % accum == 0
         self.ds = ds
         self.media = media
@@ -242,10 +242,7 @@ class BatchLoader:
         self.seed = seed
         self.prefetch = max(1, prefetch)
         self.num_workers = max(1, num_workers)
-        self.process_index = process_index
-        self.process_count = process_count
-        n = len(ds)
-        self.steps_per_epoch = n // (global_batch * process_count)
+        self.steps_per_epoch = len(ds) // global_batch
         self._decode_pool = None
         self._batch_pool = None
 
@@ -271,13 +268,11 @@ class BatchLoader:
         the exact resume position."""
         rng = np.random.RandomState(self.seed + epoch)
         perm = rng.permutation(len(self.ds))
-        # contiguous per-process shard of the shuffled order
-        shard = perm[self.process_index::self.process_count]
         decode_pool, batch_pool = self._pools()
 
         def assemble(step: int):
-            idx = shard[step * self.global_batch:
-                        (step + 1) * self.global_batch]
+            idx = perm[step * self.global_batch:
+                       (step + 1) * self.global_batch]
             return _assemble(self.ds, self.media, idx, self.accum,
                              pool=decode_pool if self.media is not None
                              else None)
@@ -297,22 +292,16 @@ class BatchLoader:
                 f.cancel()
 
 
-def stream_jsonl(paths: Sequence[str], process_index: int = 0,
-                 process_count: int = 1) -> Iterator[dict]:
-    """Yield JSON rows from shard files, round-robin sharded by row index
-    across processes (every process sees a disjoint 1/process_count of the
-    stream, independent of shard boundaries)."""
+def stream_jsonl(paths: Sequence[str]) -> Iterator[dict]:
+    """Yield the JSON rows of the shard files in order, skipping blank
+    lines."""
     import json
-    i = 0
     for path in paths:
         with open(path) as f:
             for line in f:
                 line = line.strip()
-                if not line:
-                    continue
-                if i % process_count == process_index:
+                if line:
                     yield json.loads(line)
-                i += 1
 
 
 class StreamingBatchLoader:
@@ -349,8 +338,7 @@ class StreamingBatchLoader:
                  global_batch: int = 8, accum: int = 1,
                  max_text_len: int = 256, shuffle_buffer: int = 1024,
                  seed: int = 0, steps_per_epoch: int = 0,
-                 prefetch: int = 2, num_workers: int = 8,
-                 process_index: int = 0, process_count: int = 1):
+                 prefetch: int = 2, num_workers: int = 8):
         assert global_batch % accum == 0
         assert steps_per_epoch > 0, \
             "streaming mode needs an explicit steps_per_epoch (--steps)"
@@ -366,15 +354,11 @@ class StreamingBatchLoader:
         self.steps_per_epoch = steps_per_epoch
         self.prefetch = max(1, prefetch)
         self.num_workers = max(1, num_workers)
-        self.process_index = process_index
-        self.process_count = process_count
         self._decode_pool = None
 
     def _shuffled_rows(self, rng: np.random.RandomState) -> Iterator[dict]:
-        src = stream_jsonl(self.paths, self.process_index,
-                           self.process_count)
         buf = []
-        for row in src:
+        for row in stream_jsonl(self.paths):
             buf.append(row)
             if len(buf) >= self.shuffle_buffer:
                 j = rng.randint(len(buf))

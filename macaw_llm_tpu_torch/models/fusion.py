@@ -318,7 +318,7 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
     cache = align_cache or {}
     drop = cfg.fusion.align_dropout if dropout_rng is not None else 0.0
 
-    text_emb = lp["embed_tokens"].to(compute)[input_ids]
+    text_emb = llama.embed(lp, input_ids, compute)
     # K/V memory of the alignments without a cache: the whole vocab
     # embedding matrix, shared across the batch
     token_memory = lp["embed_tokens"].to(compute)

@@ -223,8 +223,11 @@ def _decoder_layer(cfg: LlamaConfig, lp: dict, h: torch.Tensor, mask, cos,
 
 def embed(params: dict, input_ids: torch.Tensor,
           dtype=torch.float32) -> torch.Tensor:
-    """Token embedding lookup ([B, S] -> [B, S, H])."""
-    return params["embed_tokens"].to(dtype)[input_ids]
+    """Token embedding lookup ([B, S] -> [B, S, H]). ``F.embedding`` and
+    not ``table[ids]``: on the CPU the backward of advanced indexing
+    accumulates repeated ids in a varying order, so a resumed run would not
+    reproduce an uninterrupted one bit for bit."""
+    return F.embedding(input_ids, params["embed_tokens"].to(dtype))
 
 
 def forward_hidden(params: dict, cfg: LlamaConfig,

@@ -39,6 +39,7 @@ from macaw_llm_tpu_torch import run_inference as trun_inference
 from macaw_llm_tpu_torch import run_preprocess as tpre
 from macaw_llm_tpu_torch import run_train as trun_train
 from macaw_llm_tpu_torch import serve as tserve
+from macaw_llm_tpu_torch.train.state import merge_params as tmerge
 from macaw_llm_tpu_torch.utils.jax_bridge import params_from_numpy
 from tests.test_data import FakeTokenizer
 from tests.test_torch_checkpoint import assert_states_equal
@@ -190,11 +191,20 @@ def test_restored_params_are_the_trained_state(runs):
     params = trun_inference.restore_params(runs["tdir"], runs["tcfg"],
                                            device="cpu")
     s = runs["tstate"]
-    ref = {**s.trainable, **s.frozen}
-    for top in ref:
-        assert top in params
-    for name, x in (("llm", s.trainable["llm"]["embed_tokens"]),):
-        assert torch.equal(params[name]["embed_tokens"], x)
+    got = _leaves(params)
+    ref = _leaves(tmerge(s.trainable, s.frozen))
+    assert sorted(got) == sorted(ref)
+    for k, x in ref.items():
+        assert got[k].dtype == x.dtype and torch.equal(got[k], x), k
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
 
 
 def _resume_cfg(tmp_path):

@@ -162,11 +162,17 @@ def test_streaming_loader_matches_jax(media_dir, tmp_path, epoch, skip):
     assert any(b["videos"].max() > 0 for b in tb)
 
 
-@pytest.mark.parametrize("index,count", [(0, 2), (1, 2), (2, 3)])
-def test_stream_jsonl_shards_match_jax(tmp_path, index, count):
-    path = _rows(tmp_path / "rows.jsonl", n=11)
-    assert list(tloader.stream_jsonl([path], index, count)) == \
-        list(jloader.stream_jsonl([path], index, count))
+@pytest.mark.parametrize("n_files", [1, 2, 3])
+def test_stream_jsonl_matches_jax(tmp_path, n_files):
+    """The rows of several shard files (blank lines skipped) in JAX's order
+    at its single-process setting."""
+    paths = [_rows(tmp_path / f"rows{i}.jsonl", n=11 + i)
+             for i in range(n_files)]
+    with open(paths[0], "a") as f:
+        f.write("\n\n")
+    rows = list(tloader.stream_jsonl(paths))
+    assert len(rows) == sum(11 + i for i in range(n_files))
+    assert rows == list(jloader.stream_jsonl(paths, 0, 1))
 
 
 def test_prefetch_returns_equal_tensors_cpu():

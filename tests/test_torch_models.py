@@ -262,3 +262,23 @@ def test_entry_points_refuse_cpu_by_default(model):
         prefill(tp, tcfg, {"input_ids": torch.zeros(1, 3)})
     small = tfusion.init_params(0, tcfg, dtype=torch.float32, device="cpu")
     assert small["llm"]["embed_tokens"].shape == (32007, 64)
+
+
+def test_embed_matches_jax_and_its_backward_is_deterministic(model):
+    """The lookup equals JAX's; its gradient, at a train batch's number of
+    repeated ids, has the same bits on every call (exact resume needs it)."""
+    _, _, jp, tp = model
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, 64, size=(4, 512))
+    ref = np.asarray(jllama.embed(jp["llm"], jnp.asarray(ids)))
+    table = tp["llm"]["embed_tokens"].detach().clone().requires_grad_(True)
+    got = tllama.embed({"embed_tokens": table}, torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.detach().numpy(), ref)
+    g = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32))
+    grads = set()
+    for _ in range(20):
+        table.grad = None
+        tllama.embed({"embed_tokens": table},
+                     torch.from_numpy(ids)).backward(g)
+        grads.add(table.grad.numpy().tobytes())
+    assert len(grads) == 1
