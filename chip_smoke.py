@@ -29,17 +29,29 @@ Phases, in order (any failure raises and the script exits non-zero):
     dq, dk/dv) is timed beside SDPA's backward (phase 1 fails if ptxas
     reports a spill in a D = 128 backward kernel);
  4. a 2-layer model at 7b widths (batch 2, seq 256) on the card with the
-    kernels against the same weights on the CPU with the plain versions;
+    kernels against the same weights on the CPU with the plain versions:
+    the reference prefill, ``video_mode="simple"``, and ``quantize_towers``
+    (W8A8 CLIP and Whisper projections);
  4b. a 2-layer QLoRA train step at 7b widths (loss and the trainable
-    leaves' gradients), card against CPU, at text 256 and text 1024;
+    leaves' gradients), card against CPU, at text 256 and text 1024, then
+    at text 256 with remat policy "dots" and with Whisper LayerDrop 0.5
+    (the same host-drawn keep vector on both sides);
  4c. a 2-layer continuous-batching engine at 7b widths (16 slots, int8
     weights, int8 KV, int8 alignment cache): the same 6 greedy requests on
     the card and on the CPU;
  5. the full-width 7b fused prefill, batch 16, seq 256 (fused length 312),
     int8 W8A8 LLaMA, int8 alignment cache, packed towers;
+ 5b. the same prefill (batch and weights) with ``quantize_towers``: its
+    median beside phase 5's, its logits' cosine and argmax agreement
+    against phase 5's;
  6. greedy decode of 4 requests, 16 new tokens, int8 packed weights, bf16
     KV cache; then one sampled call, one with the int8 KV cache, and a
     beam search of 2 requests x 4 beams x 8 tokens, each run twice;
+ 6c. speculative decode on phase 6's prefix and weights, 4 requests x 64
+    tokens, draft 4, n-gram 2, the ngram and the oracle proposer, bf16 and
+    int8 KV cache, each run twice: 129 B6 launches a verify round (20
+    rows), the greedy tokens (or a first difference at a near tie), tokens/s
+    beside ``generate``'s at 64 tokens;
  6b. the 7b continuous-batching engine (int8 packed weights, int8 KV, int8
     alignment cache, prompt bucket 64): one warm-up, then 64 concurrent
     streamed requests (56 text-only, 8 with image + audio + video, 2 of
@@ -54,11 +66,15 @@ Phases, in order (any failure raises and the script exits non-zero):
  10. the 1b full fine-tune through the command-line entry points, on a
     copy of ``bench_artifacts/train_1b_chip.json`` (b8, text 256, fused
     312, fp32 masters, bf16 grads and Adam m, frozen bf16 towers, remat,
-    chunked loss; synthetic zero-media batches): 10a ``run_train.main``,
+    chunked loss; synthetic zero-media batches): first the seeded LLaMA,
+    cut to 32000 vocab rows, exported by ``hf_export`` as safetensors and
+    loaded back by ``run_train.load_pretrained`` (bit for bit, the 7 new
+    rows the mean); 10a ``run_train.main --llama-weights`` of it,
     2 warm-up + 5 timed steps (launches asserted per step), --do-eval and
     the forced final save; 10b ``run_inference.restore_params`` of that
     checkpoint (bit for bit against the state in memory) and 8 x 16 greedy
-    tokens from it, the same as from the state in memory; 10c at 2 layers
+    tokens from it, the same as from the state in memory, and the same
+    again with speculative decode (draft 4; or a near tie); 10c at 2 layers
     a stack, 4 steps straight against 2 steps stopped by SIGTERM and a
     resume to 4 (the restored state bit for bit, steps 3-4's losses within
     1e-3); the checkpoints are deleted when the phase ends;
@@ -67,7 +83,8 @@ Phases, in order (any failure raises and the script exits non-zero):
 
 Weights are random, made on the card from a seed. Usage, from the root of
 a checkout:  python3 chip_smoke.py [--profile]
-(--profile adds torch.profiler tables of one prefill, of greedy decode
+(--profile adds torch.profiler tables, and Chrome traces under
+build/traces/, of one prefill, of greedy decode
 with 1 and 4 new tokens, of 20 engine decode steps at 16 slots (with the
 device's idle share of a step), of one train step at text 1024 and of one
 more (untimed) loop iteration of the 1b run, with its device busy time,
@@ -79,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -855,9 +873,14 @@ def counts(kernels) -> dict:
 def small_model_parity(torch, cfg7, kernels):
     """2 LLaMA layers and 2 layers per tower at 7b widths, batch 2, seq 256:
     the card (kernels) against the CPU (plain versions), same bf16 weights
-    and the same int8 alignment cache."""
+    and the same int8 alignment cache. Three prefills: the reference's
+    (video-long), ``video_mode="simple"`` (the pooled video: no video-long
+    attention, and at the 7b video conv kernel of 36 over 6 frames no video
+    token between the boundaries) and ``quantize_towers`` (W8A8 CLIP and
+    Whisper projections, torch._int_mm on the card, on the CPU too)."""
     from macaw_llm_tpu_torch.models import fusion
     from macaw_llm_tpu_torch.prefill import prefill
+    from macaw_llm_tpu_torch.utils import quantize as qz
     cfg = dataclasses.replace(
         cfg7, llm=dataclasses.replace(cfg7.llm, num_layers=2),
         vision=dataclasses.replace(cfg7.vision, num_layers=2),
@@ -866,29 +889,46 @@ def small_model_parity(torch, cfg7, kernels):
     cache = fusion.precompute_align_cache(params, cfg, quantize=True)
     params = fusion.pack_towers(fusion.strip_align_kv(params))
     batch = make_batch(torch, cfg, 2, 256, seed=2)
-    reset_counts(kernels)
-    gpu = prefill(params, cfg, batch, cache)
-    torch.cuda.synchronize()
-    launched = counts(kernels)
-    want_combine = combines(torch, ((whisper(2), 2), (video_long(2), 1)))
-    if launched["mh_attention"] != 2 or launched["flash_attention"] != 3 \
-            or launched["flash_attention_combine"] != want_combine:
-        raise AssertionError(f"2-layer model launches {launched}")
-    t0 = time.perf_counter()
-    cpu = prefill(to_device(params, "cpu"), cfg, to_device(batch, "cpu"),
-                  to_device(cache, "cpu"), device="cpu")
-    cpu_s = time.perf_counter() - t0
-    gpu = gpu.float().cpu()
-    rel = ((gpu - cpu).abs().max() / cpu.abs().max()).item()
-    top2 = cpu.topk(2, dim=-1).values
-    gap = ((top2[:, 0] - top2[:, 1]) / cpu.abs().max()).tolist()
-    same = bool((gpu.argmax(-1) == cpu.argmax(-1)).all())
-    result = dict(rel_err=rel, argmax_equal=same, cpu_top2_rel_gap=gap,
-                  cpu_seconds=cpu_s, launches=launched)
-    log(json.dumps({"small_model_parity": result}))
-    if not (rel <= LOGITS_REL_TOL and same):
-        raise AssertionError(f"2-layer model parity failed: {result}")
-    return result
+    towers = combines(torch, ((whisper(2), 2),))
+    cases = (
+        ("long", params, "long", {"mh_attention": 2, "flash_attention": 3,
+                                  "flash_attention_combine": towers
+                                  + combines(torch, ((video_long(2), 1),))}),
+        ("video_simple", params, "simple", {
+            "mh_attention": 2, "flash_attention": 2,
+            "flash_attention_combine": towers}),
+        ("quantize_towers", qz.quantize_towers(params), "long", {
+            "mh_attention": 2, "flash_attention": 3,
+            "flash_attention_combine": towers
+            + combines(torch, ((video_long(2), 1),))}))
+    results = {}
+    for name, p, video_mode, expect in cases:
+        reset_counts(kernels)
+        gpu = prefill(p, cfg, batch, cache, video_mode=video_mode)
+        torch.cuda.synchronize()
+        launched = counts(kernels)
+        if any(launched[k] != n for k, n in expect.items()):
+            raise AssertionError(f"2-layer model ({name}) launches "
+                                 f"{launched}, expected {expect}")
+        t0 = time.perf_counter()
+        cpu = prefill(to_device(p, "cpu"), cfg, to_device(batch, "cpu"),
+                      to_device(cache, "cpu"), video_mode=video_mode,
+                      device="cpu")
+        cpu_s = time.perf_counter() - t0
+        gpu = gpu.float().cpu()
+        rel = ((gpu - cpu).abs().max() / cpu.abs().max()).item()
+        top2 = cpu.topk(2, dim=-1).values
+        gap = ((top2[:, 0] - top2[:, 1]) / cpu.abs().max()).tolist()
+        same = bool((gpu.argmax(-1) == cpu.argmax(-1)).all())
+        result = dict(case=name, rel_err=rel, argmax_equal=same,
+                      cpu_top2_rel_gap=gap, cpu_seconds=cpu_s,
+                      launches=launched)
+        log(json.dumps({"small_model_parity": result}))
+        if not (rel <= LOGITS_REL_TOL and same):
+            raise AssertionError(f"2-layer model parity ({name}) failed: "
+                                 f"{result}")
+        results[name] = result
+    return results
 
 
 def build_7b(torch, cfg):
@@ -909,10 +949,15 @@ def build_7b(torch, cfg):
     return params, cache, full, time.perf_counter() - t0
 
 
-def run_prefill(torch, params, cfg, cache, kernels, steps=10, warmup=3):
+def run_prefill(torch, params, cfg, cache, kernels, steps=10, warmup=3,
+                batch=None, name="prefill"):
+    """The 7b prefill at batch 16, text 256: launches asserted, then the
+    median of ``steps`` timed calls. Returns the result line, the batch and
+    the first call's logits."""
     from macaw_llm_tpu_torch.prefill import prefill
     b, s = 16, 256
-    batch = make_batch(torch, cfg, b, s, seed=3)
+    if batch is None:
+        batch = make_batch(torch, cfg, b, s, seed=3)
     reset_counts(kernels)
     logits = prefill(params, cfg, batch, cache)
     torch.cuda.synchronize()
@@ -926,10 +971,10 @@ def run_prefill(torch, params, cfg, cache, kernels, steps=10, warmup=3):
               "flash_attention_delta": 0,
               "matvec_int8_pipelined": 1}
     if launched != expect:
-        raise AssertionError(f"prefill launches {launched} != {expect}")
+        raise AssertionError(f"{name} launches {launched} != {expect}")
     if logits.shape != (b, cfg.llm.vocab_size) or \
             not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"prefill logits {logits.shape} not finite")
+        raise AssertionError(f"{name} logits {logits.shape} not finite")
     for _ in range(warmup):
         prefill(params, cfg, batch, cache)
     torch.cuda.synchronize()
@@ -947,8 +992,36 @@ def run_prefill(torch, params, cfg, cache, kernels, steps=10, warmup=3):
                   examples_per_s=b / (step_ms / 1e3),
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                   launches=launched)
-    log(json.dumps({"prefill": result}))
-    return result, batch
+    log(json.dumps({name: result}))
+    return result, batch, logits
+
+
+def run_prefill_quantized_towers(torch, params, cfg, cache, kernels, batch,
+                                 logits_5, prefill_5, card: str):
+    """5b: phase 5's batch and weights with ``quantize_towers`` (int8 CLIP
+    and Whisper projections, W8A8 like the LLaMA): the same launches, its
+    median ms beside phase 5's, and its logits against phase 5's (cosine,
+    argmax agreement)."""
+    from macaw_llm_tpu_torch.utils import quantize as qz
+    qparams = qz.quantize_towers(params)
+    torch.cuda.synchronize()
+    res, _, logits = run_prefill(torch, qparams, cfg, cache, kernels,
+                                 batch=batch, name="prefill_quantize_towers")
+    a, b = logits.double(), logits_5.double()
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+    agree = (logits.argmax(-1) == logits_5.argmax(-1)).float().mean().item()
+    result = dict(step_ms_median=res["step_ms_median"],
+                  phase5_step_ms_median=prefill_5["step_ms_median"],
+                  examples_per_s=res["examples_per_s"],
+                  logits_cosine_min=cos.min().item(),
+                  logits_cosine_mean=cos.mean().item(),
+                  argmax_agreement=agree, launches=res["launches"],
+                  card=card)
+    log(json.dumps({"prefill_quantize_towers_vs_5": result}))
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("5b logits not finite")
+    del qparams
+    return result
 
 
 def run_generate(torch, params, cfg, cache, batch, kernels, new=16, b=4):
@@ -1232,6 +1305,152 @@ def run_decode_variants(torch, params, cfg, fused, kernels, b=4, new=16):
     return result
 
 
+def greedy_with_logits(torch, params, cfg, emb, mask, n: int,
+                       cache_dtype=None):
+    """``generate``'s greedy loop, step for step (the same calls, so the
+    same tokens up to each row's EOS), keeping every step's fp32 logits on
+    the host: [B, n] tokens and [B, n, V] logits."""
+    from macaw_llm_tpu_torch.generate import _prompt_layout
+    from macaw_llm_tpu_torch.models import llama
+    with torch.inference_mode():
+        b, s, _ = emb.shape
+        full_mask, prompt_pos, prompt_len, last_valid = _prompt_layout(
+            mask, b, s, n, emb.device)
+        valid = llama.valid_vocab(cfg)
+        cache = llama.KVCache.create(
+            cfg, b, s + n, emb.dtype if cache_dtype is None else cache_dtype,
+            emb.device)
+        h = llama.forward_hidden(params, cfg, emb, attention_mask=full_mask,
+                                 positions=prompt_pos, kv_cache=cache)
+        logits = llama.logits_from_hidden(
+            params, h[torch.arange(b, device=emb.device), last_valid][:, None],
+            valid)[:, 0]
+        toks, steps = [logits.argmax(-1)], [logits.float().cpu()]
+        for step in range(1, n):
+            e = params["embed_tokens"].to(emb.dtype)[toks[-1]][:, None, :]
+            logits = llama.forward(params, cfg, inputs_embeds=e,
+                                   attention_mask=full_mask,
+                                   positions=(prompt_len + step - 1)[:, None],
+                                   kv_cache=cache)[:, -1]
+            toks.append(logits.argmax(-1))
+            steps.append(logits.float().cpu())
+    return torch.stack(toks, 1).cpu(), torch.stack(steps, 1)
+
+
+def near_tie_flips(torch, got, greedy, logits_fn, eos_id=None) -> list:
+    """Rows whose tokens differ from the greedy ones: at the first
+    differing step the greedy step's logits of the two tokens must be
+    within LOGITS_REL_TOL of max |logit| (phase 4c's rule; what follows is
+    another sequence and is not compared). ``logits_fn()`` gives
+    ``greedy_with_logits``' tokens and logits, asked for only if a row
+    differs."""
+    got, greedy = got.cpu(), greedy.cpu()
+    flips, ref = [], None
+    for r in range(got.shape[0]):
+        diff = (got[r] != greedy[r]).nonzero()
+        if not len(diff):
+            continue
+        j = int(diff[0, 0])
+        if ref is None:
+            ref = logits_fn()
+            if not torch.equal(ref[0][:, :j + 1][r], greedy[r, :j + 1]):
+                raise AssertionError("the greedy loop with logits left "
+                                     "generate's tokens")
+        lg = ref[1][r, j]
+        gap = (lg[greedy[r, j]] - lg[got[r, j]]).abs().item() / \
+            lg.abs().max().item()
+        flips.append(dict(row=r, step=j, rel_gap=gap))
+        if not gap <= LOGITS_REL_TOL:
+            raise AssertionError(f"row {r} differs from greedy at step {j}: "
+                                 f"the greedy step's logits are {gap} apart")
+    return flips
+
+
+def run_speculative(torch, params, cfg, fused, prompt_ids, kernels,
+                    card: str, new=64, k=4, ngram=2):
+    """6c: ``generate_speculative`` at 7b on phase 6's fused prefix (4
+    requests, int8 packed weights): draft_len 4, ngram 2, with the bf16
+    and the int8 KV cache, proposer "ngram", "oracle" (the greedy tokens of
+    ``generate`` at 64 steps as the oracle) and "oracle_self" (the ngram
+    run's own tokens as the oracle: the verify's acceptance-1 speed, where
+    "oracle" loses its drafts at the first token that the verify's B6
+    rounding flips against the greedy step's B5); ``prompt_ids`` are the
+    text ids the fusion consumed. Every verify round launches B6 129 times
+    at 4 x 5 = 20 rows; the tokens are the greedy ones, or differ first at
+    a near tie; each run twice, the same tokens."""
+    from macaw_llm_tpu_torch.generate import generate, generate_speculative
+    emb, mask = fused.inputs_embeds, fused.attention_mask
+    b = emb.shape[0]
+    per_round = 4 * cfg.llm.num_layers + 1
+    results = {}
+    for cache_dtype in (None, "int8"):
+        cache_name = cache_dtype or "bf16"
+
+        def greedy():
+            out = generate(params["llm"], cfg.llm, inputs_embeds=emb,
+                           attention_mask=mask, max_new_tokens=new,
+                           eos_id=-1, cache_dtype=cache_dtype)
+            torch.cuda.synchronize()
+            return out
+
+        greedy()
+        t0 = time.perf_counter()
+        ref = greedy()
+        greedy_s = time.perf_counter() - t0
+        logits_fn = functools.partial(
+            greedy_with_logits, torch, params["llm"], cfg.llm, emb, mask,
+            new, cache_dtype)
+        results[cache_name] = {"generate": dict(
+            tokens_per_s=b * new / greedy_s, seconds=greedy_s)}
+        oracles = {"ngram": None, "oracle": ref.tokens}
+        for proposer in ("ngram", "oracle", "oracle_self"):
+            def spec():
+                out = generate_speculative(
+                    params["llm"], cfg.llm, inputs_embeds=emb,
+                    prompt_ids=prompt_ids, attention_mask=mask,
+                    max_new_tokens=new, eos_id=-1, draft_len=k, ngram=ngram,
+                    cache_dtype=cache_dtype,
+                    proposer="ngram" if proposer == "ngram" else "oracle",
+                    oracle_tokens=oracles[proposer])
+                torch.cuda.synchronize()
+                return out
+
+            reset_counts(kernels)
+            first = spec()
+            launched = counts(kernels)
+            expect = dict({name: 0 for name in launched},
+                          matvec_int8=1,
+                          matvec_int8_pipelined=per_round * first.num_steps)
+            if launched != expect:
+                raise AssertionError(f"speculative ({cache_name}, "
+                                     f"{proposer}) launches {launched} != "
+                                     f"{expect}")
+            t0 = time.perf_counter()
+            second = spec()
+            seconds = time.perf_counter() - t0
+            if not torch.equal(first.tokens, second.tokens) or \
+                    first.num_steps != second.num_steps:
+                raise AssertionError(f"speculative ({cache_name}, "
+                                     f"{proposer}) is not repeatable")
+            flips = near_tie_flips(torch, first.tokens, ref.tokens,
+                                   logits_fn)
+            if proposer == "ngram":
+                oracles["oracle_self"] = first.tokens
+            row = dict(tokens_per_s=b * new / seconds, seconds=seconds,
+                       rounds=first.num_steps,
+                       acceptance=(new - 1) / first.num_steps,
+                       b6_per_round=per_round, rows_per_round=b * (k + 1),
+                       identical_rows=b - len(flips), flips=flips,
+                       same_as_ngram=bool(torch.equal(
+                           first.tokens, oracles["oracle_self"])),
+                       launches=launched)
+            results[cache_name][proposer] = row
+    result = dict(requests=b, new_tokens=new, draft_len=k, ngram=ngram,
+                  prompt_len=emb.shape[1], card=card, **results)
+    log(json.dumps({"speculative": result}))
+    return result
+
+
 def percentile(xs, p):
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(p * (len(xs) - 1) + 0.5))]
@@ -1435,7 +1654,11 @@ def small_train_parity(torch, cfg7, kernels):
     dropout off, int8 base and align cache, remat, chunked loss): the card
     (kernels) against the CPU (plain versions), same bf16 weights and
     batch, at text 256 (fused 312: mh_attention, its plain backward) and
-    text 1024 (fused 1080: flash forward, dq, dk/dv)."""
+    text 1024 (fused 1080: flash forward, dq, dk/dv); then at text 256
+    with remat policy "dots" and with Whisper LayerDrop 0.5 (the keep
+    vector drawn on the host from one seeded CPU generator a side: the
+    same layers dropped on both)."""
+    from macaw_llm_tpu_torch.models import whisper as whisper_model
     from macaw_llm_tpu_torch.models import fusion
     from macaw_llm_tpu_torch.train.lora import init_lora
     from macaw_llm_tpu_torch.train.state import merge_params, split_params
@@ -1465,14 +1688,17 @@ def small_train_parity(torch, cfg7, kernels):
             return {k: fresh(v, device) for k, v in tree.items()}
         return tree.detach().to(device).requires_grad_()
 
-    def loss_and_grads(device, batch):
+    def loss_and_grads(device, batch, cfg=cfg, rng_seed=None):
         tr = fresh(trainable, device)
+        rng = None if rng_seed is None else \
+            torch.Generator().manual_seed(rng_seed)
         loss, _ = fusion.forward(
             merge_params(tr, to_device(frozen, device)), cfg,
             input_ids=batch["input_ids"], images=batch["images"],
             audios=batch["audios"], videos=batch["videos"],
             attention_mask=batch["attention_mask"], labels=batch["labels"],
-            lora_scale=2.0, align_cache=to_device(cache, device))
+            dropout_rng=rng, lora_scale=2.0,
+            align_cache=to_device(cache, device))
         loss.backward()
         # a leaf the loss does not reach (bias_k/bias_v behind the cache)
         # has no gradient: zeros, as the trainer takes it
@@ -1494,19 +1720,39 @@ def small_train_parity(torch, cfg7, kernels):
                       "flash_attention_dq": 3, "flash_attention_dkv": 3,
                       "flash_attention_delta": 3,
                       "matvec_int8": 0, "matvec_int8_pipelined": 0}}
+    # LayerDrop: the first seed whose keep vector over Whisper's 2 layers
+    # keeps one and drops one (alignment dropout stays off: the generator
+    # draws only the keep vector)
+    drop_cfg = dataclasses.replace(cfg, audio=dataclasses.replace(
+        cfg.audio, encoder_layerdrop=0.5))
+    drop_seed = next(seed for seed in range(100) if sum(
+        whisper_model.layerdrop_keep(torch.Generator().manual_seed(seed), 2,
+                                     0.5)) == 1)
+    kept = 1
+    cases = [(str(text), text, cfg, None, expect)
+             for text, expect in expects.items()]
+    cases += [
+        ("256_dots", 256, dataclasses.replace(cfg, remat_policy="dots"),
+         None, expects[256]),
+        ("256_layerdrop", 256, drop_cfg, drop_seed, dict(
+            expects[256], flash_attention=kept + 1,
+            flash_attention_combine=combines(torch, (
+                (whisper(1), kept), (video_long(1), 1)))))]
     results = {}
-    for text, expect in expects.items():
+    for name, text, case_cfg, rng_seed, expect in cases:
         batch = {k: v[0] for k, v in
                  train_batch(torch, cfg, 1, 1, text, seed=7).items()}
         reset_counts(kernels)
-        gpu_loss, gpu_grads = loss_and_grads("cuda", batch)
+        gpu_loss, gpu_grads = loss_and_grads("cuda", batch, case_cfg,
+                                             rng_seed)
         torch.cuda.synchronize()
         launched = counts(kernels)
         if launched != expect:
-            raise AssertionError(f"2-layer train step at text {text}: "
-                                 f"launches {launched} != {expect}")
+            raise AssertionError(f"2-layer train step ({name}): launches "
+                                 f"{launched} != {expect}")
         t0 = time.perf_counter()
-        cpu_loss, cpu_grads = loss_and_grads("cpu", to_device(batch, "cpu"))
+        cpu_loss, cpu_grads = loss_and_grads("cpu", to_device(batch, "cpu"),
+                                             case_cfg, rng_seed)
         cpu_s = time.perf_counter() - t0
         loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
         grad_rel, zero_leaves = {}, []
@@ -1522,7 +1768,11 @@ def small_train_parity(torch, cfg7, kernels):
                 continue
             grad_rel[key] = (got - ref).abs().max().item() / scale
         worst = max(grad_rel, key=grad_rel.get)
-        result = dict(text=text, fused_len=batch["input_ids"].shape[1]
+        result = dict(case=name, remat_policy=case_cfg.remat_policy,
+                      layerdrop_keep=None if rng_seed is None else
+                      whisper_model.layerdrop_keep(
+                          torch.Generator().manual_seed(rng_seed), 2, 0.5),
+                      text=text, fused_len=batch["input_ids"].shape[1]
                       + cfg.total_prefix_len, gpu_loss=gpu_loss,
                       cpu_loss=cpu_loss, loss_rel_err=loss_rel,
                       max_grad_rel_err=grad_rel[worst], worst_leaf=worst,
@@ -1531,10 +1781,10 @@ def small_train_parity(torch, cfg7, kernels):
         log(json.dumps({"small_train_parity": result}))
         if not (loss_rel <= TRAIN_LOSS_REL_TOL
                 and grad_rel[worst] <= TRAIN_GRAD_REL_TOL):
-            raise AssertionError(f"2-layer train parity at text {text} "
-                                 f"failed: loss {loss_rel}, {worst} "
+            raise AssertionError(f"2-layer train parity ({name}) failed: "
+                                 f"loss {loss_rel}, {worst} "
                                  f"{grad_rel[worst]}")
-        results[text] = result
+        results[name] = result
     return results
 
 
@@ -1692,14 +1942,74 @@ def metrics_rows(run_dir: Path) -> list:
         return [json.loads(line) for line in f]
 
 
+HF_VOCAB = 32000  # the reference's LLaMA vocab before its 7 new tokens
+
+
+def import_1b(torch, work: Path) -> tuple:
+    """10 (before 10a): the seeded 1b LLaMA, cut to its first 32000 vocab
+    rows, written by ``hf_export.export_llama`` as safetensors into the
+    phase's directory; ``run_train.load_pretrained`` of it (the path of
+    ``--llama-weights``) must give the seeded leaves bit for bit, and the 7
+    rows ``resize_token_embeddings`` adds each the mean of the 32000.
+    Returns the checkpoint directory and the result line."""
+    from macaw_llm_tpu_torch import run_train
+    from macaw_llm_tpu_torch.models import fusion
+    from macaw_llm_tpu_torch.utils.hf_export import export_llama
+    from macaw_llm_tpu_torch.utils.safetensors_io import save_safetensors
+    cfg = phase10_config(work / "train_1b.json", save_steps=1000,
+                         log_steps=1)
+    m = cfg.model
+    seeded = fusion.init_params(cfg.train.seed, m,
+                                dtype=getattr(torch, m.param_dtype),
+                                device="cuda")["llm"]
+    t0 = time.perf_counter()
+    cut = dict(seeded, embed_tokens=seeded["embed_tokens"][:HF_VOCAB],
+               lm_head=seeded["lm_head"][:, :HF_VOCAB])
+    hf_dir = work / "llama_hf"
+    hf_dir.mkdir()
+    save_safetensors(export_llama(cut, m.llm),
+                     str(hf_dir / "model.safetensors"))
+    export_s = time.perf_counter() - t0
+    args = run_train.parse_args(["--llama-weights", str(hf_dir),
+                                 "--device", "cuda"])
+    t0 = time.perf_counter()
+    loaded = run_train.load_pretrained(cfg, args)["llm"]
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    want = _leaf_map(seeded)
+    got = _leaf_map(loaded)
+    for key in ("/embed_tokens", "/lm_head"):
+        cols = key == "/lm_head"
+        ref = (want[key][:, :HF_VOCAB] if cols else
+               want[key][:HF_VOCAB]).contiguous()  # the imported layout
+        mean = ref.mean(1 if cols else 0, keepdim=True)
+        want[key] = torch.cat([ref, mean.expand(
+            ref.shape[0], m.llm.vocab_size - HF_VOCAB) if cols else
+            mean.expand(m.llm.vocab_size - HF_VOCAB, ref.shape[1])],
+            1 if cols else 0)
+    diff = differing_leaves(torch, got, want)
+    if diff:
+        raise AssertionError(f"imported 1b LLaMA differs from the seeded "
+                             f"one: {diff}")
+    result = dict(leaves=len(got), bytes=(hf_dir / "model.safetensors")
+                  .stat().st_size, export_s=export_s, import_s=import_s,
+                  resized_rows=m.llm.vocab_size - HF_VOCAB,
+                  bitwise=True)
+    log(json.dumps({"import_1b": result}))
+    del seeded, cut, loaded, want, got
+    torch.cuda.empty_cache()
+    return hf_dir, result
+
+
 def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
-                 out_dir=None):
+                 out_dir=None, llama_dir=None):
     """10a: ``run_train.main`` on the 1b run file (synthetic zero-media
     batches), 2 warm-up + 5 timed steps, then --do-eval and the forced
     final save; every step synchronized and its launches read by the
     ``on_step`` hook. With ``out_dir`` one more step runs under
-    torch.profiler (untimed; its table goes to out_dir). Returns the
-    result line and the trained state."""
+    torch.profiler (untimed; its table goes to out_dir); ``llama_dir``
+    passes ``--llama-weights``. Returns the result line and the trained
+    state."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from macaw_llm_tpu_torch import run_train
     cfg = phase10_config(work / "train_1b.json", save_steps=1000,
@@ -1738,10 +2048,12 @@ def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
     t0 = time.perf_counter()
+    weights = [] if llama_dir is None else ["--llama-weights",
+                                            str(llama_dir)]
     state = run_train.main([
         "--config", str(work / "train_1b.json"), "--synthetic",
         "--steps", str(n_steps), "--do-eval", "--output-dir",
-        str(run_dir), "--device", "cuda"], on_step=on_step)
+        str(run_dir), "--device", "cuda"] + weights, on_step=on_step)
     wall = time.perf_counter() - t0
     eval_launches = counts(kernels)  # after the last step: eval only
     bad = [r for r in steps if r["launches"] != expect]
@@ -1814,9 +2126,44 @@ def restored_generation(torch, state, cfg, run_dir: Path):
                       time.perf_counter() - t1)
     if gens["restored"][0] != gens["in_memory"][0]:
         raise AssertionError(f"restored generation differs: {gens}")
+    # speculative decode (draft 4) on the restored weights: the greedy
+    # tokens, or a first difference at a near tie of the greedy step (its
+    # inputs caught from eval's call of generate)
+    from macaw_llm_tpu_torch import eval as eval_mod
+    caught = {}
+    real_generate = eval_mod.generate
+
+    def catching(p, c, **kw):
+        caught.update(kw, params=p, cfg=c)
+        return real_generate(p, c, **kw)
+
+    eval_mod.generate = catching
+    try:
+        batch_inference_generation(restored, cfg, BenchTok(), examples,
+                                   batch_size=8, max_new_tokens=new,
+                                   device="cuda")
+    finally:
+        eval_mod.generate = real_generate
+    t1 = time.perf_counter()
+    spec = batch_inference_generation(restored, cfg, BenchTok(), examples,
+                                      batch_size=8, max_new_tokens=new,
+                                      speculative=4, device="cuda")
+    spec_s = time.perf_counter() - t1
+
+    def tokens(gens):
+        return torch.tensor([result_tokens({"text": g}) + [-1] * (
+            new - len(g.split())) for g in gens])
+
+    flips = near_tie_flips(
+        torch, tokens([r["generation"] for r in spec]),
+        tokens(gens["restored"][0]), functools.partial(
+            greedy_with_logits, torch, caught["params"], caught["cfg"],
+            caught["inputs_embeds"], caught["attention_mask"], new))
     result = dict(prompts=len(examples), new_tokens=new, restore_s=restore_s,
                   leaves=len(_leaf_map(restored)),
                   generate_s=gens["restored"][1],
+                  speculative_s=spec_s, speculative_flips=flips,
+                  speculative_identical=len(examples) - len(flips),
                   tokens=[g.split()[:4] for g in gens["restored"][0][:2]])
     log(json.dumps({"restore_1b": result}))
     return result
@@ -1887,9 +2234,10 @@ def run_phase10(torch, kernels, card: str, out_dir: Path, expect: dict,
         log(json.dumps({"phase10_disk_free_gb":
                         shutil.disk_usage(work).free / 1e9}))
         t0 = time.perf_counter()
+        llama_dir, imported = import_1b(torch, work)
         train, state, cfg, run_dir = run_train_1b(
             torch, kernels, card, work, expect,
-            out_dir=out_dir if do_profile else None)
+            out_dir=out_dir if do_profile else None, llama_dir=llama_dir)
         restore = restored_generation(torch, state, cfg, run_dir)
         del state
         torch.cuda.empty_cache()
@@ -1897,7 +2245,8 @@ def run_phase10(torch, kernels, card: str, out_dir: Path, expect: dict,
         log(json.dumps({"phase10_seconds": time.perf_counter() - t0}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return dict(train=train, restore=restore, resume=resume)
+    return dict(imported=imported, train=train, restore=restore,
+                resume=resume)
 
 
 def step_totals(rows, b: int, keys) -> dict:
@@ -1982,14 +2331,18 @@ def _tensors(tree):
     return [tree]
 
 
-def device_busy_ms(prof) -> float:
+def device_busy_ms(prof, ranges=()) -> float:
     """The time (ms) in which at least one kernel ran on the card: the
     union of the profiler's kernel intervals. A sum of kernel times would
     count twice the matvec's reduce kernel, which launches early as a
-    programmatic dependent and waits for the main kernel."""
+    programmatic dependent and waits for the main kernel. The device-side
+    span of a named range (``profiling.annotate``, its name in ``ranges``)
+    is not a kernel."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.name not in ranges
+                   and not getattr(e, "is_user_annotation", False))
     busy, end = 0.0, float("-inf")
     for start, stop in spans:
         if stop > end:
@@ -1999,20 +2352,21 @@ def device_busy_ms(prof) -> float:
 
 
 def profile(torch, name: str, fn, out_dir: Path) -> None:
-    """torch.profiler table (device time by kernel) of one call of fn."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    """torch.profiler table (device time by kernel) of one call of fn, and
+    its Chrome trace (``utils.profiling.trace``) under build/traces/."""
+    from macaw_llm_tpu_torch.utils.profiling import annotate, trace
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with trace(str(ROOT / "build" / "traces" / name)) as prof:
+        with annotate(name):
+            fn()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"profile_{name}.txt").write_text(table)
     log(f"== profile {name}\n{table}")
-    log(json.dumps({"profile": name, "device_busy_ms": device_busy_ms(prof)}))
+    log(json.dumps({"profile": name,
+                    "device_busy_ms": device_busy_ms(prof, (name,))}))
 
 
 # --------------------------------------------------------------------------
@@ -2126,8 +2480,15 @@ def main() -> int:
     # 5. full 7b prefill
     params, cache, params_full, build_s = build_7b(torch, cfg)
     log(json.dumps({"build_7b_seconds": build_s}))
-    prefill_res, batch = run_prefill(torch, params, cfg, cache, kernels)
+    prefill_res, batch, logits_5 = run_prefill(torch, params, cfg, cache,
+                                               kernels)
     main_launches = dict(prefill_res["launches"])
+    # 5b. the same prefill with int8 W8A8 towers
+    prefill_qt = run_prefill_quantized_towers(
+        torch, params, cfg, cache, kernels, batch, logits_5, prefill_res,
+        card)
+    del logits_5
+    torch.cuda.empty_cache()
     if args.profile:
         from macaw_llm_tpu_torch.prefill import prefill
         profile(torch, "prefill", lambda: prefill(
@@ -2146,6 +2507,16 @@ def main() -> int:
                 eos_id=-1), out_dir)
 
     run_decode_variants(torch, params, cfg, fused, kernels)
+    # 6c. speculative decode on the same prefix and weights
+    spec_res = run_speculative(torch, params, cfg, fused,
+                               batch["input_ids"][:4], kernels, card)
+    if args.profile:
+        from macaw_llm_tpu_torch.generate import generate_speculative
+        profile(torch, "speculative16", lambda: generate_speculative(
+            params["llm"], cfg.llm, inputs_embeds=fused.inputs_embeds,
+            prompt_ids=batch["input_ids"][:4],
+            attention_mask=fused.attention_mask, max_new_tokens=16,
+            eos_id=-1), out_dir)
 
     # 6b. the continuous-batching engine at 16 and at 32 slots
     del cache, batch, fused
@@ -2212,6 +2583,15 @@ def main() -> int:
             "macaw_llm_tpu_torch/csrc/matvec.cu",
             "macaw_llm_tpu/ops/pallas/matvec.py:175"),
     }
+    def spec_launches(name):
+        """6c's launches of a matvec kernel, per run of 64 tokens, and the
+        verify rounds of each run (129 B6 launches a round)."""
+        return {f"{cache}_{proposer}": dict(
+            launches=spec_res[cache][proposer]["launches"][name],
+            rounds=spec_res[cache][proposer]["rounds"])
+            for cache in ("bf16", "int8")
+            for proposer in ("ngram", "oracle", "oracle_self")}
+
     entries = []
     for name, rows in checks.items():
         if name.startswith("flash_attention_d"):
@@ -2234,12 +2614,17 @@ def main() -> int:
                 "train_step_launches": train_launches[name]})
             continue
         if name == "matvec_int8_pipelined":
-            entries.append(pipelined_entry(name, rows, sources[name],
-                                           serve_res))
+            entry = pipelined_entry(name, rows, sources[name], serve_res)
+            entry["prefill_quantize_towers_launches"] = \
+                prefill_qt["launches"][name]
+            entry["speculative_launches"] = spec_launches(name)
+            entries.append(entry)
             continue
         if name == "matvec_int8":
-            entries.append(matvec_entry(name, rows, sources[name],
-                                        main_launches[name], serve_res))
+            entry = matvec_entry(name, rows, sources[name],
+                                 main_launches[name], serve_res)
+            entry["speculative_launches"] = spec_launches(name)
+            entries.append(entry)
             continue
         per = "per_prefill"
         timed = [r for r in rows if r[per]]
@@ -2262,6 +2647,8 @@ def main() -> int:
         }
         if name in ("mh_attention", "flash_attention"):
             entry["train_1b_step_launches"] = train_1b_launches[name]
+        entry["prefill_quantize_towers_launches"] = \
+            prefill_qt["launches"][name]
         if name.startswith("flash_attention"):  # 7 B2 per media admission
             entry["engine_launches"] = {
                 str(slots): res["launches"][name]

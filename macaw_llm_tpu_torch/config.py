@@ -124,8 +124,7 @@ class WhisperConfig:
     max_source_positions: int = 1500
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
-    # LayerDrop rate of the training forward (0 in whisper-base; not
-    # ported: ``ModelConfig.validate`` refuses a rate above 0)
+    # LayerDrop rate of the training forward (0 in whisper-base)
     encoder_layerdrop: float = 0.0
     sample_rate: int = 16000
     n_fft: int = 400
@@ -175,9 +174,9 @@ class ModelConfig:
     fusion: FusionConfig = field(default_factory=FusionConfig)
     dtype: str = "bfloat16"   # compute dtype
     param_dtype: str = "float32"  # dtype of the master weights
-    # training: torch.utils.checkpoint per decoder layer, which recomputes
-    # the whole layer in the backward (the reference's policy "nothing";
-    # "dots", which saves the matmul outputs, is not ported)
+    # training: checkpoint every decoder and tower layer (models.remat):
+    # "nothing" recomputes the whole layer in the backward, "dots" keeps
+    # the outputs of its matmuls with no batch dims
     remat: bool = False
     remat_policy: str = "nothing"
     use_flash: bool = False   # attention kernels in the LLM prefill
@@ -230,14 +229,6 @@ class ModelConfig:
             raise ValueError(f"align attention heads {h} must divide the "
                              f"CLIP projection dim "
                              f"{self.vision.projection_dim}")
-        if self.remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r}: only 'nothing' is "
-                "ported (ROADMAP A4)")
-        if self.audio.encoder_layerdrop > 0:
-            raise NotImplementedError(
-                "encoder_layerdrop > 0: Whisper LayerDrop is not ported "
-                "(ROADMAP A4)")
         if self.ring_attention or self.shard_sequence:
             raise NotImplementedError(
                 "ring_attention / shard_sequence: the parallel layer is not "

@@ -1,11 +1,9 @@
 """Evaluation / inference harness (counterpart of ``macaw_llm_tpu/eval.py``):
 read ``{ds}_val_inference.json`` rows (image/video/audio name or 'None',
 instruction, response), cap the example count, run batched greedy or beam
-generation over the fused multimodal prefix, and dump the generations
-beside the ground truth; plus the shifted token-accuracy metric.
-
-Prompt-lookup speculative decoding (``speculative > 0``) is not ported
-yet (ROADMAP A6)."""
+generation over the fused multimodal prefix (greedy, beam search, or
+greedy with prompt-lookup speculative decoding), and dump the generations
+beside the ground truth; plus the shifted token-accuracy metric."""
 
 from __future__ import annotations
 
@@ -20,7 +18,8 @@ from macaw_llm_tpu_torch import resolve_device
 from macaw_llm_tpu_torch.config import Config, EOS_ID, IGNORE_ID, PAD_ID
 from macaw_llm_tpu_torch.data.loader import MediaSource, host_tensor
 from macaw_llm_tpu_torch.data.templates import format_prompt
-from macaw_llm_tpu_torch.generate import beam_search, generate
+from macaw_llm_tpu_torch.generate import (beam_search, generate,
+                                          generate_speculative)
 from macaw_llm_tpu_torch.models import fusion
 
 
@@ -48,10 +47,9 @@ def batch_inference_generation(
 
     Each row: {'instruction': str, 'response': str, 'image'|'video'|'audio':
     name or 'None'}. Absent media become zero tensors, matching training.
+    ``speculative`` = K > 0 drafts K tokens a round by prompt lookup over
+    the prompt text (``generate_speculative``): the greedy tokens.
     """
-    if speculative > 0:
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP A6)")
     device = resolve_device(device)
     mcfg = cfg.model
     max_new = max_new_tokens or cfg.data.max_new_tokens
@@ -110,6 +108,13 @@ def batch_inference_generation(
                                   num_beams=num_beams,
                                   max_new_tokens=max_new, eos_id=EOS_ID,
                                   pad_id=PAD_ID, device=device)
+            elif speculative > 0:
+                out = generate_speculative(
+                    params["llm"], mcfg.llm,
+                    inputs_embeds=batch.inputs_embeds,
+                    prompt_ids=dev(ids), attention_mask=batch.attention_mask,
+                    max_new_tokens=max_new, draft_len=speculative,
+                    eos_id=EOS_ID, pad_id=PAD_ID, device=device)
             else:
                 out = generate(params["llm"], mcfg.llm,
                                inputs_embeds=batch.inputs_embeds,

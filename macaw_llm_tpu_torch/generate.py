@@ -1,7 +1,7 @@
 """Autoregressive generation from fused embeddings (counterpart of
 ``macaw_llm_tpu/generate.py``): ``generate`` (greedy or sampled, bf16 or
-int8 KV cache), ``generate_from_ids`` and ``beam_search``. Speculative
-decoding is not ported yet.
+int8 KV cache), ``generate_from_ids``, ``beam_search`` and the greedy
+``generate_speculative`` with its prompt-lookup drafter ``_ngram_propose``.
 
 Semantics of the reference package: the prompt positions come from the
 attention-mask cumsum, the first token is read at each row's last valid
@@ -223,3 +223,153 @@ def beam_search(params: dict, cfg: LlamaConfig, *,
     best = norm.argmax(dim=1)                               # [B]
     tokens = out[torch.arange(b, device=device), best]
     return GenerateResult(tokens=tokens, num_steps=step)
+
+
+def _ngram_propose(hist: torch.Tensor, hist_len: torch.Tensor,
+                   draft_len: int, ngram: int, pad_id: int) -> torch.Tensor:
+    """Prompt-lookup drafts: the ``draft_len`` tokens that followed the
+    most recent earlier occurrence of each row's last ``ngram`` tokens.
+
+    hist [B, L] (prompt, then generated, PAD elsewhere); hist_len [B]
+    valid lengths. A row with no match proposes PAD, which the verify
+    rejects: plain decode speed, never a wrong token."""
+    b, L = hist.shape
+    device = hist.device
+    rows = torch.arange(b, device=device)[:, None]
+    s0 = hist_len - ngram                                   # suffix start
+    suffix = hist[rows, torch.clamp(
+        s0[:, None] + torch.arange(ngram, device=device), 0, L - 1)]
+    # match[p]: hist[p : p + ngram] == suffix
+    match = torch.ones((b, L - ngram + 1), dtype=torch.bool, device=device)
+    for j in range(ngram):
+        match &= hist[:, j:L - ngram + 1 + j] == suffix[:, j:j + 1]
+    p = torch.arange(L - ngram + 1, device=device)[None, :]
+    # an occurrence must start before the suffix itself
+    valid = match & (p < s0[:, None]) & (s0[:, None] >= 0)
+    best = torch.where(valid, p, -1).amax(1)                # [B]
+    idx = best[:, None] + ngram + torch.arange(draft_len, device=device)
+    vals = hist[rows, torch.clamp(idx, 0, L - 1)]
+    ok = (best[:, None] >= 0) & (idx < hist_len[:, None])
+    return torch.where(ok, vals, pad_id)
+
+
+@torch.inference_mode()
+def generate_speculative(params: dict, cfg: LlamaConfig, *,
+                         inputs_embeds: torch.Tensor,
+                         prompt_ids: torch.Tensor,
+                         attention_mask: Optional[torch.Tensor] = None,
+                         max_new_tokens: int = 128,
+                         eos_id: int = EOS_ID,
+                         pad_id: int = PAD_ID,
+                         draft_len: int = 4,
+                         ngram: int = 2,
+                         cache_dtype: Optional[str] = None,
+                         proposer: str = "ngram",
+                         oracle_tokens: Optional[torch.Tensor] = None,
+                         device="cuda") -> GenerateResult:
+    """Greedy decode with speculative verification: the same tokens as
+    ``generate``'s greedy ones, in fewer forwards.
+
+    Each round drafts ``draft_len`` tokens per row, runs one verify
+    forward over [last token, drafts] (``draft_len + 1`` positions a row,
+    written into the cache at each row's own length) and keeps the longest
+    prefix of drafts that the verify's argmax confirms, plus the verify's
+    next token. The verify's int8 projections are decode-shaped
+    (``decode_rows``): at most 32 rows in all take the matvec kernels, so a
+    round streams the weights once, as a greedy step does.
+
+    ``proposer="ngram"``: prompt lookup over [prompt_ids; generated]
+    (``prompt_ids`` [B, S_p], right-padded text ids: those the fusion
+    consumed). ``proposer="oracle"`` drafts from ``oracle_tokens`` [B,
+    max_new_tokens] (acceptance 1 when they are the greedy tokens).
+    Generated tokens take the RoPE positions that ``generate`` gives them
+    (the row's prompt length on), also for right-padded prompts.
+    ``GenerateResult.num_steps`` counts the verify rounds."""
+    device = resolve_device(device)
+    if inputs_embeds.device.type != device.type:
+        raise ValueError(f"inputs_embeds on {inputs_embeds.device}, "
+                         f"expected {device}")
+    if proposer not in ("ngram", "oracle"):
+        raise ValueError(f"proposer {proposer!r}: 'ngram' or 'oracle'")
+    if proposer == "oracle" and oracle_tokens is None:
+        raise ValueError("proposer='oracle' needs oracle_tokens")
+    b, s, _ = inputs_embeds.shape
+    k = draft_len
+    dtype = inputs_embeds.dtype
+    # the buffer holds a verify's k writes past the last emitted token, so
+    # no write of a live row reaches its end
+    full_mask, prompt_pos, prompt_len, last_valid = _prompt_layout(
+        attention_mask, b, s, max_new_tokens + k, device)
+    valid = llama.valid_vocab(cfg)
+    cache = llama.KVCache.create(cfg, b, s + max_new_tokens + k,
+                                 dtype if cache_dtype is None else cache_dtype,
+                                 device)
+    h = llama.forward_hidden(params, cfg, inputs_embeds,
+                             attention_mask=full_mask, positions=prompt_pos,
+                             kv_cache=cache)
+    rows = torch.arange(b, device=device)
+    tok = llama.logits_from_hidden(params, h[rows, last_valid][:, None],
+                                   valid)[:, 0].argmax(-1)
+
+    # the n-gram corpus: each row's prompt text, then its generated tokens
+    prompt_ids = prompt_ids.to(device=device, dtype=torch.int64)
+    plen = (prompt_ids != pad_id).sum(1)
+    hist = torch.cat([prompt_ids, torch.full((b, max_new_tokens), pad_id,
+                                             dtype=torch.int64,
+                                             device=device)], 1)
+    hist_at = plen[:, None] + torch.arange(max_new_tokens, device=device)
+    if oracle_tokens is not None:
+        oracle_tokens = oracle_tokens.to(device=device, dtype=torch.int64)
+
+    # one column past the budget takes the writes of rejected positions
+    out = torch.full((b, max_new_tokens + 1), pad_id, dtype=torch.int64,
+                     device=device)
+    out[:, 0] = tok
+    n_emit = torch.ones(b, dtype=torch.int64, device=device)
+    row_len = torch.full((b,), s, dtype=torch.int64, device=device)
+    # a row is finished at EOS or at the budget, so this is the only host
+    # read of a round
+    finished = (tok == eos_id) | (max_new_tokens <= 1)
+    steps = torch.arange(k + 1, device=device)[None, :]
+    embed_table = params["embed_tokens"].to(dtype)
+    rounds = 0
+    while not bool(finished.all()):
+        # ---- draft ----
+        if proposer == "oracle":
+            idx = n_emit[:, None] + steps[:, :k]
+            drafts = torch.where(
+                idx < max_new_tokens,
+                oracle_tokens[rows[:, None],
+                              torch.clamp(idx, max=max_new_tokens - 1)],
+                pad_id)
+        else:
+            hist[rows[:, None], hist_at] = out[:, :max_new_tokens]
+            drafts = _ngram_propose(hist, plen + n_emit, k, ngram, pad_id)
+        # ---- verify [tok, d1..dk] ----
+        seq = torch.cat([tok[:, None], drafts], 1)           # [B, k + 1]
+        cache.length = row_len
+        logits = llama.forward(
+            params, cfg, inputs_embeds=embed_table[seq],
+            attention_mask=full_mask,
+            positions=(prompt_len + n_emit - 1)[:, None] + steps,
+            kv_cache=cache, decode_rows=True)
+        t = logits.argmax(-1)                                # [B, k + 1]
+        # ---- accept the longest confirmed prefix; stop at EOS / budget ----
+        accepted = torch.cumprod((drafts == t[:, :k]).to(torch.int64),
+                                 1).sum(1)
+        eos_before = torch.cat(
+            [torch.zeros((b, 1), dtype=torch.bool, device=device),
+             torch.cumsum((t[:, :k] == eos_id).to(torch.int64), 1) > 0], 1)
+        at = n_emit[:, None] + steps
+        vi = ((steps <= accepted[:, None]) & ~eos_before
+              & (at < max_new_tokens) & ~finished[:, None])
+        nv = vi.sum(1)
+        out.scatter_(1, torch.where(vi, at, max_new_tokens), t)
+        n_emit = n_emit + nv
+        last = t[rows, torch.clamp(nv - 1, min=0)]
+        tok = torch.where(finished, tok, last)
+        finished = (finished | (vi & (t == eos_id)).any(1)
+                    | (n_emit >= max_new_tokens))
+        row_len = row_len + nv
+        rounds += 1
+    return GenerateResult(tokens=out[:, :max_new_tokens], num_steps=rounds)

@@ -5,16 +5,20 @@ HF ``CLIPVisionTransformer`` semantics: patch embedding (no bias) + class
 token + learned positions, pre-layernorm, residual blocks
 (LN -> MHA -> res, LN -> MLP(quick_gelu) -> res); the patch tokens are
 projected without the post-layernorm and the CLS token is dropped (the
-reference's ``encode_image``).
+reference's ``encode_image``). ``encode_pooled`` is CLIP's
+``get_image_features``: the post-layernormed CLS token, projected.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
 from macaw_llm_tpu_torch.config import ClipVisionConfig
 from macaw_llm_tpu_torch.models import _tree
 from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
+from macaw_llm_tpu_torch.models.remat import checkpointed
 from macaw_llm_tpu_torch.ops.activations import quick_gelu
 from macaw_llm_tpu_torch.ops.attention import mha_apply
 from macaw_llm_tpu_torch.ops.linear import dense
@@ -75,24 +79,53 @@ def _embeddings(params: dict, cfg: ClipVisionConfig,
 
 
 def _encoder_layer(cfg: ClipVisionConfig, lp: dict, h: torch.Tensor,
-                   use_flash: bool = False) -> torch.Tensor:
+                   use_flash: bool = False,
+                   activation_quant: bool = False) -> torch.Tensor:
+    aq = activation_quant
     ln1 = layer_norm(h, lp["ln1"]["w"], lp["ln1"]["b"], cfg.layer_norm_eps)
-    h = h + mha_apply(lp["attn"], cfg.num_heads, ln1, use_flash=use_flash)
+    h = h + mha_apply(lp["attn"], cfg.num_heads, ln1, use_flash=use_flash,
+                      activation_quant=aq)
     ln2 = layer_norm(h, lp["ln2"]["w"], lp["ln2"]["b"], cfg.layer_norm_eps)
-    m = quick_gelu(dense(ln2, lp["mlp"]["fc1"]["w"], lp["mlp"]["fc1"]["b"]))
-    m = dense(m, lp["mlp"]["fc2"]["w"], lp["mlp"]["fc2"]["b"])
+    m = quick_gelu(dense(ln2, lp["mlp"]["fc1"]["w"], lp["mlp"]["fc1"]["b"],
+                         aq))
+    m = dense(m, lp["mlp"]["fc2"]["w"], lp["mlp"]["fc2"]["b"], aq)
     return h + m
 
 
-def encode_patches(params: dict, cfg: ClipVisionConfig,
-                   pixels: torch.Tensor,
-                   use_flash: bool = False) -> torch.Tensor:
-    """pixels [B, 3, H, W] -> projected patch tokens [B, P,
-    projection_dim] (CLS dropped)."""
+def _encode(params: dict, cfg: ClipVisionConfig, pixels: torch.Tensor,
+            use_flash: bool, remat, activation_quant: bool) -> torch.Tensor:
+    """pixels -> the last layer's hidden states [B, 1 + P, hidden]."""
     h = _embeddings(params, cfg, pixels)
     h = layer_norm(h, params["pre_layernorm"]["w"],
                    params["pre_layernorm"]["b"], cfg.layer_norm_eps)
     layers = params["layers"]
     for i in range(num_layers(layers)):
-        h = _encoder_layer(cfg, layer(layers, i), h, use_flash=use_flash)
-    return dense(h, params["visual_projection"])[:, 1:, :]
+        fn = partial(_encoder_layer, cfg, layer(layers, i),
+                     use_flash=use_flash, activation_quant=activation_quant)
+        h = checkpointed(fn, remat, h)
+    return h
+
+
+def encode_patches(params: dict, cfg: ClipVisionConfig,
+                   pixels: torch.Tensor, use_flash: bool = False,
+                   remat=False, activation_quant: bool = False
+                   ) -> torch.Tensor:
+    """pixels [B, 3, H, W] -> projected patch tokens [B, P,
+    projection_dim] (CLS dropped). ``remat`` (False, True, "nothing" or
+    "dots", ``models.remat``) checkpoints each layer while the tower takes
+    a gradient; ``activation_quant`` sends int8 records to W8A8."""
+    h = _encode(params, cfg, pixels, use_flash, remat, activation_quant)
+    return dense(h, params["visual_projection"], None,
+                 activation_quant)[:, 1:, :]
+
+
+def encode_pooled(params: dict, cfg: ClipVisionConfig,
+                  pixels: torch.Tensor, remat=False,
+                  activation_quant: bool = False) -> torch.Tensor:
+    """pixels [B, 3, H, W] -> [B, projection_dim]: the post-layernormed
+    CLS token through visual_projection (the reference package runs these
+    layers without the flash path)."""
+    h = _encode(params, cfg, pixels, False, remat, activation_quant)
+    cls = layer_norm(h[:, 0], params["post_layernorm"]["w"],
+                     params["post_layernorm"]["b"], cfg.layer_norm_eps)
+    return dense(cls, params["visual_projection"], None, activation_quant)

@@ -11,11 +11,11 @@ matrix as keys/values) and the prefix splice:
 with IGNORE_ID over the prefix, the LLaMA stack (remat and LoRA from the
 config and arguments) and the loss, chunked when ``cfg.loss_chunk`` > 0.
 A ``dropout_rng`` (a CPU ``torch.Generator``) turns on the alignment and
-video-long attention dropout. A tower whose parameters take no gradient
-(frozen) runs under ``torch.no_grad()``.
-
-Not ported yet: ``encode_video_simple`` (unused by the reference's forward)
-and Whisper LayerDrop (off in the reference's configuration).
+video-long attention dropout and Whisper's LayerDrop. A tower whose
+parameters take no gradient (frozen) runs under ``torch.no_grad()``.
+``video_mode="simple"`` selects ``encode_video_simple`` (one pooled CLIP
+feature a frame and a temporal attention over the frames) in place of the
+reference forward's ``encode_video_long``.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 from macaw_llm_tpu_torch.config import (AUDIO_END, AUDIO_START, IGNORE_ID,
                                         IMAGE_END, IMAGE_START, ModelConfig,
                                         VIDEO_END, VIDEO_START)
-from macaw_llm_tpu_torch.models import clip, llama, whisper
+from macaw_llm_tpu_torch.models import _tree, clip, llama, whisper
 from macaw_llm_tpu_torch.models._tree import normal, uniform, zeros
 from macaw_llm_tpu_torch.ops.attention import (
     pack_mha, shared_kv_project, torch_mha_apply,
@@ -94,7 +94,7 @@ def init_params(seed: int, cfg: ModelConfig, *, dtype=torch.bfloat16,
         return {"w": uniform(gen, (kernel, ch, ch), lim, dtype),
                 "b": uniform(gen, (ch,), lim, dtype)}
 
-    return {
+    params = {
         "image_encoder": clip.init_params(gen, cfg.vision, dtype),
         "video_encoder": clip.init_params(gen, cfg.vision, dtype),
         "audio_encoder": whisper.init_params(gen, cfg.audio, dtype),
@@ -111,6 +111,12 @@ def init_params(seed: int, cfg: ModelConfig, *, dtype=torch.bfloat16,
                      "audio": conv1d(dm, cfg.fusion.audio_conv_kernel)},
         },
     }
+    # encode_video_simple's leaves, drawn after every other leaf so that a
+    # seed gives the rest of the tree the same weights as without them
+    params["fusion"].update(
+        temporal_attn=_torch_mha_init(gen, pd, dtype),
+        temporal_pos_emb=normal(gen, (cfg.fusion.n_frames, pd), 1.0, dtype))
+    return params
 
 
 def sinusoidal_pe(length: int, dim: int, dtype=torch.float32,
@@ -127,18 +133,26 @@ def sinusoidal_pe(length: int, dim: int, dtype=torch.float32,
     return pe.to(dtype)
 
 
-def encode_image(params: dict, cfg: ModelConfig,
-                 images: torch.Tensor) -> torch.Tensor:
+def _remat(cfg: ModelConfig):
+    """The remat policy of every stack: ``cfg.remat_policy`` under
+    ``cfg.remat``, else False."""
+    return cfg.remat_policy if cfg.remat else False
+
+
+def encode_image(params: dict, cfg: ModelConfig, images: torch.Tensor,
+                 activation_quant: bool = False) -> torch.Tensor:
     """[B, 3, H, W] -> [B, P, projection_dim]."""
     with _frozen(params["image_encoder"]):
         return clip.encode_patches(params["image_encoder"], cfg.vision,
-                                   images, use_flash=cfg.tower_flash)
+                                   images, use_flash=cfg.tower_flash,
+                                   remat=_remat(cfg),
+                                   activation_quant=activation_quant)
 
 
 def encode_video_long(params: dict, cfg: ModelConfig,
                       videos: torch.Tensor,
-                      dropout_rng: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      dropout_rng: Optional[torch.Generator] = None,
+                      activation_quant: bool = False) -> torch.Tensor:
     """[B, F, 3, H, W] -> [B, F*P, projection_dim]: per-frame patch tokens
     concatenated over frames, the sinusoidal PE, one self-attention (with
     attention dropout when ``dropout_rng`` is given)."""
@@ -146,7 +160,9 @@ def encode_video_long(params: dict, cfg: ModelConfig,
     frames = videos.reshape((b * f,) + tuple(videos.shape[2:]))
     with _frozen(params["video_encoder"]):
         feats = clip.encode_patches(params["video_encoder"], cfg.vision,
-                                    frames, use_flash=cfg.tower_flash)
+                                    frames, use_flash=cfg.tower_flash,
+                                    remat=_remat(cfg),
+                                    activation_quant=activation_quant)
     feats = feats.reshape(b, f * feats.shape[1], feats.shape[2])
     feats = feats + sinusoidal_pe(feats.shape[1], feats.shape[2],
                                   feats.dtype, feats.device)[None]
@@ -158,17 +174,56 @@ def encode_video_long(params: dict, cfg: ModelConfig,
                            use_flash=cfg.tower_flash)
 
 
-def encode_audio(params: dict, cfg: ModelConfig,
-                 audios: torch.Tensor) -> torch.Tensor:
-    """[B, 80, 3000] -> [B, 1500, d_model]."""
+def encode_video_simple(params: dict, cfg: ModelConfig,
+                        videos: torch.Tensor,
+                        dropout_rng: Optional[torch.Generator] = None,
+                        activation_quant: bool = False) -> torch.Tensor:
+    """[B, F, 3, H, W] -> [B, F, projection_dim]: the reference's pooled
+    ``encode_video`` (CLIP's ``get_image_features``: the post-layernormed
+    CLS token through visual_projection, one per frame), plus a learned
+    temporal position embedding, then a self-attention over the frames
+    (with attention dropout when ``dropout_rng`` is given)."""
+    b, f = videos.shape[:2]
+    frames = videos.reshape((b * f,) + tuple(videos.shape[2:]))
+    with _frozen(params["video_encoder"]):
+        pooled = clip.encode_pooled(params["video_encoder"], cfg.vision,
+                                    frames, remat=_remat(cfg),
+                                    activation_quant=activation_quant)
+    pos = params["fusion"]["temporal_pos_emb"].to(pooled.dtype)
+    pooled = pooled + pos[torch.arange(f, device=pos.device).repeat(b)]
+    feats = pooled.reshape(b, f, pooled.shape[-1])
+    return torch_mha_apply(params["fusion"]["temporal_attn"],
+                           cfg.fusion.attention_heads, feats, feats, feats,
+                           add_zero_attn=True,
+                           dropout_rate=cfg.fusion.align_dropout,
+                           dropout_rng=dropout_rng)
+
+
+def encode_audio(params: dict, cfg: ModelConfig, audios: torch.Tensor,
+                 dropout_rng: Optional[torch.Generator] = None,
+                 activation_quant: bool = False) -> torch.Tensor:
+    """[B, 80, 3000] -> [B, 1500, d_model]. With ``dropout_rng`` and
+    ``cfg.audio.encoder_layerdrop`` > 0, Whisper's LayerDrop: the keep
+    vector is drawn here on the host from ``dropout_rng``."""
+    keep = None
+    if dropout_rng is not None and cfg.audio.encoder_layerdrop > 0.0:
+        n = _tree.num_layers(params["audio_encoder"]["layers"])
+        keep = whisper.layerdrop_keep(dropout_rng, n,
+                                      cfg.audio.encoder_layerdrop)
     with _frozen(params["audio_encoder"]):
         return whisper.encode(params["audio_encoder"], cfg.audio, audios,
-                              use_flash=cfg.tower_flash)
+                              use_flash=cfg.tower_flash,
+                              remat=_remat(cfg), layer_keep=keep,
+                              activation_quant=activation_quant)
 
 
 def _conv_downsample(p: dict, x: torch.Tensor, stride: int) -> torch.Tensor:
     """Channel-preserving VALID Conv1d over the sequence axis, [B, L, C]
-    -> [B, L', C], WIO kernel."""
+    -> [B, L', C], WIO kernel. A sequence shorter than the kernel has no
+    output position (L' = 0, as in the reference package): the pooled
+    video's F frames against the 7b video kernel of 36."""
+    if x.shape[1] < p["w"].shape[0]:
+        return x.new_zeros((x.shape[0], 0, p["w"].shape[2]))
     return whisper.conv1d_nwc(x, p["w"], stride, 0) + p["b"].to(x.dtype)
 
 
@@ -285,16 +340,23 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
                    attention_mask: Optional[torch.Tensor] = None,
                    labels: Optional[torch.Tensor] = None,
                    dropout_rng: Optional[torch.Generator] = None,
-                   align_cache: Optional[dict] = None) -> FusedBatch:
+                   video_mode: str = "long",
+                   align_cache: Optional[dict] = None,
+                   activation_quant: bool = False) -> FusedBatch:
     """Fused embeddings, the mask extended with ones and the labels with
     IGNORE_ID over the prefix. Raw media are featurized here: waveforms
     [B, samples] -> log-mel, uint8 frames [.., H, W, 3] -> CLIP pixels.
 
     ``dropout_rng`` (training) turns on the attention dropout of the
-    alignments and the video-long attention. Training with an
-    ``align_cache`` freezes the align K/V projections: the cache is a
-    constant, so the in-proj K/V rows and bias_k/bias_v take no gradient.
+    alignments and the video attention, and Whisper's LayerDrop. Training
+    with an ``align_cache`` freezes the align K/V projections: the cache is
+    a constant, so the in-proj K/V rows and bias_k/bias_v take no gradient.
+    ``video_mode``: "long" (``encode_video_long``) or "simple"
+    (``encode_video_simple``). ``activation_quant`` sends the towers' int8
+    records (``utils.quantize.quantize_towers``) to W8A8.
     """
+    if video_mode not in ("long", "simple"):
+        raise ValueError(f"video_mode {video_mode!r}: 'long' or 'simple'")
     bids = {"image": (IMAGE_START, IMAGE_END),
             "audio": (AUDIO_START, AUDIO_END),
             "video": (VIDEO_START, VIDEO_END)}
@@ -336,15 +398,19 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
         blocks.append(torch.cat([_boundary(lp, bids[mod][0], b, compute), x,
                                  _boundary(lp, bids[mod][1], b, compute)], 1))
 
+    aq = activation_quant
     if images is not None:
-        add_block("image", encode_image(params, cfg, images.to(compute)),
+        add_block("image", encode_image(params, cfg, images.to(compute), aq),
                   cfg.fusion.image_conv_stride)
     if audios is not None:
-        add_block("audio", encode_audio(params, cfg, audios.to(compute)),
+        add_block("audio", encode_audio(params, cfg, audios.to(compute),
+                                        dropout_rng, aq),
                   cfg.fusion.audio_conv_stride)
     if videos is not None:
-        add_block("video", encode_video_long(params, cfg, videos.to(compute),
-                                             dropout_rng),
+        encode_video = encode_video_long if video_mode == "long" \
+            else encode_video_simple
+        add_block("video", encode_video(params, cfg, videos.to(compute),
+                                        dropout_rng, aq),
                   cfg.fusion.video_conv_stride)
     prefix_len = sum(blk.shape[1] for blk in blocks)
 
@@ -368,18 +434,21 @@ def forward(params: dict, cfg: ModelConfig, *,
             attention_mask: Optional[torch.Tensor] = None,
             labels: Optional[torch.Tensor] = None,
             dropout_rng: Optional[torch.Generator] = None,
+            video_mode: str = "long",
             lora_scale: float = 1.0,
             align_cache: Optional[dict] = None):
     """Training forward: fuse, run the LLaMA stack over the fused
     embeddings, return (loss, logits). With ``cfg.loss_chunk`` > 0 and
     labels the loss comes from the hidden states in chunks and logits is
-    None (no [B, S, V] fp32 tensor)."""
+    None (no [B, S, V] fp32 tensor). ``cfg.remat`` checkpoints every
+    decoder and tower layer under ``cfg.remat_policy``."""
     batch = prepare_inputs(params, cfg, input_ids=input_ids, images=images,
                            audios=audios, videos=videos,
                            attention_mask=attention_mask, labels=labels,
-                           dropout_rng=dropout_rng, align_cache=align_cache)
+                           dropout_rng=dropout_rng, video_mode=video_mode,
+                           align_cache=align_cache)
     kw = dict(attention_mask=batch.attention_mask, use_flash=cfg.use_flash,
-              remat=cfg.remat, lora_scale=lora_scale)
+              remat=_remat(cfg), lora_scale=lora_scale)
     if cfg.loss_chunk > 0 and batch.labels is not None:
         h = llama.forward_hidden(params["llm"], cfg.llm, batch.inputs_embeds,
                                  **kw)

@@ -16,7 +16,7 @@ leading [L] axis (the JAX ``lax.scan`` becomes a Python loop over L),
   padding mask.
 
 Training: LoRA adapters on q and v (``params["layers"]["lora"]``), remat
-per decoder layer (``torch.utils.checkpoint``, non-reentrant), the shifted
+per decoder layer (``models.remat``: policy "nothing" or "dots"), the shifted
 cross-entropy ``clm_loss`` and its chunked form ``clm_loss_chunked``, which
 never holds the [B, S, V] fp32 logits. The attention kernels and int8
 matmuls are differentiable in their activations.
@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from macaw_llm_tpu_torch.config import IGNORE_ID, LlamaConfig
 from macaw_llm_tpu_torch.models import _tree
 from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
+from macaw_llm_tpu_torch.models.remat import checkpointed
 from macaw_llm_tpu_torch.ops.activations import silu
 from macaw_llm_tpu_torch.ops.attention import (dot_product_attention,
                                                dot_product_attention_quant)
@@ -125,12 +126,14 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
                cache: Optional[KVCache], write_at, li: int,
                flash_bias: Optional[torch.Tensor], use_flash: bool,
                activation_quant: bool, lora: Optional[dict] = None,
-               lora_scale: float = 1.0) -> torch.Tensor:
+               lora_scale: float = 1.0,
+               decode_rows: bool = False) -> torch.Tensor:
     b, s, _ = h.shape
     n, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     compute = h.dtype
     mm = lambda x, w: qz.matmul(x, w, compute,  # noqa: E731
-                                activation_quant=activation_quant)
+                                activation_quant=activation_quant,
+                                decode_rows=decode_rows)
     if "qkv" in p:  # packed decode layout
         if lora is not None:
             raise ValueError("the packed qkv layout takes no LoRA adapters")
@@ -195,11 +198,13 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
     return mm(out.reshape(b, s, n * d), p["wo"])
 
 
-def _mlp(p: dict, h: torch.Tensor, activation_quant: bool) -> torch.Tensor:
+def _mlp(p: dict, h: torch.Tensor, activation_quant: bool,
+         decode_rows: bool = False) -> torch.Tensor:
     """SwiGLU: down(silu(gate(x)) * up(x))."""
     c = h.dtype
     mm = lambda x, w: qz.matmul(x, w, c,  # noqa: E731
-                                activation_quant=activation_quant)
+                                activation_quant=activation_quant,
+                                decode_rows=decode_rows)
     if "gateup" in p:  # packed decode layout
         gu = mm(h, p["gateup"])
         i = gu.shape[-1] // 2
@@ -211,14 +216,15 @@ def _decoder_layer(cfg: LlamaConfig, lp: dict, h: torch.Tensor, mask, cos,
                    sin, kv_cache: Optional[KVCache], write_at, li: int,
                    flash_bias,
                    use_flash: bool, activation_quant: bool,
-                   lora_scale: float) -> torch.Tensor:
+                   lora_scale: float, decode_rows: bool = False
+                   ) -> torch.Tensor:
     """Pre-norm attention + residual, pre-norm SwiGLU + residual."""
     x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
     h = h + _attention(cfg, lp["attn"], x, mask, cos, sin, kv_cache,
                        write_at, li, flash_bias, use_flash, activation_quant,
-                       lp.get("lora"), lora_scale)
+                       lp.get("lora"), lora_scale, decode_rows)
     x = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
-    return h + _mlp(lp["mlp"], x, activation_quant)
+    return h + _mlp(lp["mlp"], x, activation_quant, decode_rows)
 
 
 def embed(params: dict, input_ids: torch.Tensor,
@@ -237,8 +243,9 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
                    kv_cache: Optional[KVCache] = None,
                    use_flash: bool = False,
                    activation_quant: bool = False,
-                   remat: bool = False,
-                   lora_scale: float = 1.0) -> torch.Tensor:
+                   remat=False,
+                   lora_scale: float = 1.0,
+                   decode_rows: bool = False) -> torch.Tensor:
     """Decoder stack over ``inputs_embeds`` [B, S, H] -> final-normed hidden
     states [B, S, H].
 
@@ -250,9 +257,13 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     that has already finished can reach, is written to the last one
     instead, where no live query looks) and sees the keys up to there.
     ``activation_quant``
-    turns on W8A8 for int8 weights at >= 256 rows. ``remat`` checkpoints
-    each decoder layer (training without a cache): the backward recomputes
-    the layer, int8 dequantization included, and keeps only its input.
+    turns on W8A8 for int8 weights at >= 256 rows. ``remat`` (False, True
+    or a policy of ``models.remat``) checkpoints each decoder layer
+    (training without a cache): the backward recomputes the layer, int8
+    dequantization included, and keeps its input ("nothing") or its input
+    and its matmul outputs ("dots"). ``decode_rows`` marks every position
+    as decode-shaped (the speculative verify): int8 projections of at most
+    32 rows in all take the matvec kernels.
     """
     if remat and kv_cache is not None:
         raise ValueError("remat is for the no-cache (training) path")
@@ -304,21 +315,19 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     for li in range(num_layers(layers)):
         lp = layer(layers, li)
         args = (mask, cos, sin, kv_cache, write_at, li, flash_bias,
-                use_kernel, activation_quant, lora_scale)
-        if remat:
-            h = checkpoint(partial(_decoder_layer, cfg, lp), h, *args,
-                           use_reentrant=False)
-        else:
-            h = _decoder_layer(cfg, lp, h, *args)
+                use_kernel, activation_quant, lora_scale, decode_rows)
+        h = checkpointed(partial(_decoder_layer, cfg, lp), remat, h, *args)
     if kv_cache is not None:
         kv_cache.length = kv_cache.length + s
     return rms_norm(h, params["norm"].to(h.dtype), cfg.rms_norm_eps)
 
 
 def logits_from_hidden(params: dict, h: torch.Tensor,
-                       valid: Optional[int] = None) -> torch.Tensor:
+                       valid: Optional[int] = None,
+                       decode_rows: bool = False) -> torch.Tensor:
     """CLM head, fp32 logits; ``valid`` masks padded vocab columns."""
-    logits = qz.matmul(h, params["lm_head"], h.dtype).float()
+    logits = qz.matmul(h, params["lm_head"], h.dtype,
+                       decode_rows=decode_rows).float()
     return _mask_padded_vocab(logits, valid)
 
 
@@ -344,8 +353,9 @@ def forward(params: dict, cfg: LlamaConfig,
             use_flash: bool = False,
             activation_quant: bool = False,
             dtype=torch.float32,
-            remat: bool = False,
-            lora_scale: float = 1.0) -> torch.Tensor:
+            remat=False,
+            lora_scale: float = 1.0,
+            decode_rows: bool = False) -> torch.Tensor:
     """Full CLM forward -> logits [B, S, V] fp32. Takes token ids or
     embeddings, never both."""
     if (input_ids is None) == (inputs_embeds is None):
@@ -354,8 +364,8 @@ def forward(params: dict, cfg: LlamaConfig,
         inputs_embeds = embed(params, input_ids, dtype)
     h = forward_hidden(params, cfg, inputs_embeds, attention_mask, positions,
                        kv_cache, use_flash, activation_quant, remat,
-                       lora_scale)
-    return logits_from_hidden(params, h, valid_vocab(cfg))
+                       lora_scale, decode_rows)
+    return logits_from_hidden(params, h, valid_vocab(cfg), decode_rows)
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor):

@@ -1,12 +1,21 @@
-"""Whisper audio encoder (counterpart of ``macaw_llm_tpu/models/whisper.py``,
-eval path: LayerDrop is a training-only skip and is not ported).
+"""Whisper audio encoder (counterpart of ``macaw_llm_tpu/models/whisper.py``).
 
 HF WhisperEncoder: Conv1d(80 -> d, k=3, p=1) + GELU, Conv1d(d -> d, k=3,
 s=2, p=1) + GELU, learned positions, pre-norm layers, final LayerNorm.
 Conv weights keep the reference package's WIO layout [k, in, out].
+
+Training-only LayerDrop skips each layer with probability
+``encoder_layerdrop``, one draw per layer for the whole batch (the
+reference's ``modeling.py:766-768``). The keep vector is drawn on the host
+(``layerdrop_keep``, from a CPU generator), so a dropped layer is a Python
+branch that launches nothing, and the card and the CPU drop the same
+layers.
 """
 
 from __future__ import annotations
+
+from functools import partial
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -14,6 +23,7 @@ import torch.nn.functional as F
 from macaw_llm_tpu_torch.config import WhisperConfig
 from macaw_llm_tpu_torch.models import _tree
 from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
+from macaw_llm_tpu_torch.models.remat import checkpointed
 from macaw_llm_tpu_torch.ops.activations import gelu
 from macaw_llm_tpu_torch.ops.attention import mha_apply
 from macaw_llm_tpu_torch.ops.linear import dense
@@ -65,27 +75,51 @@ def _conv1d(p: dict, x: torch.Tensor, stride: int) -> torch.Tensor:
 
 
 def _encoder_layer(cfg: WhisperConfig, lp: dict, h: torch.Tensor,
-                   use_flash: bool = False) -> torch.Tensor:
+                   use_flash: bool = False,
+                   activation_quant: bool = False) -> torch.Tensor:
+    aq = activation_quant
     ln = layer_norm(h, lp["self_attn_ln"]["w"], lp["self_attn_ln"]["b"],
                     cfg.layer_norm_eps)
     h = h + mha_apply(lp["attn"], cfg.encoder_attention_heads, ln,
-                      use_flash=use_flash)
+                      use_flash=use_flash, activation_quant=aq)
     ln = layer_norm(h, lp["final_ln"]["w"], lp["final_ln"]["b"],
                     cfg.layer_norm_eps)
-    m = gelu(dense(ln, lp["mlp"]["fc1"]["w"], lp["mlp"]["fc1"]["b"]))
-    m = dense(m, lp["mlp"]["fc2"]["w"], lp["mlp"]["fc2"]["b"])
+    m = gelu(dense(ln, lp["mlp"]["fc1"]["w"], lp["mlp"]["fc1"]["b"], aq))
+    m = dense(m, lp["mlp"]["fc2"]["w"], lp["mlp"]["fc2"]["b"], aq)
     return h + m
 
 
+def layerdrop_keep(rng: torch.Generator, n_layers: int,
+                   rate: float) -> list:
+    """LayerDrop's keep vector: one uniform draw a layer from the CPU
+    generator ``rng``, kept when it is >= ``rate``."""
+    u = torch.rand(n_layers, generator=rng)
+    return (u >= rate).tolist()
+
+
 def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
-           use_flash: bool = False) -> torch.Tensor:
-    """mel [B, 80, 3000] -> [B, 1500, d_model]."""
+           use_flash: bool = False, remat=False,
+           layer_keep: Optional[Sequence[bool]] = None,
+           activation_quant: bool = False) -> torch.Tensor:
+    """mel [B, 80, 3000] -> [B, 1500, d_model]. ``remat`` (False, True,
+    "nothing" or "dots", ``models.remat``) checkpoints each layer while the
+    tower takes a gradient; ``layer_keep`` (one bool a layer, LayerDrop)
+    skips the layers it marks False; ``activation_quant`` sends int8
+    records to W8A8."""
     x = mel.transpose(1, 2)
     x = gelu(_conv1d(params["conv1"], x, 1))
     x = gelu(_conv1d(params["conv2"], x, 2))  # 3000 -> 1500
     x = x + params["embed_positions"].to(x.dtype)[None, :x.shape[1]]
     layers = params["layers"]
-    for i in range(num_layers(layers)):
-        x = _encoder_layer(cfg, layer(layers, i), x, use_flash=use_flash)
+    n = num_layers(layers)
+    if layer_keep is not None and len(layer_keep) != n:
+        raise ValueError(f"layer_keep has {len(layer_keep)} entries for "
+                         f"{n} layers")
+    for i in range(n):
+        if layer_keep is not None and not layer_keep[i]:
+            continue
+        fn = partial(_encoder_layer, cfg, layer(layers, i),
+                     use_flash=use_flash, activation_quant=activation_quant)
+        x = checkpointed(fn, remat, x)
     return layer_norm(x, params["layer_norm"]["w"], params["layer_norm"]["b"],
                       cfg.layer_norm_eps)

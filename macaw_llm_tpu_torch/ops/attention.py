@@ -99,18 +99,19 @@ def pack_mha(params: dict) -> dict:
     return {"qkv": packed, "o": params["o"]}
 
 
-def _proj(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return dense(x, p["w"], p.get("b"))
-
-
 def mha_apply(params: dict, num_heads: int, q_in: torch.Tensor,
               kv_in: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None,
-              use_flash: bool = False) -> torch.Tensor:
+              use_flash: bool = False,
+              activation_quant: bool = False) -> torch.Tensor:
     """Self- or cross-attention with per-projection weights, [B, S, E]
     in/out. use_flash sends unmasked attention over >= 1024 keys (Whisper's
     1500 frames) to the flash kernel; shorter sequences (CLIP's 197
-    tokens) stay on the einsum path, as in the reference package."""
+    tokens) stay on the einsum path, as in the reference package.
+    ``activation_quant``: W8A8 for int8 projection records."""
+    def _proj(p: dict, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, p["w"], p.get("b"), activation_quant)
+
     if "qkv" in params:
         if kv_in is not None and kv_in is not q_in:
             raise ValueError("packed qkv layout is self-attention only")

@@ -9,15 +9,17 @@ import torch
 from macaw_llm_tpu_torch.utils import quantize as qz
 
 
-def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
-          ) -> torch.Tensor:
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
+          activation_quant: bool = False) -> torch.Tensor:
     """``x @ w + b`` over x [..., E]; w is [E, F] or an int8 record
-    {"q", "s"} (utils.quantize); b is [F] or None -> [..., F]."""
+    {"q", "s"} (utils.quantize: W8A8 at >= 256 rows under
+    ``activation_quant``, else weight-only); b is [F] or None ->
+    [..., F]."""
     shape = x.shape
     if x.dim() > 2:
         x = x.reshape(-1, shape[-1])
     if qz.is_record(w):
-        y = qz.matmul(x, w, x.dtype)
+        y = qz.matmul(x, w, x.dtype, activation_quant=activation_quant)
     else:
         y = x @ w.to(x.dtype)
     if b is not None:

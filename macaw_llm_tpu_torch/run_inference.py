@@ -51,8 +51,8 @@ def parse_args(argv=None):
     p.add_argument("--max-new-tokens", type=int, default=None)
     p.add_argument("--num-beams", type=int, default=1)
     p.add_argument("--speculative", type=int, default=0, metavar="K",
-                   help="prompt-lookup speculative decoding (not ported "
-                        "yet: K > 0 raises)")
+                   help="prompt-lookup speculative decoding: K draft "
+                        "tokens a verify round (0 = plain greedy)")
     p.add_argument("--output-dir", type=str, default="eval_outputs")
     p.add_argument("--align-cache", default="bf16",
                    choices=["bf16", "int8", "off"],

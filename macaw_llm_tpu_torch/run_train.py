@@ -3,9 +3,10 @@ config from a JSON file or flags, dataset cache or JSONL stream in, the
 epoch loop with gradient accumulation, periodic eval and checkpoints,
 resume, SIGTERM/SIGINT checkpoint-and-exit, ``metrics.jsonl``.
 
-Runs on one device, the GPU unless ``--device cpu`` is given. HF weight
-import (``--llama-weights`` etc.) is not ported yet: the model starts from
-random weights made from ``train.seed``.
+Runs on one device, the GPU unless ``--device cpu`` is given. The model
+starts from random weights made from ``train.seed``; ``--llama-weights``,
+``--clip-weights`` and ``--whisper-weights`` load HF checkpoints over
+them.
 
 Usage:
     python -m macaw_llm_tpu_torch.run_train --config cfg.json \\
@@ -60,7 +61,8 @@ def parse_args(argv=None):
     p.add_argument("--tokenizer", type=str, default=None)
     p.add_argument("--output-dir", type=str, default="checkpoints")
     p.add_argument("--llama-weights", type=str, default=None,
-                   help="HF LLaMA checkpoint dir (not ported yet)")
+                   help="HF LLaMA checkpoint dir (safetensors, a sharded "
+                        "index or pytorch_model.bin)")
     p.add_argument("--clip-weights", type=str, default=None)
     p.add_argument("--whisper-weights", type=str, default=None)
     p.add_argument("--epochs", type=int, default=None)
@@ -93,16 +95,35 @@ def parse_args(argv=None):
 
 
 def load_pretrained(cfg: Config, args) -> dict:
-    """The fusion model's random weights from ``train.seed`` in
-    ``model.param_dtype`` on ``args.device``. Pretrained towers and LLaMA
-    (the weight flags) need HF import, which is not ported yet."""
-    for flag in ("llama_weights", "clip_weights", "whisper_weights"):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')}: HF weight import "
-                             "is not ported yet (ROADMAP A3)")
-    return fusion.init_params(cfg.train.seed, cfg.model,
-                              dtype=getattr(torch, cfg.model.param_dtype),
-                              device=args.device)
+    """The fusion model in ``model.param_dtype`` on ``args.device``: random
+    weights from ``train.seed``, with the pretrained LLaMA (its vocab
+    resized to ``vocab_size`` and padded to ``vocab_pad_to``), CLIP (both
+    the image and the video tower) and Whisper of the weight flags (HF
+    checkpoint dirs: a sharded safetensors index, safetensors files or a
+    ``pytorch_model.bin``)."""
+    from macaw_llm_tpu_torch.utils import hf_import
+    from macaw_llm_tpu_torch.utils.safetensors_io import load_checkpoint_dir
+    dtype = getattr(torch, cfg.model.param_dtype)
+    kw = dict(dtype=dtype, device=args.device)
+    params = fusion.init_params(cfg.train.seed, cfg.model, **kw)
+    m = cfg.model
+    if args.llama_weights:
+        llm = hf_import.import_llama(load_checkpoint_dir(args.llama_weights),
+                                     m.llm, **kw)
+        llm = hf_import.resize_token_embeddings(llm, m.llm.vocab_size)
+        if m.llm.padded_vocab > m.llm.vocab_size:
+            llm = hf_import.pad_vocab(llm, m.llm.padded_vocab)
+        params["llm"] = llm
+    if args.clip_weights:
+        sd = load_checkpoint_dir(args.clip_weights)
+        params["image_encoder"] = hf_import.import_clip_vision(sd, m.vision,
+                                                               **kw)
+        params["video_encoder"] = hf_import.import_clip_vision(sd, m.vision,
+                                                               **kw)
+    if args.whisper_weights:
+        params["audio_encoder"] = hf_import.import_whisper_encoder(
+            load_checkpoint_dir(args.whisper_weights), m.audio, **kw)
+    return params
 
 
 def synthetic_dataset(cfg: Config, n: int = 64,

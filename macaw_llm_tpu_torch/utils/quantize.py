@@ -1,4 +1,5 @@
-"""Int8 quantization of the LLaMA weights for serving.
+"""Int8 quantization of the LLaMA weights and the encoder towers for
+serving.
 
 Counterpart of ``macaw_llm_tpu/utils/quantize.py``: symmetric
 per-output-channel int8 records {"q": int8 [.., in, out], "s": fp32
@@ -7,7 +8,10 @@ per-output-channel int8 records {"q": int8 [.., in, out], "s": fp32
 * single-row decode (x [B, 1, K]) -> a matvec kernel picked by the row
   count B: up to 8 rows ``matvec_int8`` (8 rows per block), 9 to 32 rows
   ``matvec_int8_pipelined`` (all rows against each weight tile, every
-  weight byte read once); more than 32 rows raise;
+  weight byte read once); more than 32 rows raise. A caller whose
+  positions are all decode-shaped (``decode_rows=True``: the speculative
+  verify's [B, k + 1, K]) takes the same kernels over its B * (k + 1)
+  flattened rows while they are at most 32;
 * W8A8 (``activation_quant=True``, >= 256 rows): per-token int8
   activations x int8 weights through ``torch._int_mm``, both scales
   applied after the integer dot;
@@ -37,6 +41,7 @@ from macaw_llm_tpu_torch.ops.kernels.matvec import (matvec_int8,
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 ACT_QUANT_MIN_ROWS = 256
 MATVEC_MAX_ROWS = 8  # single-row calls above this go to the pipelined kernel
+PIPELINED_MAX_ROWS = 32  # decode_rows calls above this keep the GEMM routes
 
 
 def is_record(w) -> bool:
@@ -102,6 +107,39 @@ def pack_llama_for_decode(params: dict) -> dict:
     mlp["gateup"] = cat(mlp.pop("gate"), mlp.pop("up"))
     layers["mlp"] = mlp
     out["layers"] = layers
+    return out
+
+
+def quantize_towers(params: dict) -> dict:
+    """The CLIP and Whisper towers' projections as int8 records for the
+    W8A8 prefill: attention q/k/v/o (or the packed qkv), MLP fc1/fc2 and
+    CLIP's visual_projection, stacked [L, in, out] weights one layer at a
+    time. Conv front ends, embeddings and norms stay as they are. The
+    towers' projections run thousands of rows a call, past the W8A8 gate,
+    so with ``activation_quant`` every one takes ``torch._int_mm``."""
+    def record(w: torch.Tensor) -> dict:
+        qv, sv = quantize_tensor(w)
+        return {"q": qv, "s": sv}
+
+    def proj(p: dict) -> dict:
+        return dict(p, w=record(p["w"]))
+
+    def tower(t: dict) -> dict:
+        out = dict(t)
+        layers = dict(t["layers"])
+        layers["attn"] = {k: proj(v) if isinstance(v, dict) and "w" in v
+                          else v for k, v in layers["attn"].items()}
+        layers["mlp"] = dict(layers["mlp"], fc1=proj(layers["mlp"]["fc1"]),
+                             fc2=proj(layers["mlp"]["fc2"]))
+        out["layers"] = layers
+        if "visual_projection" in out:
+            out["visual_projection"] = record(out["visual_projection"])
+        return out
+
+    out = dict(params)
+    for name in ("image_encoder", "video_encoder", "audio_encoder"):
+        if name in out:
+            out[name] = tower(out[name])
     return out
 
 
@@ -174,20 +212,24 @@ class _Int8Matmul(torch.autograd.Function):
 
 def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
            activation_quant: bool = False,
-           decode_kernel: bool = True) -> torch.Tensor:
+           decode_kernel: bool = True,
+           decode_rows: bool = False) -> torch.Tensor:
     """x [..., K] @ weight (plain tensor or int8 record) -> [..., N] in
     ``compute``. See the module docstring for the three int8 routes;
     ``decode_kernel=False`` keeps single-row calls on the weight-only
-    matmul."""
+    matmul; ``decode_rows=True`` sends x [B, S, K] of at most 32 rows in
+    all to the matvec kernels."""
     if not is_record(w):
         return x @ w.to(compute)
     q, s = w["q"], w["s"]
-    if decode_kernel and x.dim() == 3 and x.shape[1] == 1 and q.dim() == 2:
-        x1 = x[:, 0].to(compute).contiguous()
-        kernel = matvec_int8 if x1.shape[0] <= MATVEC_MAX_ROWS \
-            else matvec_int8_pipelined
-        return kernel(x1, q, s, out_dtype=compute)[:, None]
     rows = x.numel() // x.shape[-1]
+    if decode_kernel and x.dim() == 3 and q.dim() == 2 and (
+            x.shape[1] == 1 or (decode_rows and rows <= PIPELINED_MAX_ROWS)):
+        x1 = x.reshape(rows, x.shape[-1]).to(compute).contiguous()
+        kernel = matvec_int8 if rows <= MATVEC_MAX_ROWS \
+            else matvec_int8_pipelined
+        y = kernel(x1, q, s, out_dtype=compute)
+        return y.reshape(x.shape[0], x.shape[1], y.shape[-1])
     if activation_quant and rows >= ACT_QUANT_MIN_ROWS and q.dim() == 2:
         return w8a8_dot(x, q, s).to(compute)
     return _Int8Matmul.apply(x, q, s, compute)

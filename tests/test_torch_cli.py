@@ -117,11 +117,6 @@ def runs(tmp_path_factory):
     def bridged(cfg, a):
         p = jfusion.init_params(jax.random.PRNGKey(cfg.train.seed),
                                 jcfg.model)
-        # the JAX tree also holds encode_video_simple's temporal attention,
-        # which the training forward never reads (zero gradient, no weight
-        # decay: JAX leaves it unchanged) and the port does not have
-        p["fusion"] = {k: v for k, v in p["fusion"].items()
-                       if not k.startswith("temporal_")}
         return params_from_numpy(jax.tree.map(np.asarray, p))
 
     mp = pytest.MonkeyPatch()
@@ -248,14 +243,18 @@ def test_resume_after_sigterm_equals_uninterrupted_run(tmp_path):
 
 
 def test_weight_flags_and_speculative_name_their_roadmap_items(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP A3"):
+    """The weight flags and speculative decoding are ported (their runs
+    are held in test_torch_hf.py and test_torch_speculative.py): a weight
+    directory that holds no checkpoint fails to load, and a speculative
+    call over no examples returns none."""
+    with pytest.raises(FileNotFoundError):
         trun_train.main(["--tiny", "--synthetic", "--steps", "1",
-                         "--device", "cpu", "--llama-weights", "x",
+                         "--device", "cpu", "--llama-weights",
+                         str(tmp_path / "empty"),
                          "--output-dir", str(tmp_path)])
     from macaw_llm_tpu_torch.eval import batch_inference_generation
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        batch_inference_generation({}, tconfig.Config(), MiniTok(), [],
-                                   speculative=2, device="cpu")
+    assert batch_inference_generation({}, tconfig.Config(), MiniTok(), [],
+                                      speculative=2, device="cpu") == []
     with pytest.raises(SystemExit):
         trun_inference.parse_args(["--checkpoint", "x"])  # no --tokenizer
 

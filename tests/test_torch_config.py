@@ -120,11 +120,6 @@ def test_geometry_errors_raise_in_both(llm, fusion):
 def _unported():
     m = tconfig.tiny_model_config()
     return {
-        "remat_policy=dots": (tconfig.Config(model=dataclasses.replace(
-            m, remat=True, remat_policy="dots")), "A4"),
-        "encoder_layerdrop": (tconfig.Config(model=dataclasses.replace(
-            m, audio=dataclasses.replace(m.audio, encoder_layerdrop=0.1))),
-            "A4"),
         "ring_attention": (tconfig.Config(model=dataclasses.replace(
             m, ring_attention=True)), "A5"),
         "shard_sequence": (tconfig.Config(model=dataclasses.replace(
@@ -144,6 +139,19 @@ def test_unported_values_are_refused_naming_the_roadmap_item(name):
     cfg, item = _unported()[name]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cfg.validate()
+
+
+@pytest.mark.parametrize("name", ["remat_policy=dots", "encoder_layerdrop"])
+def test_options_of_the_reference_validate(name):
+    """The remat policy "dots" and Whisper LayerDrop are ported: validate
+    accepts them, as the reference package's config does."""
+    m = tconfig.tiny_model_config()
+    model = {"remat_policy=dots": dataclasses.replace(
+                 m, remat=True, remat_policy="dots"),
+             "encoder_layerdrop": dataclasses.replace(
+                 m, audio=dataclasses.replace(m.audio,
+                                              encoder_layerdrop=0.1))}[name]
+    tconfig.Config(model=model).validate()
 
 
 def test_defaults_validate():

@@ -299,6 +299,30 @@ def test_matvec_pipelined_within_one_ulp_of_matvec(gen):
     assert ((a - b5).abs() / scale).max().item() <= 2.0 ** -7
 
 
+@pytest.mark.parametrize("b,k1", [(1, 4), (1, 5), (2, 4), (4, 5)])
+def test_verify_rows_route(gen, b, k1):
+    """The speculative verify's decode-shaped projection (``decode_rows``):
+    [B, k + 1, K] is the kernel's own call on the [B * (k + 1), K] rows
+    (4, 5, 8 and 20 rows: B5 up to 8, B6 above), bit for bit, and within
+    1e-2 of max |out| of the weight-only dequant path."""
+    from macaw_llm_tpu_torch.utils import quantize as qz
+    k, n = 4096, 12288
+    x3, q, s = _matvec_inputs(gen, b * k1, k, n)
+    x = x3.reshape(b, k1, k)
+    rec = {"q": q, "s": s}
+    kernel = mv.matvec_int8 if b * k1 <= 8 else mv.matvec_int8_pipelined
+    before = kernel.launches
+    got = qz.matmul(x, rec, torch.bfloat16, decode_rows=True)
+    flat = kernel(x.reshape(b * k1, k).contiguous(), q, s,
+                  out_dtype=torch.bfloat16)
+    dense = qz.matmul(x, rec, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(got, flat.reshape(b, k1, n))
+    err = (got.float() - dense.float()).abs().max() / dense.float().abs().max()
+    assert err.item() <= 1e-2
+
+
 def test_matvec_pipelined_on_a_layer_slice(gen):
     """A layer's weight inside the stacked [L, K, N] tensor (an offset
     pointer, 16-byte aligned) and a scale of shape [1, N]."""

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``macaw_llm_tpu_torch/`` and none of
 ``chip_smoke.py``, ``decode_ab.py``, ``tools/decode_probes.py``,
 ``tools/flash_bwd_probe.py`` and ``tools/flash_fwd_probe.py`` imports jax or the reference package
-``macaw_llm_tpu``, and importing every module of the port (the server and
-the data helpers included) loads no jax and compiles nothing."""
+``macaw_llm_tpu``, and importing every module of the port (the server, the
+data helpers and the HF import/export included) loads no jax and no
+``transformers`` and compiles nothing."""
 
 import ast
 import subprocess
@@ -47,8 +48,8 @@ def test_import_leaves_jax_unloaded_and_builds_nothing():
             "assert 'macaw_llm_tpu_torch.data.loader' in sys.modules\n"
             "from macaw_llm_tpu_torch.ops.kernels import _build\n"
             "assert _build._lib is None\n"
-            "print(sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith('macaw_llm_tpu.')))")
+            "print(sorted(m for m in sys.modules if m in ('jax', "
+            "'transformers') or m.startswith('macaw_llm_tpu.')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.strip() == "[]", out.stdout
