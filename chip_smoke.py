@@ -78,6 +78,19 @@ Phases, in order (any failure raises and the script exits non-zero):
     a stack, 4 steps straight against 2 steps stopped by SIGTERM and a
     resume to 4 (the restored state bit for bit, steps 3-4's losses within
     1e-3); the checkpoints are deleted when the phase ends;
+ 12. the parallel layer: 12a ``ring_attention_local`` at 7b widths
+    ([1, 8192, 32, 128] bf16), n = 4 and 8, contiguous and zig-zag, forward
+    and backward against one B2 forward and B3/B4 backward over the whole
+    sequence, and at [1, 2048, 32, 128] against the plain attention in
+    fp32, with the B2/B3/B4 launches of a ring asserted (n(n+1)/2
+    contiguous, n(2n+1) zig-zag) and its time beside the single call's;
+    12b phase 10a's run with ``offload_optimizer`` (the same losses, Adam's
+    moments pinned in host memory between steps; host bytes, device peak
+    and step time beside 10a's); 12c ``run_train.main`` in a child process
+    joined to a one-rank NCCL group through the reference's environment,
+    the run file's mesh (all 1s), ring attention (zig-zag, n = 1), the
+    sharded Trainer's collectives issued through NCCL, the losses within
+    1e-3 of 10a's;
  11. one ``{"kernels": [...]}`` line, then the contract line
     ``{"ok": true, "device": {...}}`` last.
 
@@ -99,6 +112,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -137,6 +151,15 @@ LOGITS_REL_TOL = 3e-2  # the BASELINE.md bf16 bar
 # against 2^-10 of the whole tensor's max |ref| instead.
 BWD_ROW_REL_TOL = 2.0 ** -6
 BWD_ROW_FLOOR = 2.0 ** -10
+# 12a: the ring's gradients against its plain version (the same steps on
+# the CPU): a chunk's q, k or v gradient sums the contributions of the steps
+# that see it, each within BWD_ROW_REL_TOL of its own row, so the sum gets
+# twice that; the output, merged in fp32, keeps ATTN_ROW_REL_TOL. Against
+# one kernel call over the whole sequence (whose rows are within the
+# per-call bars of the exact values) the ring is held to twice the
+# per-call bars.
+RING_GRAD_REL_TOL = 2 * BWD_ROW_REL_TOL
+RING_VS_SINGLE_TOL = 2 * max(ATTN_ROW_REL_TOL, BWD_ROW_REL_TOL)
 # delta = rowsum(dO * O) in fp32: the kernel and the plain version add the
 # same D exact products in another order, within D * 2^-24 of the row's
 # sum of |products|; 1e-5 of max |delta| covers D = 256.
@@ -2002,19 +2025,23 @@ def import_1b(torch, work: Path) -> tuple:
 
 
 def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
-                 out_dir=None, llama_dir=None):
+                 out_dir=None, llama_dir=None, offload: bool = False):
     """10a: ``run_train.main`` on the 1b run file (synthetic zero-media
     batches), 2 warm-up + 5 timed steps, then --do-eval and the forced
     final save; every step synchronized and its launches read by the
     ``on_step`` hook. With ``out_dir`` one more step runs under
     torch.profiler (untimed; its table goes to out_dir); ``llama_dir``
-    passes ``--llama-weights``. Returns the result line and the trained
+    passes ``--llama-weights``. ``offload`` (12b): the same run with
+    ``offload_optimizer``, Adam's moments checked to be in pinned host
+    memory after every step. Returns the result line and the trained
     state."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from macaw_llm_tpu_torch import run_train
-    cfg = phase10_config(work / "train_1b.json", save_steps=1000,
-                         log_steps=1)
-    run_dir = work / "run_1b"
+    tag = "train_1b_offload" if offload else "train_1b"
+    extra = dict(offload_optimizer=True) if offload else {}
+    cfg = phase10_config(work / f"{tag}.json", save_steps=1000,
+                         log_steps=1, **extra)
+    run_dir = work / f"run_{tag}"
     warm, timed = 2, 5
     n_steps = warm + timed + (out_dir is not None)
     steps = []
@@ -2030,8 +2057,15 @@ def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
                    loader_wait_s=metrics["loader_wait_s"],
                    launches=counts(kernels),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if offload:
+            moments = (_tensors(state.opt_state.mu)
+                       + _tensors(state.opt_state.nu))
+            row["moments_pinned"] = all(
+                t.device.type == "cpu" and t.is_pinned() for t in moments)
+            row["moments_host_bytes"] = sum(t.numel() * t.element_size()
+                                            for t in moments)
         steps.append(row)
-        log(json.dumps({"train_1b_step": row}))
+        log(json.dumps({f"{tag}_step": row}))
         if out_dir is not None and step == n_steps:  # one loop iteration
             prof.__exit__(None, None, None)
             table = prof.key_averages().table(sort_by="cuda_time_total",
@@ -2051,7 +2085,7 @@ def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
     weights = [] if llama_dir is None else ["--llama-weights",
                                             str(llama_dir)]
     state = run_train.main([
-        "--config", str(work / "train_1b.json"), "--synthetic",
+        "--config", str(work / f"{tag}.json"), "--synthetic",
         "--steps", str(n_steps), "--do-eval", "--output-dir",
         str(run_dir), "--device", "cuda"] + weights, on_step=on_step)
     wall = time.perf_counter() - t0
@@ -2088,7 +2122,12 @@ def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
         launches_per_step=steps[-1]["launches"], eval_launches=eval_launches,
         loader_wait_s_max=max(r["loader_wait_s"] for r in steps),
         run_wall_s=wall, card=card)
-    log(json.dumps({"train_1b": result}))
+    if offload:
+        if not all(r["moments_pinned"] for r in steps):
+            raise AssertionError("12b: Adam's moments not in pinned host "
+                                 "memory after every step")
+        result["moments_host_bytes"] = steps[-1]["moments_host_bytes"]
+    log(json.dumps({tag: result}))
     return result, state, cfg, run_dir
 
 
@@ -2243,10 +2282,230 @@ def run_phase10(torch, kernels, card: str, out_dir: Path, expect: dict,
         torch.cuda.empty_cache()
         resume = resume_1b(torch, work)
         log(json.dumps({"phase10_seconds": time.perf_counter() - t0}))
+        # phase 12b and 12c train the same imported weights
+        t0 = time.perf_counter()
+        offload = run_offload_1b(torch, kernels, card, work, expect,
+                                 llama_dir, train)
+        torch.cuda.empty_cache()
+        ring = run_ring_child(torch, card, work, llama_dir, train)
+        log(json.dumps({"phase12bc_seconds": time.perf_counter() - t0}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return dict(imported=imported, train=train, restore=restore,
-                resume=resume)
+                resume=resume, offload=offload, ring=ring)
+
+
+# --------------------------------------------------------------------------
+# phase 12: the parallel layer
+# --------------------------------------------------------------------------
+
+def ring_expected(n: int, layout: str) -> int:
+    """B2 launches of one ring over n chunks (B3 and B4 alike): causal on
+    the diagonal and full below it (contiguous), or every rank's late half
+    against its early keys each step plus the diagonal's two causal halves
+    and one full pair off it (zig-zag)."""
+    return n * (n + 1) // 2 if layout == "contiguous" else n * (2 * n + 1)
+
+
+def ring_case(torch, fa, ring, q, k, v, g, n: int, layout: str):
+    """The ring over n chunks of whole [B, S, N, D] q/k/v in their natural
+    order (zig-zag: permuted in, the output permuted back): (out, dq, dk,
+    dv, B2/B3/B4/delta/combine launches of the forward and backward). On
+    CPU tensors every step runs the wrappers' plain versions."""
+    perm = (ring.zigzag_indices(q.shape[1], n) if layout == "zigzag"
+            else torch.arange(q.shape[1]))
+    inv = ring.inverse_permutation(perm).to(q.device)
+    perm = perm.to(q.device)
+    x = [t[:, perm].detach().requires_grad_() for t in (q, k, v)]
+    names = ("flash_attention_with_lse", "flash_attention_dq",
+             "flash_attention_dkv", "flash_attention_delta",
+             "flash_attention_combine")
+    fns = [getattr(fa, name) for name in names]
+    for fn in fns:
+        fn.launches = 0
+    out = ring.ring_attention_local(*x, n, layout)
+    fwd = fns[0].launches
+    out.backward(g[:, perm])
+    torch.cuda.synchronize()
+    launches = dict(zip(names, [fn.launches for fn in fns]))
+    launches["forward_b2"] = fwd
+    return (out[:, inv].detach(), *(t.grad[:, inv] for t in x)), launches
+
+
+def run_ring_local(torch, card: str) -> dict:
+    """12a: ``ring_attention_local`` at 7b widths (32 heads of 128, bf16),
+    forward and backward: at 8192 positions, n = 4 and 8, both layouts,
+    against one B2 forward and B3/B4 backward over the whole sequence and
+    timed beside it; at 2048, against its plain version (the same ring on
+    the CPU: each step's plain forward and backward, which round as the
+    kernels do) under phase 3's and 3b's row bars (the gradients, sums of
+    several steps' rows, under twice 3b's); the launches of a ring
+    asserted."""
+    from macaw_llm_tpu_torch.ops.kernels import flash_attention as fa
+    from macaw_llm_tpu_torch.parallel import ring_attention as ring
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def single(q, k, v, g):
+        x = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*x, causal=True)
+        out.backward(g)
+        return (out.detach(), *(t.grad for t in x))
+
+    def check(got, ref, what, bars):
+        errs = {}
+        for name, a, b, bar in zip(("out", "dq", "dk", "dv"), got, ref,
+                                   bars):
+            fn = row_rel_err if name == "out" else grad_row_err
+            errs[name] = fn(a, b)
+            if not errs[name] <= bar:
+                raise AssertionError(f"12a {what}: {name} row rel err "
+                                     f"{errs[name]} > {bar}")
+        return errs
+
+    bars = (ATTN_ROW_REL_TOL,) + (RING_GRAD_REL_TOL,) * 3
+    rows = []
+    b, n_h, d = 1, 32, 128
+    s = 8192
+    q, k, v, g = (rn(b, s, n_h, d) for _ in range(4))
+    ref = single(q, k, v, g)
+    single_ms = cuda_ms(torch, lambda: single(q, k, v, g), iters=3)
+    flops = 3.5 * attn_flops(b, s, s, n_h, d, True)  # fwd + 2.5x bwd
+    for n in (4, 8):
+        for layout in ("contiguous", "zigzag"):
+            got, launches = ring_case(torch, fa, ring, q, k, v, g, n, layout)
+            want = ring_expected(n, layout)
+            counted = {key: launches[key] for key in (
+                "forward_b2", "flash_attention_dq", "flash_attention_dkv",
+                "flash_attention_delta")}
+            if any(c != want for c in counted.values()):
+                raise AssertionError(f"12a ring n={n} {layout}: launches "
+                                     f"{launches}, expected {want} each")
+            errs = check(got, ref, f"n={n} {layout} vs single call",
+                         (RING_VS_SINGLE_TOL,) * 4)
+            ms = cuda_ms(torch, lambda: ring_case(
+                torch, fa, ring, q, k, v, g, n, layout), iters=3)
+            # q, k, v and dO read, O, dQ, dK and dV written, bf16
+            bound_ms, bound_by = bound(flops, 8 * b * s * n_h * d * 2)
+            row = dict(seq=s, n=n, layout=layout, ms=ms,
+                       single_call_ms=single_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, launches=launches,
+                       expected_launches=want, row_rel_err=errs, card=card)
+            rows.append(row)
+            log(json.dumps({"ring_local": row}))
+    del q, k, v, g, ref
+    torch.cuda.empty_cache()
+    # the plain version: the same schedule on the CPU, the same bf16 inputs
+    s = 2048
+    q, k, v, g = (rn(b, s, n_h, d) for _ in range(4))
+    for layout in ("contiguous", "zigzag"):
+        got, launches = ring_case(torch, fa, ring, q, k, v, g, 4, layout)
+        t0 = time.perf_counter()
+        plain, _ = ring_case(torch, fa, ring, *(t.cpu() for t in (q, k, v,
+                                                                 g)),
+                             4, layout)
+        plain_s = time.perf_counter() - t0
+        errs = check([t.cpu() for t in got], plain,
+                     f"n=4 {layout} vs plain at {s}", bars)
+        row = dict(seq=s, n=4, layout=layout, vs="plain (CPU)",
+                   plain_s=plain_s, row_rel_err=errs, launches=launches,
+                   card=card)
+        rows.append(row)
+        log(json.dumps({"ring_local": row}))
+    return {"rows": rows,
+            "launches": {f"n{r['n']}_{r['layout']}": r["expected_launches"]
+                         for r in rows if "expected_launches" in r}}
+
+
+def run_offload_1b(torch, kernels, card: str, work: Path, expect: dict,
+                   llama_dir, train_10a: dict) -> dict:
+    """12b: 10a's run with ``offload_optimizer``: the step losses the same
+    bits as 10a's (else within 1e-3), the moments pinned in host memory."""
+    res, state, _, _ = run_train_1b(torch, kernels, card, work, expect,
+                                    llama_dir=llama_dir, offload=True)
+    del state
+    same = res["losses"] == train_10a["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in
+                zip(res["losses"], train_10a["losses"]))
+    if not same and worst > 1e-3:
+        raise AssertionError(f"12b losses {res['losses']} vs 10a's "
+                             f"{train_10a['losses']}")
+    line = dict(losses_same_bits=same, loss_max_rel_diff=worst,
+                moments_host_bytes=res["moments_host_bytes"],
+                peak_mem_gb=res["peak_mem_gb"],
+                peak_mem_gb_10a=train_10a["peak_mem_gb"],
+                step_ms_median=res["step_ms_median"],
+                step_ms_median_10a=train_10a["step_ms_median"], card=card)
+    log(json.dumps({"offload_1b": line}))
+    return line
+
+
+RING_CHILD = """
+import json, sys, torch
+from macaw_llm_tpu_torch import run_train
+from macaw_llm_tpu_torch.parallel import sharding
+import torch.distributed as dist
+losses = []
+def on_step(step, state, m):
+    losses.append(float(m["loss"]))
+state = run_train.main(sys.argv[1:], on_step=on_step)
+print("RING_CHILD " + json.dumps(dict(
+    losses=losses, step=state.step, backend=dist.get_backend(),
+    world=dist.get_world_size(), collectives=dict(sharding.COLLECTIVES),
+    nccl=".".join(map(str, torch.cuda.nccl.version())))), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def run_ring_child(torch, card: str, work: Path, llama_dir,
+                   train_10a: dict) -> dict:
+    """12c: ``run_train.main`` in a child process joined to a one-rank NCCL
+    group through the reference's environment (COORDINATOR_ADDRESS,
+    NUM_PROCESSES, PROCESS_ID), the run file's mesh (all 1s), ring
+    attention (zig-zag, n = 1), 2 + 3 steps, no checkpoint."""
+    import socket
+    from macaw_llm_tpu_torch.config import Config
+    cfg = Config.from_json(TRAIN_1B_RUN.read_text())
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, ring_attention=True,
+                                       ring_layout="zigzag"),
+        train=dataclasses.replace(cfg.train, save_steps=0, log_steps=1))
+    path = work / "train_1b_ring.json"
+    path.write_text(cfg.to_json())
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}",
+               NUM_PROCESSES="1", PROCESS_ID="0",
+               PYTHONPATH=str(ROOT))
+    steps = 5
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", RING_CHILD, "--config", str(path),
+         "--synthetic", "--steps", str(steps), "--output-dir",
+         str(work / "run_ring"), "--device", "cuda", "--llama-weights",
+         str(llama_dir)], env=env, capture_output=True, text=True,
+        timeout=600, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RING_CHILD ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"12c child failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    got = json.loads(lines[-1][len("RING_CHILD "):])
+    ref = train_10a["losses"][:steps]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref))
+    issued = sum(got["collectives"].values())
+    if got["backend"] != "nccl" or got["world"] != 1 or not issued \
+            or worst > 1e-3 or got["step"] != steps:
+        raise AssertionError(f"12c: {got} against 10a's losses {ref}")
+    line = dict(got, losses_10a=ref, loss_max_rel_diff=worst,
+                child_wall_s=wall, card=card)
+    log(json.dumps({"ring_run_train": line}))
+    return line
 
 
 def step_totals(rows, b: int, keys) -> dict:
@@ -2554,6 +2813,13 @@ def main() -> int:
     train_1b_launches = phase10["train"]["launches_per_step"]
     torch.cuda.empty_cache()
 
+    # 12a. the ring's schedule at 7b widths (12b and 12c ran in phase 10's
+    # directory, on its imported weights)
+    ring_res = run_ring_local(torch, card)
+    ring_launches = {name: ring_res["launches"] for name in (
+        "flash_attention", "flash_attention_dq", "flash_attention_dkv")}
+    torch.cuda.empty_cache()
+
     # 11. the kernels line: per prefill (B1, B2), per decode step (B5, at
     # batch 4; B6, at 16 engine slots) or per train step at text 1024 (B3,
     # B4)
@@ -2671,6 +2937,9 @@ def main() -> int:
             entry["train_step_llama"].update(launches=r["per_step"],
                                              bound_by=r["bound_by"])
         entries.append(entry)
+    for entry in entries:  # 12a: B2/B3/B4 launches of one ring a layer
+        if entry["name"] in ring_launches:
+            entry["ring_launches"] = ring_launches[entry["name"]]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"card": card, "seconds": time.perf_counter() - t_start}))
     LOG_FILE.close()

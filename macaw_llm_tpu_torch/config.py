@@ -7,7 +7,8 @@ MM_LLMs_Config; the optimizer of its train.sh and DeepSpeed config).
 
 Some values select paths the port has not ported yet; ``validate`` raises
 ``NotImplementedError`` for them, naming the ROADMAP item that ports them,
-instead of ignoring them."""
+instead of ignoring them: sequence sharding, and a tensor axis above 1 for
+generation and serving (ROADMAP A7)."""
 
 from __future__ import annotations
 
@@ -181,7 +182,9 @@ class ModelConfig:
     remat_policy: str = "nothing"
     use_flash: bool = False   # attention kernels in the LLM prefill
     tower_flash: bool = False  # streaming kernel in the CLIP/Whisper towers
-    # sequence sharding and ring attention over a device mesh (not ported)
+    # sequence sharding over a device mesh (not ported, ROADMAP A7); ring
+    # attention over the mesh axis ``ring_axis``, "zigzag" or "contiguous"
+    # (training: the fused sequence is cut over that axis)
     shard_sequence: bool = False
     ring_attention: bool = False
     ring_axis: str = "tensor"
@@ -229,17 +232,24 @@ class ModelConfig:
             raise ValueError(f"align attention heads {h} must divide the "
                              f"CLIP projection dim "
                              f"{self.vision.projection_dim}")
-        if self.ring_attention or self.shard_sequence:
+        if self.ring_layout not in ("zigzag", "contiguous"):
+            raise ValueError(f"ring_layout {self.ring_layout!r}: 'zigzag' or "
+                             "'contiguous'")
+        if self.ring_axis not in ("dcn", "data", "fsdp", "tensor"):
+            raise ValueError(f"ring_axis {self.ring_axis!r} is not a mesh "
+                             "axis")
+        if self.shard_sequence:
             raise NotImplementedError(
-                "ring_attention / shard_sequence: the parallel layer is not "
-                "ported (ROADMAP A5)")
+                "shard_sequence: sequence sharding of the activations is not "
+                "ported (ROADMAP A7)")
 
 
 @dataclass(frozen=True)
 class MeshConfig:
     """Device-mesh axes of the reference (dcn x data x fsdp x tensor; -1 =
-    all remaining devices). The port runs on one device: ``Config.validate``
-    refuses a mesh of more than one (ROADMAP A5)."""
+    all remaining devices): one process per device, the batch cut over
+    (dcn, data, fsdp), parameters and Adam moments over fsdp and tensor
+    (``parallel.sharding``)."""
 
     dcn: int = 1
     data: int = 1
@@ -291,8 +301,8 @@ class TrainConfig:
     # ("off"). A cache freezes the align in-proj K/V rows and bias_k/bias_v.
     align_cache: str = "int8"
     quantize_base: bool = False      # LoRA only: int8 frozen LLaMA base
-    # AdamW moments in host memory (not ported: ``Config.validate`` refuses
-    # it, ROADMAP A5)
+    # AdamW moments in (pinned) host memory between steps, streamed to the
+    # device leaf by leaf for the update
     offload_optimizer: bool = False
     pack_frozen_towers: bool = False  # one [h, 3h] in-proj per tower layer
     save_steps: int = 5000           # checkpoint cadence; 0 = no checkpoints
@@ -347,21 +357,19 @@ class Config:
     def from_json(cls, s: str) -> "Config":
         return cls.from_dict(json.loads(s))
 
-    def validate(self) -> None:
-        """``ModelConfig.validate``, then the run settings the port cannot
-        honour yet: optimizer offload and a mesh of more than one device
-        (ROADMAP A5)."""
+    def validate(self, world_size: int = 1, serving: bool = False) -> None:
+        """``ModelConfig.validate``, then the mesh against ``world_size``
+        training processes (one device each; ``ValueError`` when its size
+        differs). ``serving`` (generation and the server, one device,
+        whatever mesh trained the checkpoint) refuses a tensor axis above 1
+        instead: tensor-parallel decoding is not ported (ROADMAP A7)."""
         self.model.validate()
-        if self.train.offload_optimizer:
+        if not serving:
+            self.mesh.resolved(world_size)
+        elif self.mesh.tensor > 1:
             raise NotImplementedError(
-                "offload_optimizer: optimizer offload is not ported "
-                "(ROADMAP A5)")
-        try:
-            self.mesh.resolved(1)
-        except ValueError:
-            raise NotImplementedError(
-                f"mesh {self.mesh}: the port runs on one device; meshes "
-                "(DDP/FSDP) are not ported (ROADMAP A5)") from None
+                f"mesh tensor={self.mesh.tensor}: tensor-parallel generation "
+                "and serving are not ported (ROADMAP A7)")
 
 
 def _from_dict(cls: Any, d: dict) -> Any:

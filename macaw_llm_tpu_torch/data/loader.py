@@ -226,14 +226,17 @@ class BatchLoader:
       * up to ``prefetch`` whole batches are assembled ahead of the
         training step, in order, on assembly threads
 
-    The last partial batch of an epoch is always dropped (shapes stay
-    static): steps_per_epoch = n // global_batch. The port runs in one
-    process; sharding the order across processes waits on ROADMAP A5.
+    Across processes each takes every ``process_count``-th example of the
+    shuffled order from ``process_index`` on, ``global_batch`` of them a
+    step (its rows of the step's batch). The last partial batch of an
+    epoch is always dropped (shapes stay static): steps_per_epoch =
+    n // (global_batch * process_count).
     """
 
     def __init__(self, ds: TokenizedDataset, media: Optional[MediaSource],
                  global_batch: int, accum: int = 1, seed: int = 0,
-                 prefetch: int = 2, num_workers: int = 8):
+                 prefetch: int = 2, num_workers: int = 8,
+                 process_index: int = 0, process_count: int = 1):
         assert global_batch % accum == 0
         self.ds = ds
         self.media = media
@@ -242,7 +245,9 @@ class BatchLoader:
         self.seed = seed
         self.prefetch = max(1, prefetch)
         self.num_workers = max(1, num_workers)
-        self.steps_per_epoch = len(ds) // global_batch
+        self.process_index = process_index
+        self.process_count = process_count
+        self.steps_per_epoch = len(ds) // (global_batch * process_count)
         self._decode_pool = None
         self._batch_pool = None
 
@@ -268,11 +273,13 @@ class BatchLoader:
         the exact resume position."""
         rng = np.random.RandomState(self.seed + epoch)
         perm = rng.permutation(len(self.ds))
+        # this process's share of the shuffled order
+        shard = perm[self.process_index::self.process_count]
         decode_pool, batch_pool = self._pools()
 
         def assemble(step: int):
-            idx = perm[step * self.global_batch:
-                       (step + 1) * self.global_batch]
+            idx = shard[step * self.global_batch:
+                        (step + 1) * self.global_batch]
             return _assemble(self.ds, self.media, idx, self.accum,
                              pool=decode_pool if self.media is not None
                              else None)
@@ -292,16 +299,23 @@ class BatchLoader:
                 f.cancel()
 
 
-def stream_jsonl(paths: Sequence[str]) -> Iterator[dict]:
+def stream_jsonl(paths: Sequence[str], process_index: int = 0,
+                 process_count: int = 1) -> Iterator[dict]:
     """Yield the JSON rows of the shard files in order, skipping blank
-    lines."""
+    lines, round-robin across processes by row index: every process sees
+    a disjoint 1/process_count of the stream, whatever the file
+    boundaries."""
     import json
+    i = 0
     for path in paths:
         with open(path) as f:
             for line in f:
                 line = line.strip()
-                if line:
+                if not line:
+                    continue
+                if i % process_count == process_index:
                     yield json.loads(line)
+                i += 1
 
 
 class StreamingBatchLoader:
@@ -338,7 +352,8 @@ class StreamingBatchLoader:
                  global_batch: int = 8, accum: int = 1,
                  max_text_len: int = 256, shuffle_buffer: int = 1024,
                  seed: int = 0, steps_per_epoch: int = 0,
-                 prefetch: int = 2, num_workers: int = 8):
+                 prefetch: int = 2, num_workers: int = 8,
+                 process_index: int = 0, process_count: int = 1):
         assert global_batch % accum == 0
         assert steps_per_epoch > 0, \
             "streaming mode needs an explicit steps_per_epoch (--steps)"
@@ -354,11 +369,14 @@ class StreamingBatchLoader:
         self.steps_per_epoch = steps_per_epoch
         self.prefetch = max(1, prefetch)
         self.num_workers = max(1, num_workers)
+        self.process_index = process_index
+        self.process_count = process_count
         self._decode_pool = None
 
     def _shuffled_rows(self, rng: np.random.RandomState) -> Iterator[dict]:
         buf = []
-        for row in stream_jsonl(self.paths):
+        for row in stream_jsonl(self.paths, self.process_index,
+                                self.process_count):
             buf.append(row)
             if len(buf) >= self.shuffle_buffer:
                 j = rng.randint(len(buf))

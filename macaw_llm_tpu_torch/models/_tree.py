@@ -6,10 +6,23 @@ import torch
 
 
 def layer(tree, i: int):
-    """Layer ``i`` of a stacked [L, ...] subtree (views, no copies)."""
+    """Layer ``i`` of a stacked [L, ...] subtree (views, no copies); a
+    subtree held as shards over a mesh (``parallel.sharding.StackedShards``)
+    gathers it."""
+    if hasattr(tree, "gather_layer"):
+        return tree.gather_layer(i)
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def layer_fn(fn, layers, i: int):
+    """``fn`` with layer ``i`` of ``layers`` as its first argument, taken
+    inside the call: under remat a sharded layer is gathered again in the
+    recompute instead of being kept whole until the backward."""
+    def call(*args, **kwargs):
+        return fn(layer(layers, i), *args, **kwargs)
+    return call
 
 
 def num_layers(tree) -> int:

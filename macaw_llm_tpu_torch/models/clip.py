@@ -17,7 +17,7 @@ import torch
 
 from macaw_llm_tpu_torch.config import ClipVisionConfig
 from macaw_llm_tpu_torch.models import _tree
-from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
+from macaw_llm_tpu_torch.models._tree import layer_fn, normal, num_layers
 from macaw_llm_tpu_torch.models.remat import checkpointed
 from macaw_llm_tpu_torch.ops.activations import quick_gelu
 from macaw_llm_tpu_torch.ops.attention import mha_apply
@@ -100,9 +100,9 @@ def _encode(params: dict, cfg: ClipVisionConfig, pixels: torch.Tensor,
                    params["pre_layernorm"]["b"], cfg.layer_norm_eps)
     layers = params["layers"]
     for i in range(num_layers(layers)):
-        fn = partial(_encoder_layer, cfg, layer(layers, i),
-                     use_flash=use_flash, activation_quant=activation_quant)
-        h = checkpointed(fn, remat, h)
+        fn = layer_fn(partial(_encoder_layer, cfg), layers, i)
+        h = checkpointed(partial(fn, use_flash=use_flash,
+                                 activation_quant=activation_quant), remat, h)
     return h
 
 

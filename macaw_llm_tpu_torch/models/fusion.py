@@ -50,8 +50,9 @@ class FusedBatch(NamedTuple):
 def _frozen(tree) -> contextlib.AbstractContextManager:
     """``torch.no_grad()`` when no tensor of ``tree`` takes a gradient."""
     def grads(t):
-        if isinstance(t, dict):
-            return any(grads(v) for v in t.values())
+        if isinstance(t, dict):  # StackedShards tell it themselves
+            return getattr(t, "requires_grad", False) or \
+                any(grads(v) for v in t.values())
         return isinstance(t, torch.Tensor) and t.requires_grad
     return contextlib.nullcontext() if grads(tree) else torch.no_grad()
 
@@ -436,17 +437,24 @@ def forward(params: dict, cfg: ModelConfig, *,
             dropout_rng: Optional[torch.Generator] = None,
             video_mode: str = "long",
             lora_scale: float = 1.0,
-            align_cache: Optional[dict] = None):
+            align_cache: Optional[dict] = None,
+            ring_mesh=None, reduce_count=None):
     """Training forward: fuse, run the LLaMA stack over the fused
     embeddings, return (loss, logits). With ``cfg.loss_chunk`` > 0 and
     labels the loss comes from the hidden states in chunks and logits is
     None (no [B, S, V] fp32 tensor). ``cfg.remat`` checkpoints every
-    decoder and tower layer under ``cfg.remat_policy``."""
+    decoder and tower layer under ``cfg.remat_policy``. ``ring_mesh``
+    (with ``cfg.ring_attention``) takes the ring path (``_forward_ring``).
+    ``reduce_count`` sums the loss's count of valid targets over the ranks
+    that share the batch (the loss is then the global mean)."""
     batch = prepare_inputs(params, cfg, input_ids=input_ids, images=images,
                            audios=audios, videos=videos,
                            attention_mask=attention_mask, labels=labels,
                            dropout_rng=dropout_rng, video_mode=video_mode,
                            align_cache=align_cache)
+    if ring_mesh is not None and cfg.ring_attention:
+        return _forward_ring(params, cfg, batch, lora_scale, ring_mesh,
+                             reduce_count)
     kw = dict(attention_mask=batch.attention_mask, use_flash=cfg.use_flash,
               remat=_remat(cfg), lora_scale=lora_scale)
     if cfg.loss_chunk > 0 and batch.labels is not None:
@@ -454,11 +462,70 @@ def forward(params: dict, cfg: ModelConfig, *,
                                  **kw)
         loss = llama.clm_loss_chunked(params["llm"], h, batch.labels,
                                       chunk=cfg.loss_chunk,
-                                      valid=llama.valid_vocab(cfg.llm))
+                                      valid=llama.valid_vocab(cfg.llm),
+                                      reduce_count=reduce_count)
         return loss, None
     logits = llama.forward(params["llm"], cfg.llm,
                            inputs_embeds=batch.inputs_embeds, **kw)
     loss = None
     if batch.labels is not None:
-        loss = llama.clm_loss(logits, batch.labels)
+        loss = llama.clm_loss(logits, batch.labels, reduce_count)
+    return loss, logits
+
+
+def _forward_ring(params: dict, cfg: ModelConfig, batch: FusedBatch,
+                  lora_scale: float, ring_mesh, reduce_count=None):
+    """The LLaMA stack over the fused sequence cut across the ring axis.
+
+    The towers and the splice ran on this rank's batch rows; the fused
+    sequence is laid out in the ring's order (zig-zag: permuted so that
+    every rank holds one early and one late block), and this rank keeps
+    its chunk through the whole stack: only attention talks across ranks.
+    RoPE positions carry the original indices; the loss takes the
+    pre-shifted next-token targets, permuted the same way
+    (``clm_loss_aligned``; ``clm_loss_chunked`` with ``targets_aligned``
+    under ``loss_chunk``). The logits returned are this rank's chunk, in
+    the ring's order. No padding: the mask must be all ones."""
+    from macaw_llm_tpu_torch.parallel.mesh import axis_index, axis_size
+    from macaw_llm_tpu_torch.parallel.ring_attention import zigzag_indices
+    embeds = batch.inputs_embeds
+    b, s, _ = embeds.shape
+    if batch.attention_mask is not None and \
+            not bool(batch.attention_mask.all()):
+        raise ValueError("ring attention requires an all-ones "
+                         "attention_mask (pack sequences instead of "
+                         "padding)")
+    axis = cfg.ring_axis
+    n = axis_size(ring_mesh, (axis,))
+    me = axis_index(ring_mesh, (axis,))
+    if s % n:
+        raise ValueError(f"ring: fused length {s} is not a multiple of the "
+                         f"{n} ranks of axis {axis!r}")
+    order = torch.arange(s)
+    if cfg.ring_layout == "zigzag":
+        order = zigzag_indices(s, n)
+    mine = order[me * (s // n):(me + 1) * (s // n)].to(embeds.device)
+    embeds = embeds[:, mine]
+    positions = mine[None].expand(b, -1)
+    targets = None
+    if batch.labels is not None:
+        ext = batch.labels
+        targets = torch.cat([ext[:, 1:], ext.new_full((b, 1), IGNORE_ID)],
+                            dim=1)[:, mine]
+    kw = dict(positions=positions, remat=_remat(cfg), lora_scale=lora_scale,
+              ring_mesh=ring_mesh, ring_axis=axis,
+              ring_layout=cfg.ring_layout)
+    if cfg.loss_chunk > 0 and targets is not None:
+        h = llama.forward_hidden(params["llm"], cfg.llm, embeds, **kw)
+        loss = llama.clm_loss_chunked(params["llm"], h, targets,
+                                      chunk=cfg.loss_chunk,
+                                      valid=llama.valid_vocab(cfg.llm),
+                                      targets_aligned=True,
+                                      reduce_count=reduce_count)
+        return loss, None
+    logits = llama.forward(params["llm"], cfg.llm, inputs_embeds=embeds,
+                           **kw)
+    loss = None
+    if targets is not None:
+        loss = llama.clm_loss_aligned(logits, targets, reduce_count)
     return loss, logits

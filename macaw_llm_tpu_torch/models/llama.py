@@ -7,7 +7,10 @@ leading [L] axis (the JAX ``lax.scan`` becomes a Python loop over L),
 
 * no cache (prefill): with ``use_flash`` the attention goes to the
   ``mh_attention`` kernel when the whole sequence fits its shared memory,
-  else to the causal ``flash_attention`` kernel;
+  else to the causal ``flash_attention`` kernel; with a ``ring_mesh`` the
+  sequence is cut over its ``ring_axis`` and the attention is
+  ``parallel.ring_attention`` (no padding bias: long-context training
+  packs its sequences);
 * cache: a preallocated ``KVCache`` (bf16, or int8 with per-position
   per-head scales) written in place at ``length``, one scalar for the
   batch or one entry per row (continuous batching: every slot has its own
@@ -17,8 +20,11 @@ leading [L] axis (the JAX ``lax.scan`` becomes a Python loop over L),
 
 Training: LoRA adapters on q and v (``params["layers"]["lora"]``), remat
 per decoder layer (``models.remat``: policy "nothing" or "dots"), the shifted
-cross-entropy ``clm_loss`` and its chunked form ``clm_loss_chunked``, which
-never holds the [B, S, V] fp32 logits. The attention kernels and int8
+cross-entropy ``clm_loss``, its chunked form ``clm_loss_chunked``, which
+never holds the [B, S, V] fp32 logits, and ``clm_loss_aligned`` for targets
+already shifted (the ring path's permuted sequence). Each loss takes a
+``reduce_count``: the count of valid targets it divides by, summed over the
+ranks that hold the rest of the batch. The attention kernels and int8
 matmuls are differentiable in their activations.
 """
 
@@ -34,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from macaw_llm_tpu_torch.config import IGNORE_ID, LlamaConfig
 from macaw_llm_tpu_torch.models import _tree
-from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
+from macaw_llm_tpu_torch.models._tree import layer_fn, normal, num_layers
 from macaw_llm_tpu_torch.models.remat import checkpointed
 from macaw_llm_tpu_torch.ops.activations import silu
 from macaw_llm_tpu_torch.ops.attention import (dot_product_attention,
@@ -127,7 +133,7 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
                flash_bias: Optional[torch.Tensor], use_flash: bool,
                activation_quant: bool, lora: Optional[dict] = None,
                lora_scale: float = 1.0,
-               decode_rows: bool = False) -> torch.Tensor:
+               decode_rows: bool = False, ring=None) -> torch.Tensor:
     b, s, _ = h.shape
     n, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     compute = h.dtype
@@ -185,7 +191,13 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
             k_sc = k_sc.repeat_interleave(n // nkv, dim=2)
             v_sc = v_sc.repeat_interleave(n // nkv, dim=2)
 
-    if use_flash and cache is None:
+    if ring is not None and cache is None:
+        from macaw_llm_tpu_torch.parallel.ring_attention import \
+            ring_attention
+        mesh, axis, layout = ring
+        out = ring_attention(q, k_full, v_full, mesh=mesh, axis=axis,
+                             layout=layout)
+    elif use_flash and cache is None:
         q, k_full, v_full = (t.contiguous() for t in (q, k_full, v_full))
         if fits_mh_attention(s, k_full.shape[1], d):
             out = mh_attention(q, k_full, v_full, flash_bias, causal=True)
@@ -216,13 +228,13 @@ def _decoder_layer(cfg: LlamaConfig, lp: dict, h: torch.Tensor, mask, cos,
                    sin, kv_cache: Optional[KVCache], write_at, li: int,
                    flash_bias,
                    use_flash: bool, activation_quant: bool,
-                   lora_scale: float, decode_rows: bool = False
+                   lora_scale: float, decode_rows: bool = False, ring=None
                    ) -> torch.Tensor:
     """Pre-norm attention + residual, pre-norm SwiGLU + residual."""
     x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
     h = h + _attention(cfg, lp["attn"], x, mask, cos, sin, kv_cache,
                        write_at, li, flash_bias, use_flash, activation_quant,
-                       lp.get("lora"), lora_scale, decode_rows)
+                       lp.get("lora"), lora_scale, decode_rows, ring)
     x = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
     return h + _mlp(lp["mlp"], x, activation_quant, decode_rows)
 
@@ -245,7 +257,9 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
                    activation_quant: bool = False,
                    remat=False,
                    lora_scale: float = 1.0,
-                   decode_rows: bool = False) -> torch.Tensor:
+                   decode_rows: bool = False,
+                   ring_mesh=None, ring_axis: str = "tensor",
+                   ring_layout: str = "zigzag") -> torch.Tensor:
     """Decoder stack over ``inputs_embeds`` [B, S, H] -> final-normed hidden
     states [B, S, H].
 
@@ -263,10 +277,21 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     dequantization included, and keeps its input ("nothing") or its input
     and its matmul outputs ("dots"). ``decode_rows`` marks every position
     as decode-shaped (the speculative verify): int8 projections of at most
-    32 rows in all take the matvec kernels.
+    32 rows in all take the matvec kernels. ``ring_mesh`` (no cache):
+    ``inputs_embeds`` is this rank's chunk of a sequence cut over the mesh
+    axis ``ring_axis`` in the ``ring_layout`` order, ``positions`` its
+    original indices, and the attention is ring attention (no padding
+    bias; ``attention_mask`` is refused).
     """
     if remat and kv_cache is not None:
         raise ValueError("remat is for the no-cache (training) path")
+    ring = None
+    if ring_mesh is not None and kv_cache is None:
+        if attention_mask is not None:
+            raise ValueError("ring attention takes no attention_mask (pack "
+                             "the sequences instead of padding)")
+        ring = (ring_mesh, ring_axis, ring_layout)
+        use_flash = False
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
     mask = None
@@ -303,7 +328,7 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
             if attention_mask is not None:
                 flash_bias = torch.where(attention_mask.to(torch.int32) == 1,
                                          0.0, NEG_INF).float().contiguous()
-        else:
+        elif ring is None:
             mask = causal_mask(s, s, device)
             if attention_mask is not None:
                 mask = combine_masks(mask, padding_mask(attention_mask, s))
@@ -313,10 +338,10 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     h = inputs_embeds
     layers = params["layers"]
     for li in range(num_layers(layers)):
-        lp = layer(layers, li)
         args = (mask, cos, sin, kv_cache, write_at, li, flash_bias,
-                use_kernel, activation_quant, lora_scale, decode_rows)
-        h = checkpointed(partial(_decoder_layer, cfg, lp), remat, h, *args)
+                use_kernel, activation_quant, lora_scale, decode_rows, ring)
+        h = checkpointed(layer_fn(partial(_decoder_layer, cfg), layers, li),
+                         remat, h, *args)
     if kv_cache is not None:
         kv_cache.length = kv_cache.length + s
     return rms_norm(h, params["norm"].to(h.dtype), cfg.rms_norm_eps)
@@ -355,7 +380,9 @@ def forward(params: dict, cfg: LlamaConfig,
             dtype=torch.float32,
             remat=False,
             lora_scale: float = 1.0,
-            decode_rows: bool = False) -> torch.Tensor:
+            decode_rows: bool = False,
+            ring_mesh=None, ring_axis: str = "tensor",
+            ring_layout: str = "zigzag") -> torch.Tensor:
     """Full CLM forward -> logits [B, S, V] fp32. Takes token ids or
     embeddings, never both."""
     if (input_ids is None) == (inputs_embeds is None):
@@ -364,7 +391,8 @@ def forward(params: dict, cfg: LlamaConfig,
         inputs_embeds = embed(params, input_ids, dtype)
     h = forward_hidden(params, cfg, inputs_embeds, attention_mask, positions,
                        kv_cache, use_flash, activation_quant, remat,
-                       lora_scale, decode_rows)
+                       lora_scale, decode_rows, ring_mesh, ring_axis,
+                       ring_layout)
     return logits_from_hidden(params, h, valid_vocab(cfg), decode_rows)
 
 
@@ -378,11 +406,33 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor):
     return torch.where(ok, nll, 0.0).sum(), ok.sum()
 
 
-def clm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _mean(nll: torch.Tensor, count: torch.Tensor,
+          reduce_count=None) -> torch.Tensor:
+    """nll / count, the count first summed over the ranks that share the
+    batch (``reduce_count``, when given): the global mean over valid
+    targets."""
+    if reduce_count is not None:
+        count = reduce_count(count)
+    return nll / torch.clamp(count, min=1)
+
+
+def clm_loss(logits: torch.Tensor, labels: torch.Tensor,
+             reduce_count=None) -> torch.Tensor:
     """Shift-by-one cross-entropy, mean over the labels that are not
     IGNORE_ID (-100)."""
     nll, count = _nll(logits[:, :-1, :], labels[:, 1:])
-    return nll / torch.clamp(count, min=1)
+    return _mean(nll, count, reduce_count)
+
+
+def clm_loss_aligned(logits: torch.Tensor, targets: torch.Tensor,
+                     reduce_count=None) -> torch.Tensor:
+    """Position-aligned cross-entropy: ``targets[:, i]`` is the token the
+    logits at position i predict (IGNORE_ID elsewhere): ``clm_loss`` after
+    the caller has shifted the labels, for layouts whose positions are
+    permuted (the ring's zig-zag), where a shift inside the loss would be
+    wrong."""
+    nll, count = _nll(logits, targets)
+    return _mean(nll, count, reduce_count)
 
 
 def _chunk_nll(w, valid: Optional[int], h_c: torch.Tensor,
@@ -392,15 +442,21 @@ def _chunk_nll(w, valid: Optional[int], h_c: torch.Tensor,
 
 
 def clm_loss_chunked(params: dict, h: torch.Tensor, labels: torch.Tensor,
-                     chunk: int = 1024, valid: Optional[int] = None
-                     ) -> torch.Tensor:
+                     chunk: int = 1024, valid: Optional[int] = None,
+                     targets_aligned: bool = False,
+                     reduce_count=None) -> torch.Tensor:
     """``clm_loss(logits_from_hidden(params, h), labels)`` straight from the
     final hidden states, ``chunk`` positions at a time: each chunk's fp32
     logits exist only inside its checkpointed function (recomputed in the
-    backward), never the whole [B, S, V]."""
+    backward), never the whole [B, S, V]. ``targets_aligned``: the labels
+    are already the next-token targets of their positions
+    (``clm_loss_aligned``)."""
     b = h.shape[0]
-    targets = torch.cat([labels[:, 1:], labels.new_full((b, 1), IGNORE_ID)],
-                        dim=1)
+    if targets_aligned:
+        targets = labels
+    else:
+        targets = torch.cat([labels[:, 1:],
+                             labels.new_full((b, 1), IGNORE_ID)], dim=1)
     fn = partial(_chunk_nll, params["lm_head"], valid)
     nll_sum, count = 0.0, 0
     for start in range(0, h.shape[1], chunk):
@@ -408,4 +464,4 @@ def clm_loss_chunked(params: dict, h: torch.Tensor, labels: torch.Tensor,
                               targets[:, start:start + chunk],
                               use_reentrant=False)
         nll_sum, count = nll_sum + nll, count + cnt
-    return nll_sum / torch.clamp(count, min=1)
+    return _mean(nll_sum, count, reduce_count)

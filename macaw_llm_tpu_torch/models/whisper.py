@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from macaw_llm_tpu_torch.config import WhisperConfig
 from macaw_llm_tpu_torch.models import _tree
-from macaw_llm_tpu_torch.models._tree import layer, normal, num_layers
+from macaw_llm_tpu_torch.models._tree import layer_fn, normal, num_layers
 from macaw_llm_tpu_torch.models.remat import checkpointed
 from macaw_llm_tpu_torch.ops.activations import gelu
 from macaw_llm_tpu_torch.ops.attention import mha_apply
@@ -118,8 +118,8 @@ def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
     for i in range(n):
         if layer_keep is not None and not layer_keep[i]:
             continue
-        fn = partial(_encoder_layer, cfg, layer(layers, i),
-                     use_flash=use_flash, activation_quant=activation_quant)
-        x = checkpointed(fn, remat, x)
+        fn = layer_fn(partial(_encoder_layer, cfg), layers, i)
+        x = checkpointed(partial(fn, use_flash=use_flash,
+                                 activation_quant=activation_quant), remat, x)
     return layer_norm(x, params["layer_norm"]["w"], params["layer_norm"]["b"],
                       cfg.layer_norm_eps)

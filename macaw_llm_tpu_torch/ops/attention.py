@@ -19,6 +19,8 @@ All apply functions are batch-first: [B, S, E].
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -133,6 +135,24 @@ def mha_apply(params: dict, num_heads: int, q_in: torch.Tensor,
     return _proj(params["o"], _merge_heads(out))
 
 
+# (first row, rows of the whole batch) of this process's batch rows, set by
+# a trainer that cuts the batch over a mesh (``batch_rows``)
+_BATCH_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def batch_rows(first: int, total: int):
+    """Within it, the dropout masks are drawn for the whole batch of
+    ``total`` rows and this process keeps its rows ``first:first + B``: the
+    masks of one device whatever the mesh."""
+    token = _BATCH_ROWS.set((first, total))
+    try:
+        yield
+    finally:
+        _BATCH_ROWS.reset(token)
+
+
 def dropout_seed(rng: torch.Generator) -> int:
     """One 63-bit seed from a (CPU) generator: the base of an attention's
     per-chunk dropout masks."""
@@ -149,13 +169,18 @@ def _dropout_keep(seed: int, start: int, shape, rate: float,
 
 
 def _dropout_chunk(q, k_c, v_c, scale: float, rate: float, seed: int,
-                   start: int, shared: bool):
+                   start: int, shared: bool, rows=None):
     acc = torch.promote_types(q.dtype, torch.float32)
     eq = "bqnd,knd->bnqk" if shared else "bqnd,bknd->bnqk"
     logits = torch.einsum(eq, q.to(acc), k_c.to(acc)) * scale
     m = logits.amax(-1)                                    # [B, N, Sq]
     p = torch.exp(logits - m[..., None])
-    keep = _dropout_keep(seed, start, p.shape, rate, p.device)
+    if rows is None:
+        keep = _dropout_keep(seed, start, p.shape, rate, p.device)
+    else:  # (first, total): the whole batch's mask, this process's rows
+        first, total = rows
+        keep = _dropout_keep(seed, start, (total,) + tuple(p.shape[1:]),
+                             rate, p.device)[first:first + p.shape[0]]
     pd = torch.where(keep, p, 0.0).to(v_c.dtype).to(acc)
     part = torch.einsum("bnqk,knd->bnqd" if shared else "bnqk,bknd->bnqd",
                         pd, v_c.to(acc))
@@ -186,6 +211,7 @@ def dropout_attention_chunked(qh: torch.Tensor, kh: torch.Tensor,
         chunk = max(128, (64 * 2 ** 20) // max(b * n * sq * 4, 1))
         chunk = min(sk, ((chunk + 127) // 128) * 128)
     seed = dropout_seed(rng)
+    rows = _BATCH_ROWS.get()
     acc = torch.promote_types(qh.dtype, torch.float32)
     m_run = torch.full((b, n, sq), NEG_INF, dtype=acc, device=qh.device)
     l_run = torch.zeros((b, n, sq), dtype=acc, device=qh.device)
@@ -196,7 +222,7 @@ def dropout_attention_chunked(qh: torch.Tensor, kh: torch.Tensor,
         else:
             k_c, v_c = kh[:, start:start + chunk], vh[:, start:start + chunk]
         m_c, l_c, part = checkpoint(_dropout_chunk, qh, k_c, v_c, scale,
-                                    rate, seed, start, shared,
+                                    rate, seed, start, shared, rows,
                                     use_reentrant=False)
         m_new = torch.maximum(m_run, m_c)
         corr_run = torch.exp(m_run - m_new)

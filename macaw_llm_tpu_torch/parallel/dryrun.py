@@ -1,0 +1,287 @@
+"""Multi-process dry run (counterpart of ``__graft_entry__.dryrun_multichip``)
+and the worker entry that runs a task in each process of a job.
+
+    python -m macaw_llm_tpu_torch.parallel.dryrun --procs 4 [--device cuda]
+
+starts n processes (gloo on the CPU; nccl with one card a rank), joins
+them through a ``FileStore`` (no port to race for), and runs one sharded
+train step of the tiny config over the mesh (1, 1, n/2, 2) (or (1, 1, n,
+1) for odd n): each rank prints its shard shapes and the loss.
+
+``spawn(world, task, payload)`` is the same start-up for any task of
+``TASKS``: ``train`` (the Trainer over a mesh on given weights and whole
+batches, with an optional restore, save and eval), ``ring`` (ring
+attention on given q/k/v), ``run_train`` (``run_train.main`` in every
+process) and ``dryrun``. A worker imports torch and this package only.
+Each rank writes its results to ``<out>/rank<r>.pt``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import torch
+import torch.distributed as dist
+
+from macaw_llm_tpu_torch.config import (Config, MeshConfig, TrainConfig,
+                                        tiny_model_config)
+
+
+def _mesh_cfg(shape) -> MeshConfig:
+    c, d, f, t = shape
+    return MeshConfig(dcn=c, data=d, fsdp=f, tensor=t)
+
+
+def _shapes(tree, prefix=""):
+    from macaw_llm_tpu_torch.parallel.sharding import tree_paths
+    return {p: list(x.shape) for p, x in tree_paths(tree, prefix)}
+
+
+def task_train(p: dict, device, out: str) -> None:
+    """The Trainer over the mesh ``p["mesh"]``, for each run of
+    ``p["runs"]``: init from ``run["params"]`` (a saved whole tree),
+    optionally restore ``run["restore"]``, one train step per whole batch
+    of ``run["batches"]`` (each rank takes its rows), optionally save to
+    ``run["save"]`` and evaluate ``run["eval"]`` (whole [B, ...] batches);
+    {"runs": results} (losses, shard shapes, collectives, the whole
+    trainable tree and moments after the steps) to ``out``."""
+    from macaw_llm_tpu_torch.parallel.mesh import create_mesh
+    mesh = create_mesh(_mesh_cfg(p["mesh"]), device)
+    torch.save({"runs": [_train_run(r, mesh, p["mesh"], device)
+                         for r in p["runs"]]}, out)
+
+
+def _train_run(run: dict, mesh, shape, device) -> dict:
+    from macaw_llm_tpu_torch.parallel.sharding import COLLECTIVES
+    from macaw_llm_tpu_torch.train.checkpoint import CheckpointManager
+    from macaw_llm_tpu_torch.train.trainer import Trainer
+    cfg = Config.from_dict({"model": run["model"], "train": run["train"]})
+    cfg = Config(model=cfg.model, train=cfg.train, mesh=_mesh_cfg(shape))
+    cfg.validate(world_size=dist.get_world_size())
+    tr = Trainer(cfg.model, cfg.train, run.get("total_steps", 10),
+                 device=device, mesh=mesh)
+    state = tr.init_state(torch.load(run["params"], weights_only=False))
+    res = {}
+    if run.get("restore"):
+        state = CheckpointManager(run["restore"], trainer=tr).restore(state)
+        whole = tr.whole_state(state)
+        res["restored"] = {"trainable": whole.trainable,
+                           "mu": whole.opt_state.mu,
+                           "nu": whole.opt_state.nu, "step": whole.step}
+    res.update({"loss": [], "grad_norm": [], "lr": [],
+           "shapes": {"trainable": _shapes(state.trainable),
+                      "frozen": _shapes(state.frozen),
+                      "mu": _shapes(state.opt_state.mu),
+                      "nu": _shapes(state.opt_state.nu)}})
+    COLLECTIVES.clear()
+    for batch in (torch.load(run["batches"], weights_only=False)
+                  if run.get("batches") else []):
+        batch = tr.shard_batch({k: v.to(tr.device) for k, v in batch.items()})
+        state, m = tr.train_step(state, batch)
+        for k in ("loss", "grad_norm"):
+            res[k].append(float(m[k]))
+        res["lr"].append(m["lr"])
+    res["collectives"] = dict(COLLECTIVES)
+    if run.get("save"):
+        ckpt = CheckpointManager(run["save"], save_steps=1, trainer=tr)
+        ckpt.save(state, cfg, force=True)
+        ckpt.wait()
+        res["last_save"] = ckpt.last_save
+    if run.get("eval"):
+        evals = []
+        for batch in torch.load(run["eval"], weights_only=False):
+            b = tr.shard_batch({k: v[None].to(tr.device)
+                                for k, v in batch.items()})
+            evals.append({k: v[0] for k, v in b.items()})
+        res["eval"] = tr.evaluate(state, evals)
+    whole = tr.whole_state(state)
+    if dist.get_rank() == 0:
+        res["trainable"] = whole.trainable
+        res["mu"], res["nu"] = whole.opt_state.mu, whole.opt_state.nu
+    res["step"] = state.step
+    return res
+
+
+def _leaves(tree):
+    from macaw_llm_tpu_torch.parallel.sharding import tree_paths
+    return [x for _, x in tree_paths(tree)]
+
+
+def task_ring(p: dict, device, out: str) -> None:
+    """``ring_attention`` over the mesh axis "tensor" of a (1, 1, 1, n)
+    mesh on this rank's chunk of the whole q/k/v in ``p["qkv"]`` (in the
+    layout's order), for each layout of ``p["layouts"]``: the output and
+    the gradients of sum(out * g)."""
+    from macaw_llm_tpu_torch.parallel.mesh import create_mesh
+    from macaw_llm_tpu_torch.parallel.ring_attention import ring_attention
+    n = dist.get_world_size()
+    mesh = create_mesh(MeshConfig(dcn=1, data=1, fsdp=1, tensor=n), device)
+    me = dist.get_rank()
+    res = {}
+    for layout in p["layouts"]:
+        q, k, v, g = (t.to(device).chunk(n, dim=1)[me].clone() for t in
+                      torch.load(p["qkv"][layout], weights_only=False))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        o = ring_attention(q, k, v, mesh=mesh, axis="tensor", layout=layout)
+        grads = torch.autograd.grad((o * g).sum(), (q, k, v))
+        res[layout] = {"out": o.detach().cpu(),
+                       "grads": [t.cpu() for t in grads]}
+    torch.save(res, out)
+
+
+def task_run_train(p: dict, device, out: str) -> None:
+    """``run_train.main(p["argv"])``, its model from the whole tree saved
+    at ``p["params"]`` when given (else ``load_pretrained``); the final
+    step to ``out``."""
+    from macaw_llm_tpu_torch import run_train
+    if p.get("params"):
+        run_train.load_pretrained = lambda cfg, args: torch.load(
+            p["params"], weights_only=False)
+    state = run_train.main(p["argv"])
+    torch.save({"step": state.step}, out)
+
+
+def task_dryrun(p: dict, device, out: str) -> None:
+    """One sharded train step of the tiny config; prints each rank's shard
+    shapes and the loss."""
+    import numpy as np
+    from macaw_llm_tpu_torch.config import IGNORE_ID
+    from macaw_llm_tpu_torch.models import fusion
+    from macaw_llm_tpu_torch.parallel.mesh import create_mesh
+    from macaw_llm_tpu_torch.train.trainer import Trainer
+    n = dist.get_world_size()
+    t = 2 if n % 2 == 0 else 1
+    mcfg = tiny_model_config()
+    tcfg = TrainConfig(per_device_batch_size=1, grad_accum_steps=1)
+    mesh = create_mesh(_mesh_cfg((1, 1, n // t, t)), device)
+    tr = Trainer(mcfg, tcfg, total_steps=10, device=device, mesh=mesh)
+    state = tr.init_state(fusion.init_params(0, mcfg, device="cpu"))
+    rng = np.random.RandomState(7)
+    b, s = n, 16
+    ids = rng.randint(16, 32000, (1, b, s))
+    ids[:, :, 0] = 1
+    labels = ids.copy()
+    labels[:, :, :4] = IGNORE_ID
+    batch = {"input_ids": torch.from_numpy(ids),
+             "attention_mask": torch.ones(1, b, s, dtype=torch.long),
+             "labels": torch.from_numpy(labels)}
+    state, m = tr.train_step(state, tr.shard_batch(
+        {k: v.to(tr.device) for k, v in batch.items()}))
+    shapes = _shapes(state.trainable)
+    print(f"RANK {dist.get_rank()} mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
+          f"llm/layers/attn/wq {shapes['llm/layers/attn/wq']} "
+          f"llm/embed_tokens {shapes['llm/embed_tokens']} "
+          f"loss {float(m['loss']):.6f}", flush=True)
+    torch.save({"loss": float(m["loss"]), "shapes": shapes}, out)
+
+
+TASKS = {"train": task_train, "ring": task_ring, "run_train": task_run_train,
+         "dryrun": task_dryrun}
+
+
+def worker(rank: int, world: int, store: str, device: str, task: str,
+           payload: dict, out_dir: str) -> None:
+    """One process of a job: join the group (a FileStore at ``store``),
+    run ``TASKS[task]``, leave the group."""
+    from macaw_llm_tpu_torch.parallel.mesh import multihost_initialize
+    torch.set_num_threads(1)
+    os.environ.update(PROCESS_ID=str(rank), NUM_PROCESSES=str(world),
+                      LOCAL_RANK=str(rank))
+    multihost_initialize(device, store=dist.FileStore(store, world))
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        TASKS[task](payload, dev, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+JOB_TIMEOUT_S = 300.0  # a spawned job's processes are killed after this
+
+
+def spawn(world: int, task: str, payload: dict, out_dir: str,
+          device: str = "cpu") -> list:
+    """Run ``task`` in ``world`` fresh processes (``python -m`` this
+    module); returns each rank's results. Raises with the processes'
+    output when one fails or the job outlives ``JOB_TIMEOUT_S`` (every
+    process is killed then)."""
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    job = os.path.join(out_dir, "job.json")
+    with open(job, "w") as f:
+        json.dump({"task": task, "payload": payload, "device": device,
+                   "store": store, "out": out_dir, "world": world}, f)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    child_env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+                     OMP_NUM_THREADS="1",
+                     PYTHONPATH=os.pathsep.join(
+                         [root] + [x for x in os.environ.get(
+                             "PYTHONPATH", "").split(os.pathsep) if x]))
+    for k in ("COORDINATOR_ADDRESS", "MASTER_ADDR"):
+        child_env.pop(k, None)
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "macaw_llm_tpu_torch.parallel.dryrun",
+         "--job", job, "--rank", str(r)], env=child_env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + JOB_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"{task} over {world} processes failed (exit "
+                           f"codes {[p.returncode for p in procs]}):\n"
+                           + "\n".join(f"--- rank {r} ---\n{t[-4000:]}"
+                                       for r, t in enumerate(texts)))
+    results = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                          weights_only=False) for r in range(world)]
+    for r, t in enumerate(texts):
+        results[r] = dict(results[r], log=t)
+    return results
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--procs", type=int, default=4)
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--job", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.job:  # a worker of spawn()
+        with open(args.job) as f:
+            job = json.load(f)
+        worker(args.rank, job["world"], job["store"], job["device"],
+               job["task"], job["payload"], job["out"])
+        return 0
+    with tempfile.TemporaryDirectory() as d:
+        res = spawn(args.procs, "dryrun", {}, d, device=args.device)
+    for r in res:
+        sys.stdout.write(r["log"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -68,7 +68,11 @@ def restore_params(checkpoint_dir: str, cfg: Config, device="cuda") -> dict:
     """The whole model's parameters from the newest checkpoint under
     ``checkpoint_dir``, on ``device``, in the layout ``cfg``'s trainer
     gives them (frozen leaves in ``frozen_dtype``, an int8 base under
-    ``quantize_base``, LoRA adapters under ``lora_rank``)."""
+    ``quantize_base``, LoRA adapters under ``lora_rank``). A checkpoint
+    written on a mesh holds whole tensors and restores here as well; a
+    config that asks for a tensor axis above 1 is refused (tensor-parallel
+    serving, ROADMAP A7)."""
+    cfg.validate(serving=True)
     device = resolve_device(device)
     trainer = Trainer(cfg.model, cfg.train, total_steps=1, device=device)
     params = fusion.init_params(cfg.train.seed, cfg.model,

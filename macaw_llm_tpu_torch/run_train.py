@@ -3,16 +3,24 @@ config from a JSON file or flags, dataset cache or JSONL stream in, the
 epoch loop with gradient accumulation, periodic eval and checkpoints,
 resume, SIGTERM/SIGINT checkpoint-and-exit, ``metrics.jsonl``.
 
-Runs on one device, the GPU unless ``--device cpu`` is given. The model
-starts from random weights made from ``train.seed``; ``--llama-weights``,
-``--clip-weights`` and ``--whisper-weights`` load HF checkpoints over
-them.
+Runs on one device, the GPU unless ``--device cpu`` is given, or across
+processes, one device each: started with the reference's environment
+(COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID) or by ``torchrun``, the
+processes join one group (nccl on cards, gloo on CPUs) and train over the
+config's mesh (``parallel.mesh``; its size must be the number of
+processes). The global batch is per_device_batch_size x processes x
+grad_accum_steps; each process loads its rows; rank 0 writes
+metrics.jsonl and the checkpoints. The model starts from random weights
+made from ``train.seed``; ``--llama-weights``, ``--clip-weights`` and
+``--whisper-weights`` load HF checkpoints over them.
 
 Usage:
     python -m macaw_llm_tpu_torch.run_train --config cfg.json \\
         --cache data/train.npz --names data/all_visual_names.json \\
         --tokenizer trained_models/llama_tokenizer --output-dir out/
     python -m macaw_llm_tpu_torch.run_train --device cpu --tiny --synthetic
+    torchrun --nproc-per-node 8 -m macaw_llm_tpu_torch.run_train \\
+        --config cfg.json ...
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from macaw_llm_tpu_torch import resolve_device
 from macaw_llm_tpu_torch.config import Config, IGNORE_ID, tiny_model_config
@@ -34,8 +43,9 @@ from macaw_llm_tpu_torch.data.datasets import TokenizedDataset
 from macaw_llm_tpu_torch.data.loader import (BatchLoader, MediaSource,
                                              device_prefetch)
 from macaw_llm_tpu_torch.models import fusion
+from macaw_llm_tpu_torch.parallel.mesh import create_mesh, multihost_initialize
 from macaw_llm_tpu_torch.train.checkpoint import CheckpointManager
-from macaw_llm_tpu_torch.train.trainer import Trainer
+from macaw_llm_tpu_torch.train.trainer import Trainer, batch_layout
 from macaw_llm_tpu_torch.utils.logging import MetricsLogger, setup_logging
 
 logger = logging.getLogger("macaw.train")
@@ -169,6 +179,9 @@ def main(argv=None, on_step=None):
     args = parse_args(argv)
     setup_logging()
     device = resolve_device(args.device)
+    multi = multihost_initialize(device)
+    world = dist.get_world_size() if multi else 1
+    rank = dist.get_rank() if multi else 0
 
     if args.config:
         with open(args.config) as f:
@@ -195,12 +208,22 @@ def main(argv=None, on_step=None):
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train,
                                            eval_steps=args.eval_steps))
-    cfg.validate()
+    cfg.validate(world_size=world)
+    mesh = create_mesh(cfg.mesh, device) if multi else None
+    if mesh is not None:
+        device = torch.device(device.type, torch.cuda.current_device()) \
+            if device.type == "cuda" else device
+        logger.info("rank %d of %d, mesh %s", rank, world,
+                    dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)))
     logger.info("training on %s", device)
 
     # ---- data ----
-    global_batch = (cfg.train.per_device_batch_size
+    global_batch = (cfg.train.per_device_batch_size * world
                     * cfg.train.grad_accum_steps)
+    # this process's rows: its block of the batch axes (ranks that differ
+    # only on the other axes load the same rows)
+    shard_index, shard_count = batch_layout(cfg.model, mesh)
+    local_batch = global_batch // shard_count
     epochs = args.epochs or cfg.train.num_epochs
     names, name_table = [], {}
     if args.names:
@@ -227,10 +250,11 @@ def main(argv=None, on_step=None):
         steps_per_epoch = max(1, -(-args.steps // max(epochs, 1)))
         loader = StreamingBatchLoader(
             args.stream, tokenizer, media=media, name_table=name_table,
-            global_batch=global_batch, accum=cfg.train.grad_accum_steps,
+            global_batch=local_batch, accum=cfg.train.grad_accum_steps,
             max_text_len=cfg.data.max_text_len,
             shuffle_buffer=args.shuffle_buffer, seed=cfg.train.seed,
-            steps_per_epoch=steps_per_epoch)
+            steps_per_epoch=steps_per_epoch, process_index=shard_index,
+            process_count=shard_count)
     else:
         if args.synthetic or not args.cache:
             ds = synthetic_dataset(cfg)
@@ -240,9 +264,10 @@ def main(argv=None, on_step=None):
             media = MediaSource(names, cfg.data,
                                 image_size=cfg.model.vision.image_size,
                                 n_frames=cfg.model.fusion.n_frames)
-        loader = BatchLoader(ds, media, global_batch=global_batch,
+        loader = BatchLoader(ds, media, global_batch=local_batch,
                              accum=cfg.train.grad_accum_steps,
-                             seed=cfg.train.seed)
+                             seed=cfg.train.seed, process_index=shard_index,
+                             process_count=shard_count)
     total_steps = max(1, loader.steps_per_epoch * epochs)
     if args.steps:
         total_steps = min(total_steps, args.steps)
@@ -258,8 +283,10 @@ def main(argv=None, on_step=None):
             eval_ds = synthetic_dataset(cfg, n=32, seed=1234)
             eval_media = None if args.no_media else _zero_media(cfg)
         eval_loader = BatchLoader(
-            eval_ds, eval_media, global_batch=cfg.train.per_device_batch_size,
-            accum=1, seed=cfg.train.seed)
+            eval_ds, eval_media,
+            global_batch=cfg.train.per_device_batch_size * world
+            // shard_count, accum=1, seed=cfg.train.seed,
+            process_index=shard_index, process_count=shard_count)
 
     # ---- model / trainer / resume ----
     params = load_pretrained(cfg, args)
@@ -268,7 +295,8 @@ def main(argv=None, on_step=None):
         params["llm"]["layers"]["lora"] = init_lora(
             torch.Generator(device=device).manual_seed(cfg.train.seed + 1),
             cfg.model.llm, cfg.train.lora_rank)
-    trainer = Trainer(cfg.model, cfg.train, total_steps, device=device)
+    trainer = Trainer(cfg.model, cfg.train, total_steps, device=device,
+                      mesh=mesh)
     state = trainer.init_state(params)
     del params
 
@@ -276,7 +304,8 @@ def main(argv=None, on_step=None):
         ckpt = CheckpointManager(args.output_dir,
                                  save_steps=cfg.train.save_steps,
                                  max_to_keep=cfg.train.save_total_limit,
-                                 snapshot=cfg.train.ckpt_snapshot)
+                                 snapshot=cfg.train.ckpt_snapshot,
+                                 trainer=trainer)
     else:
         ckpt = _NullCkpt()
     if cfg.train.resume and ckpt.latest_step() is not None:
@@ -284,8 +313,8 @@ def main(argv=None, on_step=None):
         state = ckpt.restore(state)
 
     metrics_log = MetricsLogger(
-        os.path.join(args.output_dir, "metrics.jsonl"),
-        log_every=cfg.train.log_steps)
+        os.path.join(args.output_dir, "metrics.jsonl") if rank == 0
+        else None, log_every=cfg.train.log_steps)
 
     logged_saves = set()
 
@@ -295,7 +324,7 @@ def main(argv=None, on_step=None):
         ckpt.save(state, cfg, force=True)
         ckpt.wait()
         s = ckpt.last_save
-        if s is not None and s["step"] not in logged_saves:
+        if s is not None and s["step"] not in logged_saves and rank == 0:
             logged_saves.add(s["step"])
             metrics_log.log(s["step"], {
                 "ckpt_bytes": s["bytes"], "ckpt_blocking_ms": s["blocking_ms"],
@@ -344,7 +373,8 @@ def main(argv=None, on_step=None):
                 m = dict(m)
                 m["loader_wait_s"] = round(loader_wait_s, 6)
                 metrics_log.log(step, m, tokens_per_batch=tokens_per_batch,
-                                examples_per_batch=global_batch, n_chips=1)
+                                examples_per_batch=global_batch,
+                                n_chips=world)
                 if on_step is not None:
                     on_step(step, state, m)
                 if (eval_loader is not None and cfg.train.eval_steps > 0
@@ -354,6 +384,11 @@ def main(argv=None, on_step=None):
                     metrics_log.log(step, em)
                     metrics_log.flush()
                 ckpt.save(state, cfg)
+                if multi:  # every rank stops at the same step
+                    flag = torch.tensor(float(preempted["flag"]),
+                                        device=device)
+                    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                    preempted["flag"] = bool(flag.item())
                 if preempted["flag"]:
                     save_and_wait(state)
                     logger.warning("checkpointed at step %d after "

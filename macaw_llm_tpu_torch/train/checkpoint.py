@@ -24,7 +24,13 @@ since ``train_step`` updates the state in place:
 * fenced: the mutable state is copied to the host before ``save``
   returns. Taken when ``snapshot=False`` or when the device has less free
   memory than 1.1x the device-resident bytes of the mutable state (host
-  tensors cost no device memory and are not counted).
+  tensors cost no device memory and are not counted);
+* gathered: a state sharded over a mesh (a ``Trainer`` with a mesh is
+  given as ``trainer``) is gathered leaf by leaf into whole tensors on
+  rank 0's host (every rank takes part in each gather), rank 0 writes the
+  same file before ``save`` returns, and the other ranks wait at a
+  barrier. Restore cuts the whole leaves into the
+  trainer's shards, so a checkpoint moves between meshes and one device.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from macaw_llm_tpu_torch.config import Config
 from macaw_llm_tpu_torch.train.state import TrainState
@@ -65,11 +72,16 @@ def _mutable(state: TrainState) -> dict:
 
 class CheckpointManager:
     def __init__(self, directory: str, save_steps: int = 5000,
-                 max_to_keep: int = 1, snapshot: bool = True):
+                 max_to_keep: int = 1, snapshot: bool = True,
+                 trainer=None):
         """``save_steps`` gates un-forced saves to multiples of it;
         ``max_to_keep`` newest steps are kept; ``snapshot`` selects the
-        device-copy save (see the module docstring)."""
+        device-copy save (see the module docstring); ``trainer``, a
+        ``Trainer`` over a mesh, the gathered save and the sharded
+        restore."""
         self.directory = os.path.abspath(directory)
+        self.trainer = trainer if trainer is not None and \
+            trainer.mesh is not None else None
         self.save_steps = max(save_steps, 1)
         self.max_to_keep = max(max_to_keep, 1)
         self.snapshot = snapshot
@@ -139,6 +151,8 @@ class CheckpointManager:
         self.wait()  # one write in flight
         if step in self.all_steps():
             return False
+        if self.trainer is not None:
+            return self._save_gathered(state, config)
         t0 = time.perf_counter()
         snapshot = self.snapshot and self._snapshot_ok(state)
         mutable = _mutable(state)
@@ -173,6 +187,37 @@ class CheckpointManager:
         self._thread.start()
         return True
 
+    def _save_gathered(self, state: TrainState,
+                       config: Optional[Config]) -> bool:
+        """The gathered save of a sharded state (every rank calls it)."""
+        t0 = time.perf_counter()
+        whole = self.trainer.whole_state(state, rank0_only=True)
+        rank0 = dist.get_rank() == 0
+        mutable = _mutable(whole)
+        payload = {"step": whole.step, "frozen": whole.frozen,
+                   "count": whole.opt_state.count,
+                   "rng": whole.rng.get_state()}
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(mutable)
+                     + _leaves(whole.frozen)) if rank0 else None
+        self._error = None
+        try:
+            if rank0:
+                if config is not None:
+                    _atomic_write(os.path.join(self.directory,
+                                               "config.json"),
+                                  config.to_json().encode())
+                self._write(payload, mutable, None, None)
+        finally:
+            dist.barrier()
+        self.last_save = {"step": whole.step, "mode": "gathered",
+                          "bytes": nbytes,
+                          "blocking_ms": (time.perf_counter() - t0) * 1e3,
+                          "write_s": self._write_s if rank0 else None}
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("checkpoint write failed") from err
+        return True
+
     def _write(self, payload: dict, mutable: dict, dev, ready) -> None:
         t0 = time.perf_counter()
         try:
@@ -180,8 +225,9 @@ class CheckpointManager:
                 side = torch.cuda.Stream(dev)
                 side.wait_event(ready)
                 with torch.cuda.stream(side):
-                    for t in _leaves(mutable):
-                        t.record_stream(side)
+                    for t in _leaves(mutable):  # offloaded moments are host
+                        if t.is_cuda:           # tensors already
+                            t.record_stream(side)
                     mutable = _tree_map(lambda t: t.cpu(), mutable)
             record = {"step": payload["step"],
                       "trainable": mutable["trainable"],
@@ -238,27 +284,43 @@ class CheckpointManager:
                          map_location="cpu", weights_only=True)
         rng = torch.Generator(device=target.rng.device)
         rng.set_state(rec["rng"])
+        tr = self.trainer
+
+        def place(saved, like, kind):
+            return _place(saved, like, kind, "", tr)
+
         return TrainState(
             step=rec["step"],
-            trainable=_place(rec["trainable"], target.trainable, "trainable"),
-            frozen=_place(rec["frozen"], target.frozen, "frozen"),
+            trainable=place(rec["trainable"], target.trainable, "trainable"),
+            frozen=place(rec["frozen"], target.frozen, "frozen"),
             opt_state=AdamWState(
                 count=rec["opt"]["count"],
-                mu=_place(rec["opt"]["mu"], target.opt_state.mu, "mu"),
-                nu=_place(rec["opt"]["nu"], target.opt_state.nu, "nu")),
+                mu=place(rec["opt"]["mu"], target.opt_state.mu, "trainable"),
+                nu=place(rec["opt"]["nu"], target.opt_state.nu,
+                         "trainable")),
             rng=rng)
 
 
-def _place(saved, target, path: str):
+def _place(saved, target, kind: str, path: str, trainer=None):
+    """The saved whole leaves in ``target``'s layout: its device (pinned
+    host memory kept pinned), or this rank's shards of them when the
+    ``trainer`` holds a sharded state."""
+    where = f"{kind}{path}"
     if isinstance(target, dict):
         if not isinstance(saved, dict) or set(saved) != set(target):
-            raise ValueError(f"checkpoint tree differs at {path}")
-        return {k: _place(saved[k], target[k], f"{path}/{k}")
+            raise ValueError(f"checkpoint tree differs at {where}")
+        return {k: _place(saved[k], target[k], kind, f"{path}/{k}", trainer)
                 for k in target}
+    if trainer is not None and saved.dtype == target.dtype:
+        saved = trainer.shard_leaf(kind, path[1:], saved, target)
     if saved.shape != target.shape or saved.dtype != target.dtype:
-        raise ValueError(f"checkpoint leaf {path}: {saved.dtype}"
+        raise ValueError(f"checkpoint leaf {where}: {saved.dtype}"
                          f"{list(saved.shape)} vs {target.dtype}"
                          f"{list(target.shape)}")
+    if trainer is not None:
+        return saved
+    if target.device.type == "cpu" and target.is_pinned():
+        return saved.pin_memory()
     return saved.to(target.device)
 
 

@@ -1,5 +1,6 @@
 """Training loop of the fused model (counterpart of
-``macaw_llm_tpu/train/trainer.py``, one device, no mesh).
+``macaw_llm_tpu/train/trainer.py``), on one device or data-parallel over a
+mesh with ZeRO-3 sharding.
 
 * optimizer: ``clip_by_global_norm`` then AdamW with a warmup + cosine
   (or linear, or constant) schedule, with optax's semantics: the clip
@@ -15,8 +16,29 @@
   the int8 base, the towers and (with ``align_cache``) the alignment K/V
   projections are frozen.
 
+* ``offload_optimizer``: Adam's moments live in pinned host memory
+  between steps; the update copies them in leaf by leaf on a side stream
+  (the next leaf's while the current one updates) and back, non-blocking,
+  into the same pinned buffers: the same AdamW on the device, the same
+  bits.
+
+Over a mesh (``parallel.mesh.create_mesh``; one process a device) every
+rank holds the partition rules' shards of the trainable and frozen
+parameters and of Adam's moments. The batch is cut over (dcn, data, fsdp)
+and, with ring attention, the fused sequence over the ring axis. The
+forward gathers the unstacked leaves once and the stacked [L, ...] leaves
+one layer at a time inside the layer's (remat) function
+(``parallel.sharding.GatherLayer``); the backward reduce-scatters their
+gradients into the shards' buffers, and the mesh axes that cut neither the
+leaf nor the work (replicas) are summed after it. The loss is the global
+mean over valid targets: each rank divides its NLL sum by the count summed
+over the batch (and ring) axes, and ranks that compute the same rows (the
+tensor axis without the ring: it cuts storage only) each carry 1/t of it.
+The gradient norm sums each leaf's squares once over the axes that cut it.
+Dropout masks are drawn for the whole batch on every rank, which keeps its
+rows: the masks of one device whatever the mesh.
+
 The state is updated in place (the reference's is a new pytree per step).
-Mesh, sharding, optimizer offload and ring attention are not ported.
 """
 
 from __future__ import annotations
@@ -74,6 +96,48 @@ def make_lr_schedule(cfg: TrainConfig,
     return schedule
 
 
+def _moments_on(params: list, mus: list, nus: list):
+    """(m, v) pairs on the parameters' device: the moments themselves, or,
+    for moments offloaded to the host, device copies fetched on a side
+    stream one leaf ahead; after the caller has updated a pair in place it
+    is copied back (non-blocking) into the host buffers, and the stream is
+    synchronized at the end, so that the host holds every moment when the
+    update returns."""
+    if not params or mus[0].device == params[0].device:
+        yield from zip(mus, nus)
+        return
+    dev = params[0].device
+    cur, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+
+    def fetch(i):
+        with torch.cuda.stream(side):
+            pair = (mus[i].to(dev, non_blocking=True),
+                    nus[i].to(dev, non_blocking=True))
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return pair, ready
+
+    nxt = fetch(0)
+    for i in range(len(mus)):
+        (m, v), ready = nxt
+        if i + 1 < len(mus):
+            nxt = fetch(i + 1)
+        cur.wait_event(ready)
+        m.record_stream(cur)
+        v.record_stream(cur)
+        yield m, v
+        mus[i].copy_(m, non_blocking=True)
+        nus[i].copy_(v, non_blocking=True)
+    cur.synchronize()
+
+
+def _offload(tree):
+    """Moments to host memory, pinned (CPU moments stay as they are)."""
+    return _tree_map(lambda t: t if t.device.type == "cpu"
+                     else t.cpu().pin_memory(), tree)
+
+
 def _weak(x: float, t: torch.Tensor) -> float:
     """``x`` rounded to ``t``'s dtype: JAX casts a Python scalar to the
     dtype of the array it meets, so optax's bf16 moments are updated with
@@ -106,22 +170,27 @@ class AdamW:
             nu=_tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict,
-               state: AdamWState) -> torch.Tensor:
+    def update(self, params: dict, grads: dict, state: AdamWState,
+               g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step: clip, Adam moments, bias correction, decoupled weight
         decay, the scheduled learning rate; ``params`` and ``state`` change
-        in place. Returns the global norm of ``grads`` (before the clip)."""
+        in place (moments in host memory are streamed through the device,
+        ``_moments_on``). Returns the global norm of ``grads`` (before the
+        clip), or uses ``g_norm`` when given (a sharded state's)."""
         c = self.cfg
         ps, gs = _leaves(params), _leaves(grads)
         mus, nus = _leaves(state.mu), _leaves(state.nu)
         # in fp32 (optax sums bf16 gradients in bf16); the clip divides
         # by it rounded to the gradients' dtype, as optax does
-        g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in gs))
+        if g_norm is None:
+            g_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in gs))
         keep = g_norm < c.max_grad_norm
         count = state.count + 1
         lr = self.schedule(state.count)
         bc1, bc2 = 1.0 - c.adam_b1 ** count, 1.0 - c.adam_b2 ** count
-        for p, g, m, v in zip(ps, gs, mus, nus):
+        # the stream of moments first: zip then runs it to its end (the
+        # last copy back and the synchronize)
+        for (m, v), p, g in zip(_moments_on(ps, mus, nus), ps, gs):
             g = torch.where(keep, g, g / g_norm.to(g.dtype)
                             * _weak(c.max_grad_norm, g))
             m_new = _weak(1.0 - c.adam_b1, g) * g + _weak(c.adam_b1, m) * m
@@ -208,17 +277,56 @@ def _cast_frozen(tree, dtype):
 
 class Trainer:
     """Binds a model and training configuration to train and eval steps on
-    one device (the GPU unless ``device="cpu"`` is asked for)."""
+    one device (the GPU unless ``device="cpu"`` is asked for), or, given a
+    ``mesh`` (``parallel.mesh.create_mesh``), on this process's device of
+    the mesh with the state sharded (see the module docstring)."""
 
     def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig,
-                 total_steps: int, device="cuda"):
+                 total_steps: int, device="cuda", mesh=None):
         self.mcfg, self.tcfg = mcfg, tcfg
+        self.mesh = mesh
+        if mesh is not None:
+            device = ("cpu" if mesh.device_type == "cpu" else
+                      torch.device("cuda", torch.cuda.current_device()))
         self.device = resolve_device(device)
         self.total_steps = total_steps
         self.tx = make_optimizer(tcfg, total_steps)
         self.lr_schedule = self.tx.schedule
         self.lora_scale = tcfg.lora_alpha / max(tcfg.lora_rank, 1)
         self.align_cache = None
+        self.specs = None  # {"trainable": specs, "frozen": specs} on a mesh
+        if mesh is not None:
+            self._mesh_axes(mesh)
+
+    # -------------------- the mesh's axes --------------------
+
+    def _mesh_axes(self, mesh) -> None:
+        from macaw_llm_tpu_torch.parallel.mesh import axis_size
+        ring = self.mcfg.ring_attention
+        # axes that cut the batch rows, and the ranks that hold them
+        self.batch_axes = _batch_axes(self.mcfg)
+        self.batch_index, self.batch_count = batch_layout(self.mcfg, mesh)
+        # axes whose ranks compute different parts of the loss
+        self.loss_axes = self.batch_axes + (
+            (self.mcfg.ring_axis,) if ring else ())
+        # the others hold replicas of the same work
+        self.replicas = axis_size(mesh, tuple(
+            a for a in mesh.mesh_dim_names if a not in self.loss_axes))
+
+    def shard_batch(self, batch: Dict[str, torch.Tensor]) -> dict:
+        """This rank's rows of a whole batch [A, B, ...]: block
+        ``batch_index`` of the ``batch_count`` blocks of B (the batch
+        layout of the reference's ``P(None, (dcn, data, fsdp))``)."""
+        def rows(x):
+            b = x.shape[1] // self.batch_count
+            return x[:, self.batch_index * b:(self.batch_index + 1) * b]
+        return {k: rows(v) for k, v in batch.items()}
+
+    def _reduce_count(self, axes):
+        from macaw_llm_tpu_torch.parallel.sharding import all_reduce
+        return lambda c: all_reduce(c.clone(), self.mesh, axes)
+
+    # -------------------- state --------------------
 
     @torch.no_grad()
     def init_state(self, params: dict,
@@ -226,7 +334,9 @@ class Trainer:
         """The state over ``params`` (moved to the trainer's device): the
         int8 base (``quantize_base``), the trainable/frozen split, frozen
         leaves cast to ``frozen_dtype``, packed frozen towers, zero AdamW
-        moments and, under LoRA, the alignment K/V cache computed once."""
+        moments (in host memory under ``offload_optimizer``) and, under
+        LoRA, the alignment K/V cache computed once. Over a mesh every rank
+        passes the whole tree and keeps its shards."""
         t = self.tcfg
         params = _tree_map(lambda x: x.to(self.device), params)
         if t.quantize_base:
@@ -253,11 +363,6 @@ class Trainer:
                                   attn=pack_mha(frozen[tower]["layers"]
                                                 ["attn"]))
                     frozen[tower] = dict(frozen[tower], layers=layers)
-        state = TrainState(
-            step=0, trainable=trainable, frozen=frozen,
-            opt_state=self.tx.init(trainable),
-            rng=rng if rng is not None else
-            torch.Generator().manual_seed(t.seed))
         if t.lora_rank > 0 and t.align_cache != "off":
             # precomputed once and constant: the align in-proj K/V rows
             # and bias_k/bias_v take zero gradients and never move, so the
@@ -265,28 +370,126 @@ class Trainer:
             self.align_cache = fusion.precompute_align_cache(
                 merge_params(trainable, frozen), self.mcfg,
                 quantize=t.align_cache == "int8")
-        return state
+        if self.mesh is not None:
+            from macaw_llm_tpu_torch.parallel.sharding import shard_params
+            trainable, t_specs = shard_params(trainable, self.mesh)
+            frozen, f_specs = shard_params(frozen, self.mesh)
+            self.specs = {"trainable": t_specs, "frozen": f_specs}
+        opt_state = self.tx.init(trainable)
+        if t.offload_optimizer:
+            opt_state.mu = _offload(opt_state.mu)
+            opt_state.nu = _offload(opt_state.nu)
+        return TrainState(
+            step=0, trainable=trainable, frozen=frozen, opt_state=opt_state,
+            rng=rng if rng is not None else
+            torch.Generator().manual_seed(t.seed))
+
+    # -------------------- steps --------------------
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
-        """One optimizer step over a [A, B, ...] batch; see ``train_step``."""
-        return train_step(state, batch, self.mcfg, self.tx, self.lora_scale,
-                          getattr(torch, self.tcfg.grad_dtype),
-                          self.align_cache)
+        """One optimizer step over a [A, B, ...] batch; see ``train_step``.
+        Over a mesh, ``batch`` is this rank's rows (``shard_batch``), with
+        the whole fused sequence under ring attention."""
+        if self.mesh is None:
+            return train_step(state, batch, self.mcfg, self.tx,
+                              self.lora_scale,
+                              getattr(torch, self.tcfg.grad_dtype),
+                              self.align_cache)
+        return self._sharded_step(state, batch)
+
+    def _entries(self, trainable: dict, frozen: dict, grads=None) -> list:
+        """(path, shard, spec, gradient buffer or None) of every leaf."""
+        from macaw_llm_tpu_torch.parallel.sharding import at_path, tree_paths
+        out = [(p, x, at_path(self.specs["trainable"], p),
+                None if grads is None else at_path(grads, p))
+               for p, x in tree_paths(trainable)]
+        out += [(p, x, at_path(self.specs["frozen"], p), None)
+                for p, x in tree_paths(frozen)]
+        return out
+
+    def _sharded_step(self, state: TrainState, batch: dict):
+        from macaw_llm_tpu_torch.ops.attention import batch_rows
+        from macaw_llm_tpu_torch.parallel.sharding import (
+            all_reduce, at_path, gathered_view, tree_paths)
+        mesh = self.mesh
+        gd = getattr(torch, self.tcfg.grad_dtype)
+        accum = next(iter(batch.values())).shape[0]
+        b = next(iter(batch.values())).shape[1]
+        with torch.no_grad():
+            diff = _tree_map(lambda p: p if gd == torch.float32 else
+                             p.to(gd), state.trainable)
+            grads = _tree_map(torch.zeros_like, diff)
+        entries = self._entries(diff, state.frozen, grads)
+        anchor = torch.zeros((), device=self.device, requires_grad=True)
+        ring = mesh if self.mcfg.ring_attention else None
+        count = self._reduce_count(self.loss_axes)
+        loss_sum = torch.zeros((), device=self.device)
+        with batch_rows(self.batch_index * b, self.batch_count * b):
+            for a in range(accum):
+                mb = {k: v[a] for k, v in batch.items()}
+                loss, _ = fusion.forward(
+                    gathered_view(entries, mesh, anchor), self.mcfg,
+                    input_ids=mb["input_ids"], images=mb.get("images"),
+                    audios=mb.get("audios"), videos=mb.get("videos"),
+                    attention_mask=mb.get("attention_mask"),
+                    labels=mb["labels"], dropout_rng=state.rng,
+                    lora_scale=self.lora_scale,
+                    align_cache=self.align_cache, ring_mesh=ring,
+                    reduce_count=count)
+                (loss / self.replicas).backward()
+                loss_sum = loss_sum + loss.detach()
+        del diff, entries
+        loss_sum = all_reduce(loss_sum, mesh, self.loss_axes)
+        # the axes that cut neither a leaf nor the work: sum their ranks'
+        # shards; then each leaf's squares once over the axes that cut it
+        squares: dict = {}
+        with torch.no_grad():
+            for path, g in tree_paths(grads):
+                spec = _spec_axes(at_path(self.specs["trainable"], path))
+                all_reduce(g, mesh, tuple(a for a in mesh.mesh_dim_names
+                                          if a not in spec))
+                if accum > 1:
+                    g.copy_((g / accum).to(g.dtype))
+                squares[spec] = squares.get(spec, 0.0) + \
+                    (g.float() ** 2).sum()
+            total = torch.zeros((), device=self.device)
+            for spec in sorted(squares):
+                total = total + all_reduce(
+                    torch.as_tensor(squares[spec], device=self.device)
+                    .clone(), mesh, spec)
+            g_norm = torch.sqrt(total)
+        lr = self.tx.schedule(state.step)
+        self.tx.update(state.trainable, grads, state.opt_state, g_norm)
+        state.step += 1
+        return state, {"loss": loss_sum / accum, "grad_norm": g_norm,
+                       "lr": lr}
 
     def eval_step_fn(self):
         """The forward-only eval step: (loss, correct, count) of the
         shifted argmax token accuracy on a [B, ...] batch, full logits
-        (``loss_chunk`` off), no dropout."""
+        (``loss_chunk`` off), no dropout, no ring. Over a mesh the batch is
+        this rank's rows and the three numbers are the whole batch's."""
         mcfg = dataclasses.replace(self.mcfg, loss_chunk=0)
 
         @torch.no_grad()
         def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+            if self.mesh is None:
+                params, count = merge_params(state.trainable,
+                                             state.frozen), None
+            else:
+                from macaw_llm_tpu_torch.parallel.sharding import \
+                    gathered_view
+                params = gathered_view(
+                    self._entries(state.trainable, state.frozen), self.mesh,
+                    None)
+                count = self._reduce_count(self.batch_axes)
             loss, logits = fusion.forward(
-                merge_params(state.trainable, state.frozen), mcfg,
+                params, mcfg,
                 input_ids=batch["input_ids"], images=batch.get("images"),
                 audios=batch.get("audios"), videos=batch.get("videos"),
                 attention_mask=batch.get("attention_mask"),
-                labels=batch["labels"], lora_scale=self.lora_scale)
+                labels=batch["labels"], lora_scale=self.lora_scale,
+                reduce_count=count)
             lab = batch["labels"]
             prefix = logits.shape[1] - lab.shape[1]
             ext = torch.cat([lab.new_full((lab.shape[0], prefix), IGNORE_ID),
@@ -294,7 +497,11 @@ class Trainer:
             refs = ext[:, 1:]
             valid = refs != IGNORE_ID
             correct = ((logits[:, :-1].argmax(-1) == refs) & valid).sum()
-            return loss, correct, valid.sum()
+            valid = valid.sum()
+            if count is not None:
+                loss, correct, valid = (count(x) for x in (loss, correct,
+                                                           valid))
+            return loss, correct, valid
 
         return step
 
@@ -310,3 +517,68 @@ class Trainer:
             total += int(n)
         return {"eval_loss": sum(losses) / max(len(losses), 1),
                 "eval_token_accuracy": correct / max(total, 1)}
+
+    # -------------------- whole state (checkpoints) --------------------
+
+    def whole_state(self, state: TrainState,
+                    rank0_only: bool = False) -> TrainState:
+        """A sharded state's leaves as whole host tensors (copies), gathered
+        leaf by leaf (collective: every rank calls it). ``rank0_only``: the
+        other ranks drop each leaf once gathered (their leaves are None),
+        so that one host copy of the state exists, not one a rank."""
+        import torch.distributed as dist
+        from macaw_llm_tpu_torch.parallel.sharding import (at_path, gather,
+                                                            tree_map)
+        keep = not rank0_only or dist.get_rank() == 0
+
+        def whole(specs):  # a copy: an uncut leaf gathers to itself
+            def one(p, x):
+                t = gather(x.to(self.device), at_path(specs, p), self.mesh)
+                return t.to("cpu", copy=True) if keep else None
+            return one
+
+        ts, fs = self.specs["trainable"], self.specs["frozen"]
+        return TrainState(
+            step=state.step,
+            trainable=tree_map(whole(ts), state.trainable),
+            frozen=tree_map(whole(fs), state.frozen),
+            opt_state=AdamWState(count=state.opt_state.count,
+                                 mu=tree_map(whole(ts), state.opt_state.mu),
+                                 nu=tree_map(whole(ts), state.opt_state.nu)),
+            rng=state.rng)
+
+    def shard_leaf(self, kind: str, path: str, x: torch.Tensor,
+                   like: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole leaf ``x`` of the ``kind`` tree
+        ("trainable", "frozen"; the moments follow "trainable"), placed as
+        ``like`` (its device, pinned host memory included)."""
+        from macaw_llm_tpu_torch.parallel.sharding import (at_path,
+                                                            local_shard)
+        x = local_shard(x, at_path(self.specs[kind], path), self.mesh)
+        if like.device.type == "cpu":
+            return x.pin_memory() if like.is_pinned() else x
+        return x.to(like.device)
+
+
+def _batch_axes(mcfg: ModelConfig) -> tuple:
+    """The mesh axes that cut the batch: (dcn, data, fsdp), less the ring
+    axis when the sequence is cut over it."""
+    from macaw_llm_tpu_torch.parallel.mesh import BATCH_AXES
+    return tuple(a for a in BATCH_AXES
+                 if not (mcfg.ring_attention and a == mcfg.ring_axis))
+
+
+def batch_layout(mcfg: ModelConfig, mesh) -> tuple:
+    """(index, count) of this rank's block of the batch rows over the mesh
+    (0, 1 without one): what its loaders load."""
+    if mesh is None:
+        return 0, 1
+    from macaw_llm_tpu_torch.parallel.mesh import axis_index, axis_size
+    axes = _batch_axes(mcfg)
+    return axis_index(mesh, axes), axis_size(mesh, axes)
+
+
+def _spec_axes(spec) -> tuple:
+    """The mesh axes a spec cuts, in the mesh's order."""
+    from macaw_llm_tpu_torch.parallel.mesh import AXES
+    return tuple(a for a in AXES if a in spec)

@@ -1,8 +1,8 @@
 """The port's ``Config`` tree against the JAX package's: the same fields,
 defaults and JSON, so a run config written by either package loads in the
-other with the same values; the same geometry checks; and values whose
-paths the port has not ported refused by ``validate`` with the ROADMAP
-item named."""
+other with the same values; the same geometry checks; the parallel options
+accepted; and values whose paths the port has not ported refused by
+``validate`` with the ROADMAP item named."""
 
 import dataclasses
 import json
@@ -120,25 +120,79 @@ def test_geometry_errors_raise_in_both(llm, fusion):
 def _unported():
     m = tconfig.tiny_model_config()
     return {
-        "ring_attention": (tconfig.Config(model=dataclasses.replace(
-            m, ring_attention=True)), "A5"),
         "shard_sequence": (tconfig.Config(model=dataclasses.replace(
-            m, shard_sequence=True)), "A5"),
-        "offload_optimizer": (tconfig.Config(
-            model=m, train=tconfig.TrainConfig(offload_optimizer=True)),
-            "A5"),
-        "mesh fsdp=8": (tconfig.Config(
-            model=m, mesh=tconfig.MeshConfig(fsdp=8)), "A5"),
-        "mesh data=2": (tconfig.Config(
-            model=m, mesh=tconfig.MeshConfig(data=2, fsdp=1)), "A5"),
+            m, shard_sequence=True)), {}, "A7"),
+        "serving tensor=2": (tconfig.Config(
+            model=m, mesh=tconfig.MeshConfig(fsdp=1, tensor=2)),
+            {"serving": True}, "A7"),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_unported()))
 def test_unported_values_are_refused_naming_the_roadmap_item(name):
-    cfg, item = _unported()[name]
+    cfg, kw, item = _unported()[name]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cfg.validate()
+        cfg.validate(**kw)
+
+
+def _parallel():
+    m = tconfig.tiny_model_config()
+    return {
+        "ring_attention": (tconfig.Config(model=dataclasses.replace(
+            m, ring_attention=True)), 1),
+        "offload_optimizer": (tconfig.Config(
+            model=m, train=tconfig.TrainConfig(offload_optimizer=True)), 1),
+        "mesh fsdp=8": (tconfig.Config(
+            model=m, mesh=tconfig.MeshConfig(fsdp=8)), 8),
+        "mesh data=2": (tconfig.Config(
+            model=m, mesh=tconfig.MeshConfig(data=2, fsdp=1)), 2),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_parallel()))
+def test_parallel_options_validate_and_build_a_trainer(name):
+    """Ring attention, optimizer offload and meshes are ported: ``validate``
+    accepts them for a world of the mesh's size (and refuses another size
+    for a fixed mesh), and a Trainer builds its state. A mesh of more than
+    one rank is laid over torch's in-process fake process group (its
+    collectives do nothing; building the state issues none)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from macaw_llm_tpu_torch.models import fusion
+    from macaw_llm_tpu_torch.parallel import mesh as tmesh
+    from macaw_llm_tpu_torch.train.trainer import Trainer
+    cfg, world = _parallel()[name]
+    cfg.validate(world_size=world)
+    if world > 1:
+        with pytest.raises(ValueError):
+            cfg.validate(world_size=world + 1)
+    mesh = None
+    if world > 1:
+        dist.init_process_group("fake", store=FakeStore(), rank=world - 1,
+                                world_size=world)
+    try:
+        if world > 1:
+            mesh = init_device_mesh("cpu", cfg.mesh.resolved(world),
+                                    mesh_dim_names=tmesh.AXES)
+            tmesh._make_groups(mesh)
+            # the reference's batch_sharding and replicated as placements
+            from torch.distributed.tensor import Replicate, Shard
+            assert tmesh.batch_sharding(mesh) == [Shard(0)] * 3 + [
+                Replicate()]
+            assert tmesh.replicated(mesh) == [Replicate()] * 4
+        tr = Trainer(cfg.model, cfg.train, 10, device="cpu", mesh=mesh)
+        state = tr.init_state(fusion.init_params(0, cfg.model, device="cpu"))
+        wq = state.trainable["llm"]["layers"]["attn"]["wq"]
+        h = cfg.model.llm.hidden_size
+        assert tuple(wq.shape) == (
+            cfg.model.llm.num_layers, h // cfg.mesh.resolved(world)[2], h)
+        if cfg.train.offload_optimizer:  # host moments (none pinned here)
+            assert state.opt_state.mu["llm"]["norm"].device.type == "cpu"
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("name", ["remat_policy=dots", "encoder_layerdrop"])

@@ -583,3 +583,70 @@ def test_prefetch_side_stream_copies_equal_the_host_batches(gen):
         assert g["input_ids"].dtype == torch.int64 and g["audios"].is_cuda
         for k in r:
             assert np.array_equal(g[k].cpu().numpy(), r[k]), k
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+def test_local_ring_with_the_kernels_against_its_plain_version(gen, layout):
+    """``ring_attention_local`` on the card (B2, B3, B4 each step) against
+    the same schedule on the CPU (the wrappers' plain versions) on the same
+    bf16 inputs: the output row by row within the kernels' bar (2^-6), the
+    gradients within twice it (a chunk's gradient sums the rows of the
+    steps that see it, each within 2^-6), and the launches of a ring of
+    4."""
+    from macaw_llm_tpu_torch.parallel import ring_attention as ring
+    n, s = 4, 512
+    q, k, v, g = (_rn(gen, 2, s, 4, 64) for _ in range(4))
+    if layout == "zigzag":
+        perm = ring.zigzag_indices(s, n).cuda()
+        q, k, v, g = (t[:, perm].contiguous() for t in (q, k, v, g))
+
+    def run(device):
+        x = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        out = ring.ring_attention_local(*x, n, layout)
+        out.backward(g.to(device))
+        return [out.detach()] + [t.grad for t in x]
+
+    for fn in (fa.flash_attention_with_lse, fa.flash_attention_dq,
+               fa.flash_attention_dkv):
+        fn.launches = 0
+    got = run("cuda")
+    want = n * (n + 1) // 2 if layout == "contiguous" else n * (2 * n + 1)
+    assert [fa.flash_attention_with_lse.launches,
+            fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches] == [want] * 3
+    out, *grads = run("cpu")
+    assert _row_rel_err(got[0].cpu(), out) <= ATTN_ROW_REL
+    for a, b in zip(got[1:], grads):
+        assert _grad_row_err(a.cpu(), b) <= 2 * BWD_ROW_REL
+
+
+def test_offloaded_moments_pinned_and_the_same_bits(gen):
+    """``offload_optimizer`` on the card: Adam's moments stay in pinned host
+    memory after each update (streamed through the device on a side
+    stream), and parameters and moments are the bits of the update without
+    offload."""
+    from macaw_llm_tpu_torch.config import TrainConfig
+    from macaw_llm_tpu_torch.train.trainer import AdamW, _offload
+    cfg = TrainConfig(learning_rate=1e-2, warmup_ratio=0.0, mu_dtype="bfloat16")
+    params = {"a": torch.randn(300, 70, generator=gen, device="cuda"),
+              "b": {"c": torch.randn(1000, generator=gen, device="cuda")}}
+    grads = [{"a": torch.randn(300, 70, generator=gen, device="cuda"),
+              "b": {"c": torch.randn(1000, generator=gen, device="cuda")}}
+             for _ in range(3)]
+    runs = []
+    for offload in (False, True):
+        tx = AdamW(cfg, 10)
+        p = {"a": params["a"].clone(), "b": {"c": params["b"]["c"].clone()}}
+        st = tx.init(p)
+        if offload:
+            st.mu, st.nu = _offload(st.mu), _offload(st.nu)
+        for g in grads:
+            tx.update(p, g, st)
+            for t in (st.mu["a"], st.nu["a"], st.mu["b"]["c"]):
+                assert (t.device.type == "cpu" and t.is_pinned()) == offload
+        runs.append((p, st))
+    (p0, s0), (p1, s1) = runs
+    for x, y in ((p0["a"], p1["a"]), (p0["b"]["c"], p1["b"]["c"]),
+                 (s0.mu["a"], s1.mu["a"]), (s0.nu["b"]["c"],
+                                             s1.nu["b"]["c"])):
+        assert torch.equal(x.cpu(), y.cpu())
