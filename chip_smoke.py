@@ -8,7 +8,9 @@ Phases, in order (any failure raises and the script exits non-zero):
     engine admission, where it splits the keys into chunks and launches
     its combine kernel, and with every key outside one chunk masked) and
     time kernel, plain version, the library call that computes the same
-    function (where one exists) and the bound;
+    function (where one exists) and the bound; also at the shapes of a
+    tensor-parallel rank at t = 2 and 4 (phase 13): B1 at 16 and 8 heads,
+    B2 at Whisper's 4 and 2 heads and the alignment fold's 8 and 4;
  3a. the int8 matvec (B5) against its plain version at the five 7b
     decode shapes and two ragged ones (N no multiple of 16, K no multiple
     of 64) at 4, 16 and 32 rows, bitwise on a rerun; timed at the 7b
@@ -19,7 +21,10 @@ Phases, in order (any failure raises and the script exits non-zero):
  3c. the pipelined matvec (B6) at the same shapes, at 9, 16 and 32 rows and
     depths 1, 2, 4 and 8 (bitwise equal across depths and runs, within one
     bf16 ulp of B5), timed the same way at 16 and 32 rows at every depth,
-    with B5, the fp32 FMA bound and the library call beside it;
+    with B5, the fp32 FMA bound and the library call beside it; B5 and B6
+    at a tensor-parallel rank's shard shapes (t = 2: qkv (4096, 6144), wo
+    (2048, 4096), gateup (4096, 11008), down (5504, 4096); t = 4: (4096,
+    3072), (1024, 4096), (4096, 5504), (2752, 4096)) at 4 and 16 rows;
  3b. the same for the backward kernels (delta, flash dq, flash dk/dv) at
     the 7b train shape and at the edge cases (ragged tail, a fully masked
     batch row, an LSE cotangent, head dims 64 and 256), after holding the
@@ -91,7 +96,26 @@ Phases, in order (any failure raises and the script exits non-zero):
     the run file's mesh (all 1s), ring attention (zig-zag, n = 1), the
     sharded Trainer's collectives issued through NCCL, the losses within
     1e-3 of 10a's;
- 11. one ``{"kernels": [...]}`` line, then the contract line
+ 13. tensor-parallel inference (``parallel.tensor_parallel``) at
+    ``macaw_7b()`` full width and depth, int8 weights, t = 2 ranks: two
+    child processes of this script on this card (NCCL takes one rank a
+    card; gloo carries the all-reduces and broadcasts of CUDA tensors
+    through host memory), each drawing the whole tree from phase 5's seed
+    and keeping its block. 13a: phase 5's b16 W8A8 prefill, held stage by
+    stage: the ranks' LLaMA on phase 5's own prefix gives phase 5's logits
+    bit for bit, their prefix (towers and alignment cut too) is within 3e-2
+    of phase 5's and their logits are one device's LLaMA on it, bit for bit
+    (the end-to-end logits reported beside how far one device's move under
+    a one-ulp change of 1% of its prefix); phase 6's 4 x 16 greedy decode
+    on phase 6's prefix (tokens phase 6's, or first differing at a near
+    tie: phase 4c's rule); 13b: the engine over 16 requests (4 with media,
+    2 sampled) against the one-device engine's tokens by the same rule at
+    twice its bar (the sampled ones in the vocab and their budgets), both
+    ranks ending in the same slot state; per-rank ms, collectives and peak
+    memory, which say nothing of tensor parallelism's speed across cards
+    (the ranks share one card);
+ 11. one ``{"kernels": [...]}`` line (with a tensor-parallel rank's
+    launches and the shard shapes' times), then the contract line
     ``{"ok": true, "device": {...}}`` last.
 
 Weights are random, made on the card from a seed. Usage, from the root of
@@ -286,7 +310,18 @@ FLASH_CALLS = (("whisper", 16, 1500, 1500, 8, 64, 6, 0),
                ("video_long", 16, 1176, 1178, 8, 64, 1, 0),
                ("video_align", 16, 624, 32009, 1, 256, 1, 0),
                ("engine_whisper", 1, 1500, 1500, 8, 64, 0, 6),
-               ("engine_video_long", 1, 1176, 1178, 8, 64, 0, 1))
+               ("engine_video_long", 1, 1176, 1178, 8, 64, 0, 1),
+               # a tensor-parallel rank's (phase 13): Whisper's 8 heads and
+               # the alignment's 16 (the fold's batch) cut over t = 2 and 4;
+               # at t = 4 the b16 video alignment's logits fit the einsum
+               # route (ALIGN_EINSUM_MAX_BYTES), so its fold is checked only
+               ("tp2_whisper", 16, 1500, 1500, 4, 64, 0, 0),
+               ("tp4_whisper", 16, 1500, 1500, 2, 64, 0, 0),
+               ("tp2_video_align", 8, 624, 32009, 1, 256, 0, 0),
+               ("tp4_video_align", 4, 624, 32009, 1, 256, 0, 0))
+
+# B1's heads: the 7b's 32, and a tensor-parallel rank's at t = 2 and 4
+MH_HEADS = ((32, 32, None), (16, 0, 2), (8, 0, 4))
 
 
 def whisper(b):
@@ -326,39 +361,42 @@ def check_attention(torch, mh, fa, gen, sms: int):
         return torch.randn(*shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
-    results = {}
-    # B1: [16, 312, 32, 128], causal, zero padding bias (all-ones mask)
-    b, s, n, d = 16, 312, 32, 128
-    q, k, v = rn(b, s, n, d), rn(b, s, n, d), rn(b, s, n, d)
-    bias = torch.zeros(b, s, device="cuda")
-    out = mh.mh_attention(q, k, v, bias, causal=True)
-    ref, _ = fa.attention_reference(q, k, v, bias, causal=True)
-    err = (out.float() - ref.float()).abs().max().item()
-    rel = row_rel_err(out, ref)
-    # the same inputs with only the keys of the last, partial 64-key tile
-    # (the kernel's tile width) left valid
-    tail = tail_bias(torch, b, s, 64)
-    tail_rel = row_rel_err(mh.mh_attention(q, k, v, tail, causal=True),
-                           fa.attention_reference(q, k, v, tail,
-                                                  causal=True)[0])
-    if not (rel <= ATTN_ROW_REL_TOL and tail_rel <= ATTN_ROW_REL_TOL):
-        raise AssertionError(f"mh_attention row rel err {rel}, ragged tail "
-                             f"{tail_rel}")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = cuda_ms(torch, lambda: mh.mh_attention(q, k, v, bias, causal=True),
-                 20)
-    plain = cuda_ms(torch, lambda: fa.attention_reference(
-        q, k, v, bias, causal=True), 5)
-    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 20)
-    nbytes = 4 * q.numel() * 2 + bias.numel() * 4
-    bms, by = bound(attn_flops(b, s, s, n, d, True), nbytes)
-    results["mh_attention"] = [dict(
-        shape=[b, s, n, d], causal=True, max_abs_err=err, row_rel_err=rel,
-        tail_row_rel_err=tail_rel, kernel_ms=ms,
-        plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-        per_prefill=32)]
-    del q, k, v, ref, out, qt, kt, vt, tail
+    results = {"mh_attention": []}
+    # B1: [16, 312, n, 128], causal, zero padding bias (all-ones mask), at
+    # the 7b's 32 heads and a tensor-parallel rank's
+    for n, per, tp in MH_HEADS:
+        b, s, d = 16, 312, 128
+        q, k, v = rn(b, s, n, d), rn(b, s, n, d), rn(b, s, n, d)
+        bias = torch.zeros(b, s, device="cuda")
+        out = mh.mh_attention(q, k, v, bias, causal=True)
+        ref, _ = fa.attention_reference(q, k, v, bias, causal=True)
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = row_rel_err(out, ref)
+        # the same inputs with only the keys of the last, partial 64-key
+        # tile (the kernel's tile width) left valid
+        tail = tail_bias(torch, b, s, 64)
+        tail_rel = row_rel_err(mh.mh_attention(q, k, v, tail, causal=True),
+                               fa.attention_reference(q, k, v, tail,
+                                                      causal=True)[0])
+        if not (rel <= ATTN_ROW_REL_TOL and tail_rel <= ATTN_ROW_REL_TOL):
+            raise AssertionError(f"mh_attention at {n} heads: row rel err "
+                                 f"{rel}, ragged tail {tail_rel}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = cuda_ms(torch, lambda: mh.mh_attention(q, k, v, bias,
+                                                    causal=True), 20)
+        plain = cuda_ms(torch, lambda: fa.attention_reference(
+            q, k, v, bias, causal=True), 5)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20)
+        nbytes = 4 * q.numel() * 2 + bias.numel() * 4
+        bms, by = bound(attn_flops(b, s, s, n, d, True), nbytes)
+        results["mh_attention"].append(dict(
+            call="llama" if tp is None else f"tp{tp}_llama",
+            shape=[b, s, n, d], causal=True, max_abs_err=err,
+            row_rel_err=rel, tail_row_rel_err=tail_rel, kernel_ms=ms,
+            plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+            per_prefill=per))
+        del q, k, v, ref, out, qt, kt, vt, tail
 
     rows, combine_rows = [], []
     for name, bb, sq, sk, n, d, per, per_adm in FLASH_CALLS:
@@ -788,6 +826,76 @@ def check_matvec(torch, mv, gen):
     return {"matvec_int8": rows}
 
 
+# the decode shapes of a tensor-parallel rank of the 7b (phase 13) at
+# t = 2 and 4: the column-parallel qkv and gateup cut N, the row-parallel
+# wo and down cut K (2752 = 43 x 64: whole 64-row k tiles); the lm_head's
+# 32007 columns stay whole (phase 3a's row)
+TP_SIZES = (2, 4)
+TP_MATVEC_ROWS = (4, 16)
+
+
+def tp_matvecs(t: int):
+    return (("qkv", 4096, 12288 // t, 32), ("wo", 4096 // t, 4096, 32),
+            ("gateup", 4096, 22016 // t, 32),
+            ("down", 11008 // t, 4096, 32))
+
+
+def check_tp_matvec(torch, mv, gen):
+    """B5 and B6 (depth 4) at a tensor-parallel rank's shard shapes, 4 and
+    16 rows, against the plain version under phase 3a's bar and bitwise on
+    a rerun; timed as ``check_matvec`` times them (device time of a CUDA
+    graph over >= 128 MB of distinct weights), with the plain version, the
+    library call and the byte bound. Returns rows by kernel."""
+    kernels = (("matvec_int8", mv.matvec_int8),
+               ("matvec_int8_pipelined",
+                lambda x, w, s: mv.matvec_int8_pipelined(x, w, s, depth=4)))
+    rows = {name: [] for name, _ in kernels}
+    for t in TP_SIZES:
+        for name, k, n, per in tp_matvecs(t):
+            ws, s, cycle = matvec_weights(torch, gen, k, n, per)
+            for b in TP_MATVEC_ROWS:
+                x = torch.randn(b, k, generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                ref = mv.matvec_reference(x, ws[0], s).float()
+                for kname, fn in kernels:
+                    out, again = fn(x, ws[0], s), fn(x, ws[0], s)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref).abs().max().item()
+                    rel = err / ref.abs().max().item()
+                    if not (rel <= MATVEC_REL_TOL and torch.equal(out,
+                                                                  again)):
+                        raise AssertionError(
+                            f"{kname} tp{t} {name} at {b} rows: rel err "
+                            f"{rel}, rerun equal {torch.equal(out, again)}")
+                    row = dict(call=f"tp{t}_{name}", tp=t, shape=[b, k, n],
+                               max_abs_err=err, rel_err=rel, per_step=per)
+                    row.update(matvec_times(
+                        torch, mv, lambda w: fn(x, w, s), x, ws, s, cycle,
+                        ref, library=True))
+                    rows[kname].append(row)
+            del ws
+            torch.cuda.empty_cache()
+    return rows
+
+
+def tp_step_totals(rows) -> dict:
+    """A rank's 32 layers of decode matvecs (its qkv, wo, gateup, down; the
+    whole lm_head is phase 3a's) at each t and row count: ms, plain,
+    library and bound summed over the 128 launches."""
+    out = {}
+    for t in TP_SIZES:
+        for b in TP_MATVEC_ROWS:
+            sel = [r for r in rows if r["tp"] == t and r["shape"][0] == b]
+            out[f"tp{t}_rows{b}"] = {
+                key: None if any(r[key] is None for r in sel) else
+                sum(r[key] * r["per_step"] for r in sel)
+                for key in ("kernel_ms", "plain_ms", "library_ms",
+                            "bound_ms")}
+            out[f"tp{t}_rows{b}"]["bound_by"] = max(
+                sel, key=lambda r: r["bound_ms"])["bound_by"]
+    return out
+
+
 # rows per engine step: (slots, depth) cases of B6; B5 beside it
 PIPELINED_ROWS = (9, 16, 32)
 PIPELINED_DEPTHS = (1, 2, 4, 8)
@@ -1097,7 +1205,7 @@ def run_generate(torch, params, cfg, cache, batch, kernels, new=16, b=4):
                   first_token_s=first_s,
                   decode_step_ms=(seconds - first_s) / (new - 1) * 1e3,
                   matvec_per_step=per_step, launches=launched,
-                  first_tokens=toks[:, :4].tolist())
+                  tokens=toks.tolist())
     log(json.dumps({"decode": result}))
     return result, params, fused
 
@@ -1360,10 +1468,11 @@ def greedy_with_logits(torch, params, cfg, emb, mask, n: int,
     return torch.stack(toks, 1).cpu(), torch.stack(steps, 1)
 
 
-def near_tie_flips(torch, got, greedy, logits_fn, eos_id=None) -> list:
+def near_tie_flips(torch, got, greedy, logits_fn, eos_id=None,
+                   tol=LOGITS_REL_TOL) -> list:
     """Rows whose tokens differ from the greedy ones: at the first
     differing step the greedy step's logits of the two tokens must be
-    within LOGITS_REL_TOL of max |logit| (phase 4c's rule; what follows is
+    within ``tol`` of max |logit| (phase 4c's rule; what follows is
     another sequence and is not compared). ``logits_fn()`` gives
     ``greedy_with_logits``' tokens and logits, asked for only if a row
     differs."""
@@ -1383,7 +1492,7 @@ def near_tie_flips(torch, got, greedy, logits_fn, eos_id=None) -> list:
         gap = (lg[greedy[r, j]] - lg[got[r, j]]).abs().item() / \
             lg.abs().max().item()
         flips.append(dict(row=r, step=j, rel_gap=gap))
-        if not gap <= LOGITS_REL_TOL:
+        if not gap <= tol:
             raise AssertionError(f"row {r} differs from greedy at step {j}: "
                                  f"the greedy step's logits are {gap} apart")
     return flips
@@ -2508,6 +2617,480 @@ def run_ring_child(torch, card: str, work: Path, llama_dir,
     return line
 
 
+# --------------------------------------------------------------------------
+# phase 13: tensor-parallel inference, t = 2 ranks on the one card
+# --------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_NEW = 16
+TP_TIMEOUT_S = 600.0  # the ranks are killed, and the phase fails, after this
+# 13b's token flips against the one-device engine: twice phase 4c's bar
+# (set at 2 layers), as phase 12a doubles phase 3's for the ring. A rank's
+# row-parallel sums round in another order than one device's (rarely: an
+# fp32 sum, rounded once); the engine's int8 KV cache turns a one-ulp
+# difference of a key into a step of its int8 row, and 32 layers of the
+# random 7b amplify it (13a reports how far one device moves under a
+# one-ulp change). 13a's greedy decode (a bf16 cache) keeps phase 4c's bar
+TP_FLIP_TOL = 2 * LOGITS_REL_TOL
+
+
+def kernel_table(mh, fa, mv) -> dict:
+    """The kernel wrappers by name, each with its launch counter."""
+    return {"mh_attention": mh.mh_attention,
+            "flash_attention": fa.flash_attention_with_lse,
+            "flash_attention_combine": fa.flash_attention_combine,
+            "flash_attention_dq": fa.flash_attention_dq,
+            "flash_attention_dkv": fa.flash_attention_dkv,
+            "flash_attention_delta": fa.flash_attention_delta,
+            "matvec_int8": mv.matvec_int8,
+            "matvec_int8_pipelined": mv.matvec_int8_pipelined}
+
+
+def tp_requests(cfg):
+    """13b's 16 requests: 4 with image, audio and video, 2 text ones
+    sampled (temperature 0.8 and 1.2), budgets of 16 and 8 tokens."""
+    from macaw_llm_tpu_torch.serve import Request
+    return [Request(prompt=f"tensor parallel request {i}",
+                    max_new_tokens=TP_NEW if i % 3 else 8,
+                    temperature={6: 0.8, 10: 1.2}.get(i, 0.0),
+                    **(engine_media(cfg, 60 + i) if i % 4 == 1 else {}))
+            for i in range(16)]
+
+
+TP_ENGINE_KW = dict(slots=16, prompt_bucket=64, max_new_tokens=TP_NEW,
+                    align_cache="int8", kv_cache_dtype="int8")
+
+
+def tp_worker(job_path: str, rank: int) -> None:
+    """One rank of phase 13 (``chip_smoke.py --tp-worker JOB --tp-rank R``):
+    joins a gloo group of the job's ranks (a FileStore; NCCL takes one rank
+    a card), draws the whole 7b from phase 5's seed on the card, one rank
+    at a time, quantizes its LLaMA, keeps this rank's block and packs it.
+    13a: phase 5's b16 prefill through ``prefill`` (its fused prefix saved
+    by rank 0), the LLaMA alone on phase 5's own prefix (saved by the
+    parent), phase 6's 4 x 16 greedy ``generate`` on phase 6's prefix;
+    13b: the engine over ``tp_requests``. Launches and collectives
+    counted, each timed on this rank; its results to the job's
+    directory."""
+    import torch
+    import torch.distributed as dist
+    from macaw_llm_tpu_torch import serve
+    from macaw_llm_tpu_torch.config import macaw_7b
+    from macaw_llm_tpu_torch.generate import generate
+    from macaw_llm_tpu_torch.models import fusion, llama
+    from macaw_llm_tpu_torch.ops.kernels import flash_attention as fa
+    from macaw_llm_tpu_torch.ops.kernels import matvec as mv
+    from macaw_llm_tpu_torch.ops.kernels import mh_attention as mh
+    from macaw_llm_tpu_torch.parallel.sharding import COLLECTIVES
+    from macaw_llm_tpu_torch.parallel.tensor_parallel import (TensorParallel,
+                                                              tp_params)
+    from macaw_llm_tpu_torch.prefill import prefill
+    from macaw_llm_tpu_torch.utils import quantize as qz
+    with open(job_path) as f:
+        job = json.load(f)
+    world, work = job["world"], Path(job["out"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(job["store"], world),
+                            rank=rank, world_size=world)
+    cfg = macaw_7b()
+    tp = TensorParallel.world(cfg)
+    kernels = kernel_table(mh, fa, mv)
+    res = {"rank": rank, "cuts": sorted(tp.cuts)}
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def start():
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        COLLECTIVES.clear()
+
+    def counted(name):
+        torch.cuda.synchronize()
+        res[f"{name}_launches"] = counts(kernels)
+        res[f"{name}_collectives"] = dict(COLLECTIVES)
+
+    # the whole tree on the card one rank at a time
+    t0 = time.perf_counter()
+    block = None
+    for r in range(world):
+        if r == rank:
+            whole = fusion.init_params(0, cfg, dtype=torch.bfloat16,
+                                       device="cuda")
+            whole["llm"] = qz.quantize_llama(whole["llm"])
+            block = tp_params(whole, tp)
+            del whole
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    block["llm"] = qz.pack_llama_for_decode(block["llm"])
+    with torch.inference_mode():
+        cache = fusion.precompute_align_cache(block, cfg, quantize=True,
+                                              tp=tp)
+    served = fusion.pack_towers(fusion.strip_align_kv(block))
+    sync()
+    res["build_s"] = time.perf_counter() - t0
+    res["block_gb"] = sum(x.numel() * x.element_size()
+                          for x in _tensors(block["llm"])) / 1e9
+
+    # 13a: phase 5's prefill, and its fused prefix
+    batch = make_batch(torch, cfg, 16, 256, seed=3)
+    start()
+    res["logits"] = prefill(served, cfg, batch, cache, tp=tp).float().cpu()
+    counted("prefill")
+    times = []
+    for i in range(3):  # a warm-up, then 2 timed
+        sync()
+        t1 = time.perf_counter()
+        prefill(served, cfg, batch, cache, tp=tp)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    res["prefill_ms"] = times[1:]
+    res["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        fused = fusion.prepare_inputs(
+            served, cfg, input_ids=batch["input_ids"],
+            images=batch["images"], audios=batch["audios"],
+            videos=batch["videos"], attention_mask=batch["attention_mask"],
+            align_cache=cache, activation_quant=True, tp=tp)
+        if rank == 0:
+            torch.save(fused.inputs_embeds.cpu(), work / "tp_prefix.pt")
+        # the LLaMA alone on phase 5's prefix
+        emb = torch.load(work / "prefix5.pt").cuda()
+        h = llama.forward_hidden(served["llm"], cfg.llm, emb,
+                                 fused.attention_mask, use_flash=True,
+                                 activation_quant=True, tp=tp)
+        res["llama_on_prefix5"] = llama.logits_from_hidden(
+            served["llm"], h[:, -1:], llama.valid_vocab(cfg.llm),
+            tp=tp)[:, 0].float().cpu()
+    del batch, fused, emb, h
+
+    # 13a: phase 6's greedy decode on phase 6's prefix
+    emb, mask = (x.cuda() for x in torch.load(work / "prefix6.pt"))
+
+    def decode():
+        out = generate(served["llm"], cfg.llm, inputs_embeds=emb,
+                       attention_mask=mask, max_new_tokens=TP_NEW,
+                       eos_id=-1, tp=tp)
+        torch.cuda.synchronize()
+        return out.tokens.cpu()
+
+    start()
+    res["tokens"] = decode()
+    counted("decode")
+    sync()
+    t1 = time.perf_counter()
+    res["decode_repeatable"] = torch.equal(decode(), res["tokens"])
+    res["decode_s"] = time.perf_counter() - t1
+    del emb, mask, cache, served
+    torch.cuda.empty_cache()
+
+    # 13b: the engine, the leader's schedule broadcast to the follower
+    serve._seed_from_clock = lambda: 1234
+    engine = serve.ContinuousEngine(block, cfg, BenchTok(), tp=tp,
+                                    **TP_ENGINE_KW)
+    reqs = tp_requests(cfg)
+    start()
+    t1 = time.perf_counter()
+    if tp.leader:
+        for r in reqs:
+            engine.queue.put(r)
+    engine.start()
+    if tp.leader:
+        for r in reqs:
+            if not r._done.wait(TP_TIMEOUT_S):
+                raise TimeoutError("13b: a request did not finish")
+        engine.stop()
+    engine.join()
+    torch.cuda.synchronize()
+    res["engine_s"] = time.perf_counter() - t1
+    counted("engine")
+    res["engine_stats"] = dict(engine.stats)
+    res["engine_state"] = [engine.toks.cpu(), engine.lengths.cpu()]
+    res["engine_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if tp.leader:
+        if any(r._result is None or "text" not in r._result for r in reqs):
+            raise AssertionError("13b: a request failed")
+        res["engine_tokens"] = [result_tokens(r._result) for r in reqs]
+    dist.barrier()
+    torch.save(res, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def spawn_tp(world: int, work: Path) -> list:
+    """Phase 13's ranks as child processes of this script; every one is
+    killed after TP_TIMEOUT_S. A rank that fails fails the phase, with the
+    ranks' output."""
+    import subprocess as sp
+    import tempfile
+    store = work / "store"
+    if store.exists():
+        store.unlink()
+    job = work / "job.json"
+    job.write_text(json.dumps({"world": world, "store": str(store),
+                               "out": str(work)}))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
+    procs = [sp.Popen([sys.executable, str(Path(__file__).resolve()),
+                       "--tp-worker", str(job), "--tp-rank", str(r)],
+                      cwd=str(ROOT), env=env, stdout=logs[r],
+                      stderr=sp.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except sp.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(
+            f"phase 13: a rank failed (exit codes "
+            f"{[p.returncode for p in procs]}):\n" + "\n".join(
+                f"--- rank {r} ---\n{t[-3000:]}" for r, t in enumerate(texts)))
+    import torch
+    return [torch.load(work / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def engine_flips(torch, engine, cfg, reqs, got, ref, tol):
+    """Greedy requests whose token lists differ between ``got`` and
+    ``ref`` (the one-device engine's): at the first difference (a list
+    that ends first emitted EOS there) the one-device logits of the two
+    tokens, after the prompt and the common prefix (no cache), must be
+    within ``tol`` of max |logit| (phase 4c's rule)."""
+    from macaw_llm_tpu_torch.config import EOS_ID
+    from macaw_llm_tpu_torch.data.templates import format_prompt
+    from macaw_llm_tpu_torch.models import fusion, llama
+    tok = BenchTok()
+    zeros = engine_media(cfg, 0)
+    flips = []
+    for i, (g, c, req) in enumerate(zip(got, ref, reqs)):
+        if req.temperature > 0 or g == c:
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(g, c)) if a != b),
+                 min(len(g), len(c)))
+        tg = g[j] if j < len(g) else EOS_ID
+        tc = c[j] if j < len(c) else EOS_ID
+        ids = torch.tensor([tok.encode(format_prompt(req.prompt))],
+                           device="cuda")
+        media = {k: torch.from_numpy(
+            (getattr(req, k) if getattr(req, k) is not None
+             else zeros[k] * 0)[None]).cuda() for k in zeros}
+        with torch.inference_mode():
+            fused = fusion.prepare_inputs(
+                engine.params, cfg, input_ids=ids, images=media["image"],
+                audios=media["audio"], videos=media["video"],
+                align_cache=engine.align_cache)
+            emb = fused.inputs_embeds
+            if j:
+                emb = torch.cat([emb, llama.embed(
+                    engine.params["llm"], torch.tensor([c[:j]],
+                                                       device="cuda"),
+                    emb.dtype)], dim=1)
+            h = llama.forward_hidden(engine.params["llm"], cfg.llm, emb)
+            lg = llama.logits_from_hidden(engine.params["llm"], h[:, -1:],
+                                          llama.valid_vocab(cfg.llm))[0, 0]
+        gap = (lg[tc] - lg[tg]).abs().item() / lg.abs().max().item()
+        flips.append(dict(request=i, step=j, rel_gap=gap))
+        if not gap <= tol:
+            raise AssertionError(f"13b request {i} differs from the "
+                                 f"one-device engine at token {j}: the "
+                                 f"logits are {gap} apart (bar {tol})")
+    return flips
+
+
+def llama_last_logits(torch, llm, cfg, emb, mask):
+    """Phase 5's LLaMA (W8A8, the attention kernels) on a fused prefix:
+    the last positions' logits."""
+    from macaw_llm_tpu_torch.models import llama
+    with torch.inference_mode():
+        h = llama.forward_hidden(llm, cfg.llm, emb, mask, use_flash=True,
+                                 activation_quant=True)
+        return llama.logits_from_hidden(llm, h[:, -1:],
+                                        llama.valid_vocab(cfg.llm))[:, 0]
+
+
+def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
+           engine_params, logits_5, fused_6, greedy, work: Path) -> dict:
+    """Phase 13: the port's tensor-parallel path at ``macaw_7b()`` full width
+    and depth, int8 weights, t = 2 ranks (``tp_worker``) on this card,
+    against the one-device phases on the same weights.
+
+    13a prefill, held stage by stage: the ranks' LLaMA on phase 5's own
+    fused prefix gives phase 5's logits bit for bit (W8A8: the int32 dots
+    summed exactly over the ranks); the ranks' fused prefix (towers and
+    alignment cut too) is within LOGITS_REL_TOL of phase 5's, and their
+    logits are one device's LLaMA on that prefix, bit for bit. The
+    end-to-end logits against phase 5's are reported beside how far one
+    device's own move when one bf16 ulp changes in 1% of phase 5's prefix
+    (the random 7b amplifies such a change through 32 layers). 13a decode:
+    the ranks' 4 x 16 greedy tokens on phase 6's prefix against phase 6's
+    (identical, or first differing at a near tie: phase 4c's rule). 13b:
+    the engine's 16 requests against the one-device engine's (run here
+    first, on ``engine_params``): greedy ones by phase 4c's rule at
+    TP_FLIP_TOL, sampled ones in the vocab and within their budgets, both
+    ranks ending in the same slot state. Both ranks' results the same bits, their launches the counts a
+    rank's shapes give. ``params5``: phase 5's serving tree; ``params6``:
+    phase 6's (the LLaMA packed for decode)."""
+    from macaw_llm_tpu_torch.models import fusion
+    from macaw_llm_tpu_torch.serve import ContinuousEngine
+    work.mkdir(parents=True, exist_ok=True)
+    batch = make_batch(torch, cfg, 16, 256, seed=3)
+    with torch.inference_mode():
+        f5 = fusion.prepare_inputs(
+            params5, cfg, input_ids=batch["input_ids"],
+            images=batch["images"], audios=batch["audios"],
+            videos=batch["videos"], attention_mask=batch["attention_mask"],
+            align_cache=cache, activation_quant=True)
+    prefix5, mask5 = f5.inputs_embeds, f5.attention_mask
+    if not torch.equal(llama_last_logits(torch, params5["llm"], cfg, prefix5,
+                                         mask5).float().cpu(), logits_5):
+        raise AssertionError("phase 5's LLaMA on its prefix left its logits")
+    # one device under a one-ulp change of 1% of the prefix's elements
+    g = torch.Generator(device="cuda").manual_seed(13)
+    pick = torch.rand(prefix5.shape, generator=g, device="cuda") < 0.01
+    nudged = torch.where(pick, (prefix5.float() * (1 - 2.0 ** -7)).to(
+        prefix5.dtype), prefix5)
+    lg_n = llama_last_logits(torch, params5["llm"], cfg, nudged,
+                             mask5).float().cpu()
+    sensitivity = dict(
+        elements_changed=(nudged != prefix5).float().mean().item(),
+        rel_err=((lg_n - logits_5).abs().max() /
+                 logits_5.abs().max()).item(),
+        argmax_agreement=int((lg_n.argmax(-1) ==
+                              logits_5.argmax(-1)).sum()))
+    del nudged, pick
+    torch.save(prefix5.cpu(), work / "prefix5.pt")
+    torch.save([x.cpu() for x in (fused_6.inputs_embeds,
+                                  fused_6.attention_mask)],
+               work / "prefix6.pt")
+    reqs = tp_requests(cfg)
+    engine = ContinuousEngine(engine_params, cfg, BenchTok(), **TP_ENGINE_KW)
+    engine.start()
+    try:
+        ref, _ = serve_all(engine, reqs)
+    finally:
+        engine.stop()
+    ref = [result_tokens(r) for r in ref]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = spawn_tp(TP_RANKS, work)
+    seconds = time.perf_counter() - t0
+    lead = ranks[0]
+    for r in ranks[1:]:
+        for key in ("logits", "llama_on_prefix5", "tokens"):
+            if not torch.equal(r[key], lead[key]):
+                raise AssertionError(f"13a: rank {r['rank']}'s {key} differ "
+                                     "from rank 0's")
+        if not (all(torch.equal(a, b) for a, b in zip(
+                r["engine_state"], lead["engine_state"]))
+                and r["engine_stats"] == lead["engine_stats"]):
+            raise AssertionError("13b: the ranks' slot states differ")
+    # every rank launches phase 5's and 6's kernels at its shapes
+    t = TP_RANKS
+    expect = {"mh_attention": 32, "flash_attention": 8, "matvec_int8": 0,
+              "flash_attention_combine": combines(torch, (
+                  ((16, 1500, 1500, 8 // t, 64, False), 6),
+                  (video_long(16), 1),
+                  ((16 // t, 39 * 16, 32009, 1, 256, False), 1))),
+              "flash_attention_dq": 0, "flash_attention_dkv": 0,
+              "flash_attention_delta": 0, "matvec_int8_pipelined": 1}
+    per_step = 4 * cfg.llm.num_layers + 1
+    expect_dec = dict({k: 0 for k in expect},
+                      matvec_int8=1 + (TP_NEW - 1) * per_step)
+    for r in ranks:
+        if r["prefill_launches"] != expect or \
+                r["decode_launches"] != expect_dec:
+            raise AssertionError(f"13a rank {r['rank']} launches: prefill "
+                                 f"{r['prefill_launches']} (expected "
+                                 f"{expect}), decode {r['decode_launches']}")
+    # 13a prefill, stage by stage
+    if not torch.equal(lead["llama_on_prefix5"], logits_5):
+        raise AssertionError("13a: the ranks' LLaMA on phase 5's prefix left "
+                             "phase 5's logits")
+    tp_prefix = torch.load(work / "tp_prefix.pt").cuda()
+    prefix_rel = ((tp_prefix.float() - prefix5.float()).abs().max() /
+                  prefix5.float().abs().max()).item()
+    one_on_tp = llama_last_logits(torch, params5["llm"], cfg, tp_prefix,
+                                  mask5).float().cpu()
+    if not (prefix_rel <= LOGITS_REL_TOL and
+            torch.equal(one_on_tp, lead["logits"])):
+        raise AssertionError(f"13a: the ranks' prefix {prefix_rel} from phase "
+                             "5's, or their logits not one device's LLaMA "
+                             "on it")
+    a = lead["logits"]
+    rel = ((a - logits_5).abs().max() / logits_5.abs().max()).item()
+    argmax = int((a.argmax(-1) == logits_5.argmax(-1)).sum())
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("13a logits not finite")
+    # 13a decode
+    flips = near_tie_flips(torch, lead["tokens"], greedy,
+                           lambda: greedy_with_logits(
+                               torch, params6["llm"], cfg.llm,
+                               fused_6.inputs_embeds, fused_6.attention_mask,
+                               TP_NEW))
+    if not all(r["decode_repeatable"] for r in ranks):
+        raise AssertionError("13a: greedy decode not repeatable")
+    # 13b
+    got = lead["engine_tokens"]
+    eflips = engine_flips(torch, engine, cfg, reqs, got, ref, TP_FLIP_TOL)
+    for g_, req in zip(got, reqs):
+        if not (0 < len(g_) <= req.max_new_tokens and
+                all(0 <= x < cfg.llm.vocab_size for x in g_)):
+            raise AssertionError(f"13b tokens out of range: {g_}")
+    del engine, prefix5, tp_prefix
+    torch.cuda.empty_cache()
+    result = dict(
+        ranks=t, card=card, seconds=seconds,
+        note="the ranks share one card's SMs and talk through gloo over "
+             "host memory: these times say nothing of tensor parallelism's "
+             "speed across cards",
+        cuts=lead["cuts"], build_s=[r["build_s"] for r in ranks],
+        block_gb=[r["block_gb"] for r in ranks],
+        prefill=dict(llama_on_prefix5_bitwise=True, prefix_rel_err=prefix_rel,
+                     logits_one_device_on_tp_prefix_bitwise=True,
+                     end_to_end_rel_err=rel, end_to_end_argmax=argmax,
+                     one_device_sensitivity=sensitivity,
+                     ms=[r["prefill_ms"] for r in ranks],
+                     peak_gb=[r["prefill_peak_gb"] for r in ranks],
+                     launches=lead["prefill_launches"],
+                     collectives=lead["prefill_collectives"]),
+        decode=dict(identical_rows=4 - len(flips), flips=flips,
+                    flip_tol=LOGITS_REL_TOL,
+                    seconds=[r["decode_s"] for r in ranks],
+                    tokens_per_s=[4 * TP_NEW / r["decode_s"]
+                                  for r in ranks],
+                    launches=lead["decode_launches"],
+                    collectives=lead["decode_collectives"]),
+        engine=dict(requests=len(reqs), steps=lead["engine_stats"]["steps"],
+                    greedy_identical=sum(
+                        g_ == c for g_, c, req in zip(got, ref, reqs)
+                        if req.temperature == 0),
+                    flips=eflips, flip_tol=TP_FLIP_TOL,
+                    sampled_same_as_one_device=[
+                        g_ == c for g_, c, req in zip(got, ref, reqs)
+                        if req.temperature > 0],
+                    seconds=[r["engine_s"] for r in ranks],
+                    peak_gb=[r["engine_peak_gb"] for r in ranks],
+                    launches=lead["engine_launches"],
+                    collectives=lead["engine_collectives"]))
+    log(json.dumps({"tp_inference": result}))
+    return result
+
+
 def step_totals(rows, b: int, keys) -> dict:
     """One decode step of the timed rows at ``b`` rows: each key summed
     over the 7b shapes times their launches a step (None where a row has
@@ -2635,6 +3218,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print torch.profiler tables of one prefill "
                          "and of decode (written to chiprun_out/)")
+    # phase 13 runs this script again as each of its ranks
+    ap.add_argument("--tp-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
     out_dir = ROOT / "chiprun_out"
     if not (ROOT / "macaw_llm_tpu_torch" / "csrc").is_dir():
@@ -2642,6 +3228,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.tp_worker:
+        tp_worker(args.tp_worker, args.tp_rank)
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -2701,14 +3290,7 @@ def main() -> int:
     device = torch.cuda.get_device_name(0)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    kernels = {"mh_attention": mh.mh_attention,
-               "flash_attention": fa.flash_attention_with_lse,
-               "flash_attention_combine": fa.flash_attention_combine,
-               "flash_attention_dq": fa.flash_attention_dq,
-               "flash_attention_dkv": fa.flash_attention_dkv,
-               "flash_attention_delta": fa.flash_attention_delta,
-               "matvec_int8": mv.matvec_int8,
-               "matvec_int8_pipelined": mv.matvec_int8_pipelined}
+    kernels = kernel_table(mh, fa, mv)
 
     # 3. kernels vs plain at the main-path shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2716,11 +3298,13 @@ def main() -> int:
     checks.update(check_matvec(torch, mv, gen))
     # 3c. the pipelined matvec, with B5 beside it at 16 and 32 rows
     checks.update(check_matvec_pipelined(torch, mv, gen))
+    # B5 and B6 at a tensor-parallel rank's shard shapes (phase 13)
+    tp_checks = check_tp_matvec(torch, mv, gen)
     # 3b. the backward kernels (and the forward at their inputs)
     bwd = check_backward(torch, fa, gen)
     checks["flash_attention"] += bwd.pop("flash_attention")
     checks.update(bwd)
-    for name, rows in checks.items():
+    for name, rows in list(checks.items()) + list(tp_checks.items()):
         for row in rows:
             log(json.dumps({"kernel_check": name, **row}))
     torch.cuda.empty_cache()
@@ -2746,7 +3330,7 @@ def main() -> int:
     prefill_qt = run_prefill_quantized_towers(
         torch, params, cfg, cache, kernels, batch, logits_5, prefill_res,
         card)
-    del logits_5
+    logits_5 = logits_5.float().cpu()  # 13a's reference
     torch.cuda.empty_cache()
     if args.profile:
         from macaw_llm_tpu_torch.prefill import prefill
@@ -2778,7 +3362,7 @@ def main() -> int:
             eos_id=-1), out_dir)
 
     # 6b. the continuous-batching engine at 16 and at 32 slots
-    del cache, batch, fused
+    del batch
     engine_params = dict(params_full, llm=params["llm"])
     serve_res = {}
     for slots, new in ((16, 64), (32, 32)):
@@ -2788,6 +3372,18 @@ def main() -> int:
             profile_engine_steps(torch, engine, out_dir)
         del engine
         torch.cuda.empty_cache()
+
+    # 13. tensor-parallel inference, 2 ranks on this card, against phases
+    # 5, 6 and the one-device engine
+    tp_dir = out_dir / "phase13"
+    try:
+        tp_res = run_tp(torch, cfg, kernels, card,
+                        dict(params, llm=params_full["llm"]), params, cache,
+                        engine_params, logits_5, fused,
+                        torch.tensor(decode_res["tokens"]), tp_dir)
+    finally:
+        shutil.rmtree(tp_dir, ignore_errors=True)
+    del fused, logits_5, cache
 
     # 7. release the serving weights
     del params, params_full, engine_params
@@ -2940,6 +3536,22 @@ def main() -> int:
     for entry in entries:  # 12a: B2/B3/B4 launches of one ring a layer
         if entry["name"] in ring_launches:
             entry["ring_launches"] = ring_launches[entry["name"]]
+    # 13: a tensor-parallel rank's launches (t = 2) and phase 3's shard
+    # shapes (t = 2 and 4)
+    keep = ("call", "shape", "shape_q", "shape_kv", "chunks", "max_abs_err",
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    for entry in entries:
+        name = entry["name"]
+        entry["tp_launches"] = {
+            part: tp_res[part]["launches"][name]
+            for part in ("prefill", "decode", "engine")}
+        rows = tp_checks.get(name) or [
+            r for r in checks[name] if str(r.get("call")).startswith("tp")]
+        if rows:
+            entry["tp_shapes"] = [{k: r[k] for k in keep if k in r}
+                                  for r in rows]
+        if name in tp_checks:
+            entry["tp_step_layers"] = tp_step_totals(tp_checks[name])
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"card": card, "seconds": time.perf_counter() - t_start}))
     LOG_FILE.close()

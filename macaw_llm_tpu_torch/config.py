@@ -241,7 +241,7 @@ class ModelConfig:
         if self.shard_sequence:
             raise NotImplementedError(
                 "shard_sequence: sequence sharding of the activations is not "
-                "ported (ROADMAP A7)")
+                "ported (ROADMAP A7b)")
 
 
 @dataclass(frozen=True)
@@ -359,17 +359,20 @@ class Config:
 
     def validate(self, world_size: int = 1, serving: bool = False) -> None:
         """``ModelConfig.validate``, then the mesh against ``world_size``
-        training processes (one device each; ``ValueError`` when its size
-        differs). ``serving`` (generation and the server, one device,
-        whatever mesh trained the checkpoint) refuses a tensor axis above 1
-        instead: tensor-parallel decoding is not ported (ROADMAP A7)."""
+        processes (one device each; ``ValueError`` when its size differs).
+        ``serving`` (generation and the server, whatever mesh trained the
+        checkpoint) runs on a world of ``mesh.tensor`` processes, one
+        tensor-parallel group: the mesh's other axes are read as one
+        replica."""
         self.model.validate()
         if not serving:
             self.mesh.resolved(world_size)
-        elif self.mesh.tensor > 1:
-            raise NotImplementedError(
-                f"mesh tensor={self.mesh.tensor}: tensor-parallel generation "
-                "and serving are not ported (ROADMAP A7)")
+            return
+        t = world_size if self.mesh.tensor == -1 else self.mesh.tensor
+        if t != world_size:
+            raise ValueError(f"mesh tensor={self.mesh.tensor}: generation and "
+                             f"serving run on {t} processes (one tensor "
+                             f"group), not {world_size}")
 
 
 def _from_dict(cls: Any, d: dict) -> Any:

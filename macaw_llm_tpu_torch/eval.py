@@ -21,6 +21,7 @@ from macaw_llm_tpu_torch.data.templates import format_prompt
 from macaw_llm_tpu_torch.generate import (beam_search, generate,
                                           generate_speculative)
 from macaw_llm_tpu_torch.models import fusion
+from macaw_llm_tpu_torch.parallel.tensor_parallel import TensorParallel
 
 
 def token_accuracy(logits: np.ndarray, labels: np.ndarray) -> float:
@@ -41,7 +42,8 @@ def batch_inference_generation(
         speculative: int = 0,
         out_path: Optional[str] = None,
         align_cache: Optional[dict] = None,
-        device="cuda") -> List[dict]:
+        device="cuda",
+        tp: Optional[TensorParallel] = None) -> List[dict]:
     """Batched generation over val rows on ``device`` (where ``params``
     live; the GPU unless ``device="cpu"``).
 
@@ -49,6 +51,9 @@ def batch_inference_generation(
     name or 'None'}. Absent media become zero tensors, matching training.
     ``speculative`` = K > 0 drafts K tokens a round by prompt lookup over
     the prompt text (``generate_speculative``): the greedy tokens.
+    ``tp``: ``params`` and ``align_cache`` are this rank's blocks of a
+    tensor-parallel tree; every rank of the group runs the same batches
+    and gets the same results.
     """
     device = resolve_device(device)
     mcfg = cfg.model
@@ -100,27 +105,27 @@ def batch_inference_generation(
             batch = fusion.prepare_inputs(
                 params, mcfg, input_ids=dev(ids), images=dev(images),
                 audios=dev(audios), videos=dev(videos),
-                attention_mask=dev(mask), align_cache=align_cache)
+                attention_mask=dev(mask), align_cache=align_cache, tp=tp)
             if num_beams > 1:
                 out = beam_search(params["llm"], mcfg.llm,
                                   inputs_embeds=batch.inputs_embeds,
                                   attention_mask=batch.attention_mask,
                                   num_beams=num_beams,
                                   max_new_tokens=max_new, eos_id=EOS_ID,
-                                  pad_id=PAD_ID, device=device)
+                                  pad_id=PAD_ID, device=device, tp=tp)
             elif speculative > 0:
                 out = generate_speculative(
                     params["llm"], mcfg.llm,
                     inputs_embeds=batch.inputs_embeds,
                     prompt_ids=dev(ids), attention_mask=batch.attention_mask,
                     max_new_tokens=max_new, draft_len=speculative,
-                    eos_id=EOS_ID, pad_id=PAD_ID, device=device)
+                    eos_id=EOS_ID, pad_id=PAD_ID, device=device, tp=tp)
             else:
                 out = generate(params["llm"], mcfg.llm,
                                inputs_embeds=batch.inputs_embeds,
                                attention_mask=batch.attention_mask,
                                max_new_tokens=max_new, eos_id=EOS_ID,
-                               pad_id=PAD_ID, device=device)
+                               pad_id=PAD_ID, device=device, tp=tp)
         toks = out.tokens.cpu().numpy()
         for i, e in enumerate(chunk):
             gen = toks[i]

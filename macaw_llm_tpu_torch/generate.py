@@ -12,6 +12,13 @@ one preallocated [L, B, S + max_new, N, D] buffer updated in place.
 Sampling draws from an explicit ``torch.Generator`` where the reference
 threads a PRNG key; the two give different numbers from the same seed, so
 only distributions agree. Without a generator every row decodes greedily.
+
+Under a tensor group (``tp``: ``params`` is this rank's block of a
+tensor-parallel tree, ``parallel.tensor_parallel``) every rank runs the
+same loop: the row-parallel all-reduces give each rank the same logits,
+so every host decision (EOS, budgets, beam reorders, speculative
+acceptance, and the draws of a generator seeded alike on every rank) is
+the same on every rank and they issue their collectives in one order.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from macaw_llm_tpu_torch import resolve_device
 from macaw_llm_tpu_torch.config import EOS_ID, LlamaConfig, PAD_ID
 from macaw_llm_tpu_torch.models import llama
 from macaw_llm_tpu_torch.ops.masks import NEG_INF
+from macaw_llm_tpu_torch.parallel.tensor_parallel import TensorParallel
 
 
 class GenerateResult(NamedTuple):
@@ -81,7 +89,8 @@ def generate(params: dict, cfg: LlamaConfig, *,
              generator: Optional[torch.Generator] = None,
              budgets: Optional[torch.Tensor] = None,
              cache_dtype: Optional[str] = None,
-             device="cuda") -> GenerateResult:
+             device="cuda",
+             tp: Optional[TensorParallel] = None) -> GenerateResult:
     """Decode from inputs_embeds [B, S, H] (on ``device``).
 
     ``budgets``: optional per-row [B] cap on generated tokens
@@ -100,14 +109,15 @@ def generate(params: dict, cfg: LlamaConfig, *,
 
     cache = llama.KVCache.create(cfg, b, s + max_new_tokens,
                                  dtype if cache_dtype is None else cache_dtype,
-                                 device)
+                                 device, tp)
     # hidden states only: the logits are projected for the one sampled
     # position per row, never for the whole prompt
     h = llama.forward_hidden(params, cfg, inputs_embeds,
                              attention_mask=full_mask, positions=prompt_pos,
-                             kv_cache=cache)
+                             kv_cache=cache, tp=tp)
     h_last = h[torch.arange(b, device=device), last_valid][:, None]
-    tok = _sample(llama.logits_from_hidden(params, h_last, valid)[:, 0],
+    tok = _sample(llama.logits_from_hidden(params, h_last, valid,
+                                           tp=tp)[:, 0],
                   generator, temperature, top_k)
 
     if budgets is None:
@@ -122,11 +132,11 @@ def generate(params: dict, cfg: LlamaConfig, *,
     finished = (tok == eos_id) | (budgets <= 1)
     step = 1
     while step < max_new_tokens and not bool(finished.all()):
-        emb = params["embed_tokens"].to(dtype)[tok][:, None, :]
+        emb = llama.embed(params, tok[:, None], dtype, tp)
         pos = (prompt_len + step - 1)[:, None]
         logits = llama.forward(params, cfg, inputs_embeds=emb,
                                attention_mask=full_mask, positions=pos,
-                               kv_cache=cache)
+                               kv_cache=cache, tp=tp)
         nxt = _sample(logits[:, -1], generator, temperature, top_k)
         nxt = torch.where(finished, pad_id, nxt)
         out[:, step] = nxt
@@ -141,7 +151,7 @@ def generate_from_ids(params: dict, cfg: LlamaConfig, *,
                       attention_mask: Optional[torch.Tensor] = None,
                       **kw) -> GenerateResult:
     """Text-only convenience wrapper (no media)."""
-    embeds = llama.embed(params, input_ids)
+    embeds = llama.embed(params, input_ids, tp=kw.get("tp"))
     return generate(params, cfg, inputs_embeds=embeds,
                     attention_mask=attention_mask, **kw)
 
@@ -155,7 +165,8 @@ def beam_search(params: dict, cfg: LlamaConfig, *,
                 eos_id: int = EOS_ID,
                 pad_id: int = PAD_ID,
                 length_penalty: float = 1.0,
-                device="cuda") -> GenerateResult:
+                device="cuda",
+                tp: Optional[TensorParallel] = None) -> GenerateResult:
     """Beam search from fused embeddings: one prefill per example, the
     cache expanded to B x beams rows and reordered each step by a gather
     over the selected parent beams. Returns the best beam per example by
@@ -172,10 +183,11 @@ def beam_search(params: dict, cfg: LlamaConfig, *,
     full_mask_bb = full_mask.repeat_interleave(num_beams, dim=0)
     prompt_len_bb = prompt_len.repeat_interleave(num_beams, dim=0)
 
-    cache = llama.KVCache.create(cfg, b, s + max_new_tokens, dtype, device)
+    cache = llama.KVCache.create(cfg, b, s + max_new_tokens, dtype, device,
+                                 tp)
     logits = llama.forward(params, cfg, inputs_embeds=inputs_embeds,
                            attention_mask=full_mask, positions=prompt_pos,
-                           kv_cache=cache)
+                           kv_cache=cache, tp=tp)
     cache = llama.KVCache(k=cache.k.repeat_interleave(num_beams, dim=1),
                           v=cache.v.repeat_interleave(num_beams, dim=1),
                           length=cache.length)
@@ -194,11 +206,11 @@ def beam_search(params: dict, cfg: LlamaConfig, *,
     batch_offset = torch.arange(b, device=device)[:, None] * num_beams
     step = 1
     while step < max_new_tokens and not bool(finished.all()):
-        emb = params["embed_tokens"].to(dtype)[tok.reshape(bb)][:, None, :]
+        emb = llama.embed(params, tok.reshape(bb, 1), dtype, tp)
         pos = (prompt_len_bb + step - 1)[:, None]
         logits = llama.forward(params, cfg, inputs_embeds=emb,
                                attention_mask=full_mask_bb, positions=pos,
-                               kv_cache=cache)
+                               kv_cache=cache, tp=tp)
         lp = torch.log_softmax(logits[:, -1].float(), -1)
         lp = lp.reshape(b, num_beams, vocab)
         lp = torch.where(finished[:, :, None], pad_only[None, None, :], lp)
@@ -266,7 +278,9 @@ def generate_speculative(params: dict, cfg: LlamaConfig, *,
                          cache_dtype: Optional[str] = None,
                          proposer: str = "ngram",
                          oracle_tokens: Optional[torch.Tensor] = None,
-                         device="cuda") -> GenerateResult:
+                         device="cuda",
+                         tp: Optional[TensorParallel] = None
+                         ) -> GenerateResult:
     """Greedy decode with speculative verification: the same tokens as
     ``generate``'s greedy ones, in fewer forwards.
 
@@ -303,13 +317,13 @@ def generate_speculative(params: dict, cfg: LlamaConfig, *,
     valid = llama.valid_vocab(cfg)
     cache = llama.KVCache.create(cfg, b, s + max_new_tokens + k,
                                  dtype if cache_dtype is None else cache_dtype,
-                                 device)
+                                 device, tp)
     h = llama.forward_hidden(params, cfg, inputs_embeds,
                              attention_mask=full_mask, positions=prompt_pos,
-                             kv_cache=cache)
+                             kv_cache=cache, tp=tp)
     rows = torch.arange(b, device=device)
     tok = llama.logits_from_hidden(params, h[rows, last_valid][:, None],
-                                   valid)[:, 0].argmax(-1)
+                                   valid, tp=tp)[:, 0].argmax(-1)
 
     # the n-gram corpus: each row's prompt text, then its generated tokens
     prompt_ids = prompt_ids.to(device=device, dtype=torch.int64)
@@ -331,7 +345,6 @@ def generate_speculative(params: dict, cfg: LlamaConfig, *,
     # read of a round
     finished = (tok == eos_id) | (max_new_tokens <= 1)
     steps = torch.arange(k + 1, device=device)[None, :]
-    embed_table = params["embed_tokens"].to(dtype)
     rounds = 0
     while not bool(finished.all()):
         # ---- draft ----
@@ -349,10 +362,10 @@ def generate_speculative(params: dict, cfg: LlamaConfig, *,
         seq = torch.cat([tok[:, None], drafts], 1)           # [B, k + 1]
         cache.length = row_len
         logits = llama.forward(
-            params, cfg, inputs_embeds=embed_table[seq],
+            params, cfg, input_ids=seq, dtype=dtype,
             attention_mask=full_mask,
             positions=(prompt_len + n_emit - 1)[:, None] + steps,
-            kv_cache=cache, decode_rows=True)
+            kv_cache=cache, decode_rows=True, tp=tp)
         t = logits.argmax(-1)                                # [B, k + 1]
         # ---- accept the longest confirmed prefix; stop at EOS / budget ----
         accepted = torch.cumprod((drafts == t[:, :k]).to(torch.int64),

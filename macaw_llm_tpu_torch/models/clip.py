@@ -12,6 +12,7 @@ reference's ``encode_image``). ``encode_pooled`` is CLIP's
 from __future__ import annotations
 
 from functools import partial
+from typing import Optional
 
 import torch
 
@@ -23,6 +24,7 @@ from macaw_llm_tpu_torch.ops.activations import quick_gelu
 from macaw_llm_tpu_torch.ops.attention import mha_apply
 from macaw_llm_tpu_torch.ops.linear import dense
 from macaw_llm_tpu_torch.ops.norms import layer_norm
+from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
 
 
 def init_params(gen: torch.Generator, cfg: ClipVisionConfig,
@@ -80,20 +82,25 @@ def _embeddings(params: dict, cfg: ClipVisionConfig,
 
 def _encoder_layer(cfg: ClipVisionConfig, lp: dict, h: torch.Tensor,
                    use_flash: bool = False,
-                   activation_quant: bool = False) -> torch.Tensor:
+                   activation_quant: bool = False,
+                   tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
+    """Pre-norm attention + residual, pre-norm MLP + residual; under ``tp``
+    the cut attention and MLP run this rank's heads and FFN columns."""
     aq = activation_quant
     ln1 = layer_norm(h, lp["ln1"]["w"], lp["ln1"]["b"], cfg.layer_norm_eps)
     h = h + mha_apply(lp["attn"], cfg.num_heads, ln1, use_flash=use_flash,
-                      activation_quant=aq)
+                      activation_quant=aq, tp=tpar.on(tp, "clip_attn"))
     ln2 = layer_norm(h, lp["ln2"]["w"], lp["ln2"]["b"], cfg.layer_norm_eps)
     m = quick_gelu(dense(ln2, lp["mlp"]["fc1"]["w"], lp["mlp"]["fc1"]["b"],
                          aq))
-    m = dense(m, lp["mlp"]["fc2"]["w"], lp["mlp"]["fc2"]["b"], aq)
+    m = dense(m, lp["mlp"]["fc2"]["w"], lp["mlp"]["fc2"]["b"], aq,
+              tpar.on(tp, "clip_mlp"))
     return h + m
 
 
 def _encode(params: dict, cfg: ClipVisionConfig, pixels: torch.Tensor,
-            use_flash: bool, remat, activation_quant: bool) -> torch.Tensor:
+            use_flash: bool, remat, activation_quant: bool,
+            tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """pixels -> the last layer's hidden states [B, 1 + P, hidden]."""
     h = _embeddings(params, cfg, pixels)
     h = layer_norm(h, params["pre_layernorm"]["w"],
@@ -102,30 +109,34 @@ def _encode(params: dict, cfg: ClipVisionConfig, pixels: torch.Tensor,
     for i in range(num_layers(layers)):
         fn = layer_fn(partial(_encoder_layer, cfg), layers, i)
         h = checkpointed(partial(fn, use_flash=use_flash,
-                                 activation_quant=activation_quant), remat, h)
+                                 activation_quant=activation_quant, tp=tp),
+                         remat, h)
     return h
 
 
 def encode_patches(params: dict, cfg: ClipVisionConfig,
                    pixels: torch.Tensor, use_flash: bool = False,
-                   remat=False, activation_quant: bool = False
+                   remat=False, activation_quant: bool = False,
+                   tp: Optional[tpar.TensorParallel] = None
                    ) -> torch.Tensor:
     """pixels [B, 3, H, W] -> projected patch tokens [B, P,
     projection_dim] (CLS dropped). ``remat`` (False, True, "nothing" or
     "dots", ``models.remat``) checkpoints each layer while the tower takes
-    a gradient; ``activation_quant`` sends int8 records to W8A8."""
-    h = _encode(params, cfg, pixels, use_flash, remat, activation_quant)
+    a gradient; ``activation_quant`` sends int8 records to W8A8; ``tp``: a
+    rank's block of a tensor-parallel tree."""
+    h = _encode(params, cfg, pixels, use_flash, remat, activation_quant, tp)
     return dense(h, params["visual_projection"], None,
                  activation_quant)[:, 1:, :]
 
 
 def encode_pooled(params: dict, cfg: ClipVisionConfig,
                   pixels: torch.Tensor, remat=False,
-                  activation_quant: bool = False) -> torch.Tensor:
+                  activation_quant: bool = False,
+                  tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """pixels [B, 3, H, W] -> [B, projection_dim]: the post-layernormed
     CLS token through visual_projection (the reference package runs these
     layers without the flash path)."""
-    h = _encode(params, cfg, pixels, False, remat, activation_quant)
+    h = _encode(params, cfg, pixels, False, remat, activation_quant, tp)
     cls = layer_norm(h[:, 0], params["post_layernorm"]["w"],
                      params["post_layernorm"]["b"], cfg.layer_norm_eps)
     return dense(cls, params["visual_projection"], None, activation_quant)

@@ -36,6 +36,7 @@ from macaw_llm_tpu_torch.ops.attention import (
     torch_mha_apply_shared_kv_dropout, torch_mha_apply_shared_kv_einsum,
     torch_mha_apply_shared_kv_flash)
 from macaw_llm_tpu_torch.ops.linear import dense
+from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
 
 # alignment logits above this many bytes go to the flash kernel
 ALIGN_EINSUM_MAX_BYTES = int(4e8)
@@ -141,19 +142,22 @@ def _remat(cfg: ModelConfig):
 
 
 def encode_image(params: dict, cfg: ModelConfig, images: torch.Tensor,
-                 activation_quant: bool = False) -> torch.Tensor:
+                 activation_quant: bool = False,
+                 tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """[B, 3, H, W] -> [B, P, projection_dim]."""
     with _frozen(params["image_encoder"]):
         return clip.encode_patches(params["image_encoder"], cfg.vision,
                                    images, use_flash=cfg.tower_flash,
                                    remat=_remat(cfg),
-                                   activation_quant=activation_quant)
+                                   activation_quant=activation_quant, tp=tp)
 
 
 def encode_video_long(params: dict, cfg: ModelConfig,
                       videos: torch.Tensor,
                       dropout_rng: Optional[torch.Generator] = None,
-                      activation_quant: bool = False) -> torch.Tensor:
+                      activation_quant: bool = False,
+                      tp: Optional[tpar.TensorParallel] = None
+                      ) -> torch.Tensor:
     """[B, F, 3, H, W] -> [B, F*P, projection_dim]: per-frame patch tokens
     concatenated over frames, the sinusoidal PE, one self-attention (with
     attention dropout when ``dropout_rng`` is given)."""
@@ -163,7 +167,7 @@ def encode_video_long(params: dict, cfg: ModelConfig,
         feats = clip.encode_patches(params["video_encoder"], cfg.vision,
                                     frames, use_flash=cfg.tower_flash,
                                     remat=_remat(cfg),
-                                    activation_quant=activation_quant)
+                                    activation_quant=activation_quant, tp=tp)
     feats = feats.reshape(b, f * feats.shape[1], feats.shape[2])
     feats = feats + sinusoidal_pe(feats.shape[1], feats.shape[2],
                                   feats.dtype, feats.device)[None]
@@ -178,7 +182,9 @@ def encode_video_long(params: dict, cfg: ModelConfig,
 def encode_video_simple(params: dict, cfg: ModelConfig,
                         videos: torch.Tensor,
                         dropout_rng: Optional[torch.Generator] = None,
-                        activation_quant: bool = False) -> torch.Tensor:
+                        activation_quant: bool = False,
+                        tp: Optional[tpar.TensorParallel] = None
+                        ) -> torch.Tensor:
     """[B, F, 3, H, W] -> [B, F, projection_dim]: the reference's pooled
     ``encode_video`` (CLIP's ``get_image_features``: the post-layernormed
     CLS token through visual_projection, one per frame), plus a learned
@@ -189,7 +195,7 @@ def encode_video_simple(params: dict, cfg: ModelConfig,
     with _frozen(params["video_encoder"]):
         pooled = clip.encode_pooled(params["video_encoder"], cfg.vision,
                                     frames, remat=_remat(cfg),
-                                    activation_quant=activation_quant)
+                                    activation_quant=activation_quant, tp=tp)
     pos = params["fusion"]["temporal_pos_emb"].to(pooled.dtype)
     pooled = pooled + pos[torch.arange(f, device=pos.device).repeat(b)]
     feats = pooled.reshape(b, f, pooled.shape[-1])
@@ -202,7 +208,8 @@ def encode_video_simple(params: dict, cfg: ModelConfig,
 
 def encode_audio(params: dict, cfg: ModelConfig, audios: torch.Tensor,
                  dropout_rng: Optional[torch.Generator] = None,
-                 activation_quant: bool = False) -> torch.Tensor:
+                 activation_quant: bool = False,
+                 tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """[B, 80, 3000] -> [B, 1500, d_model]. With ``dropout_rng`` and
     ``cfg.audio.encoder_layerdrop`` > 0, Whisper's LayerDrop: the keep
     vector is drawn here on the host from ``dropout_rng``."""
@@ -215,7 +222,7 @@ def encode_audio(params: dict, cfg: ModelConfig, audios: torch.Tensor,
         return whisper.encode(params["audio_encoder"], cfg.audio, audios,
                               use_flash=cfg.tower_flash,
                               remat=_remat(cfg), layer_keep=keep,
-                              activation_quant=activation_quant)
+                              activation_quant=activation_quant, tp=tp)
 
 
 def _conv_downsample(p: dict, x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -231,13 +238,16 @@ def _conv_downsample(p: dict, x: torch.Tensor, stride: int) -> torch.Tensor:
 def _align(p: dict, heads: int, feats: torch.Tensor,
            memory: Optional[torch.Tensor], kv_cache=None,
            dropout_rate: float = 0.0,
-           rng: Optional[torch.Generator] = None) -> torch.Tensor:
+           rng: Optional[torch.Generator] = None,
+           tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """Alignment cross-attention: Q = modality features, K = V = the token
     embedding memory. With a cache, the einsum over the (int8) cached rows
     while its fp32 logits stay within ALIGN_EINSUM_MAX_BYTES, else the
     flash kernel over the dequantized rows; without one, the flash kernel
     over the memory projected here. With dropout (``rng`` given, rate > 0)
     the chunked dropout attention over the dequantized cache or the memory.
+    ``tp`` (inference): this rank's heads, which also count in the
+    einsum's logits bytes.
     """
     if rng is not None and dropout_rate > 0.0:
         kv = None
@@ -250,21 +260,24 @@ def _align(p: dict, heads: int, feats: torch.Tensor,
     if kv_cache is not None:
         b, sq, _ = feats.shape
         m2 = kv_cache["k"][0].shape[0]
-        if b * heads * sq * m2 * 4 <= ALIGN_EINSUM_MAX_BYTES:
+        if b * tpar.local(tp, heads) * sq * m2 * 4 <= ALIGN_EINSUM_MAX_BYTES:
             return torch_mha_apply_shared_kv_einsum(
-                p, heads, feats, (kv_cache["k"], kv_cache["v"]))
+                p, heads, feats, (kv_cache["k"], kv_cache["v"]), tp)
         kv = (_dequant_rows(kv_cache["k"], feats.dtype),
               _dequant_rows(kv_cache["v"], feats.dtype))
         return torch_mha_apply_shared_kv_flash(p, heads, feats, memory,
-                                               kv_cache=kv)
+                                               kv_cache=kv, tp=tp)
     return torch_mha_apply_shared_kv_flash(p, heads, feats, memory,
-                                           add_zero_attn=True)
+                                           add_zero_attn=True, tp=tp)
 
 
-def _quant_rows(x: torch.Tensor):
-    """Symmetric per-row int8: [M, E] -> (int8 [M, E], fp32 scale [M, 1])."""
+def _quant_rows(x: torch.Tensor,
+                tp: Optional[tpar.TensorParallel] = None):
+    """Symmetric per-row int8: [M, E] -> (int8 [M, E], fp32 scale [M, 1]).
+    Under ``tp`` x is this rank's columns of the rows and the scale is the
+    whole row's (its max over the ranks): the one-device cache's columns."""
     xf = x.float()
-    amax = xf.abs().amax(-1, keepdim=True)
+    amax = tpar.reduce_max(tp, xf.abs().amax(-1, keepdim=True))
     scale = torch.where(amax == 0.0, 1.0, amax / 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return q.to(torch.int8), scale
@@ -277,23 +290,37 @@ def _dequant_rows(entry, dtype) -> torch.Tensor:
     return (q.float() * scale).to(dtype)
 
 
+def _token_memory(params: dict, cfg: ModelConfig, compute,
+                  tp: Optional[tpar.TensorParallel]) -> torch.Tensor:
+    """The alignments' K/V memory: the whole token-embedding matrix (its
+    first ``align_memory_rows``), all-gathered when the vocab is cut."""
+    memory = params["llm"]["embed_tokens"].to(compute)
+    vtp = tpar.on(tp, "vocab")
+    if vtp is not None:
+        memory = tpar.gather(vtp, memory, 0)
+    if cfg.fusion.align_memory_rows is not None:
+        memory = memory[:cfg.fusion.align_memory_rows]
+    return memory
+
+
 def precompute_align_cache(params: dict, cfg: ModelConfig,
-                           quantize: bool = False) -> dict:
+                           quantize: bool = False,
+                           tp: Optional[tpar.TensorParallel] = None) -> dict:
     """The alignment attentions' batch-shared K/V projections of the
     token-embedding memory: {mod: {"k": (rows, scale), "v": (rows,
     scale)}}; scale is None for a plain cache and per-row fp32 for int8.
     Run it before ``quantize_llama``: it reads the compute-dtype
-    embed_tokens, which are never quantized."""
+    embed_tokens, which are never quantized. Under ``tp`` the rows are
+    this rank's heads' columns, scaled as whole rows."""
     compute = getattr(torch, cfg.dtype)
-    memory = params["llm"]["embed_tokens"].to(compute)
-    if cfg.fusion.align_memory_rows is not None:
-        memory = memory[:cfg.fusion.align_memory_rows]
+    memory = _token_memory(params, cfg, compute, tp)
+    atp = tpar.on(tp, "align")
     cache = {}
     for mod in ("image", "audio", "video"):
         k, v = shared_kv_project(params["fusion"][f"{mod}_align"], memory,
                                  add_zero_attn=True)
         if quantize:
-            cache[mod] = {"k": _quant_rows(k), "v": _quant_rows(v)}
+            cache[mod] = {"k": _quant_rows(k, atp), "v": _quant_rows(v, atp)}
         else:
             cache[mod] = {"k": (k, None), "v": (v, None)}
     return cache
@@ -319,18 +346,19 @@ def strip_align_kv(params: dict) -> dict:
     fp = dict(params["fusion"])
     for mod in ("image", "audio", "video"):
         p = dict(fp[f"{mod}_align"])
-        e = p["in_proj_w"].shape[1]
-        p["in_proj_w"] = p["in_proj_w"][:e]
+        p["in_proj_w"] = p["in_proj_w"][:p["in_proj_w"].shape[0] // 3]
         fp[f"{mod}_align"] = p
     out["fusion"] = fp
     return out
 
 
-def _boundary(llm_params: dict, token_id: int, batch: int,
-              dtype) -> torch.Tensor:
+def _boundary(llm_params: dict, token_id: int, batch: int, dtype,
+              tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """[B, 1, H] embedding of a boundary special token."""
-    emb = llm_params["embed_tokens"][token_id].to(dtype)
-    return emb.expand(batch, 1, emb.shape[0])
+    table = llm_params["embed_tokens"]
+    ids = torch.full((1, 1), token_id, dtype=torch.int64, device=table.device)
+    emb = llama.embed(llm_params, ids, dtype, tp)
+    return emb.expand(batch, 1, emb.shape[-1])
 
 
 def prepare_inputs(params: dict, cfg: ModelConfig, *,
@@ -343,7 +371,8 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
                    dropout_rng: Optional[torch.Generator] = None,
                    video_mode: str = "long",
                    align_cache: Optional[dict] = None,
-                   activation_quant: bool = False) -> FusedBatch:
+                   activation_quant: bool = False,
+                   tp: Optional[tpar.TensorParallel] = None) -> FusedBatch:
     """Fused embeddings, the mask extended with ones and the labels with
     IGNORE_ID over the prefix. Raw media are featurized here: waveforms
     [B, samples] -> log-mel, uint8 frames [.., H, W, 3] -> CLIP pixels.
@@ -354,7 +383,9 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
     a constant, so the in-proj K/V rows and bias_k/bias_v take no gradient.
     ``video_mode``: "long" (``encode_video_long``) or "simple"
     (``encode_video_simple``). ``activation_quant`` sends the towers' int8
-    records (``utils.quantize.quantize_towers``) to W8A8.
+    records (``utils.quantize.quantize_towers``) to W8A8. ``tp``
+    (inference): ``params`` and ``align_cache`` are this rank's blocks of
+    a tensor-parallel tree; the fused batch is every rank's, whole.
     """
     if video_mode not in ("long", "simple"):
         raise ValueError(f"video_mode {video_mode!r}: 'long' or 'simple'")
@@ -381,12 +412,12 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
     cache = align_cache or {}
     drop = cfg.fusion.align_dropout if dropout_rng is not None else 0.0
 
-    text_emb = llama.embed(lp, input_ids, compute)
+    text_emb = llama.embed(lp, input_ids, compute, tp)
     # K/V memory of the alignments without a cache: the whole vocab
     # embedding matrix, shared across the batch
-    token_memory = lp["embed_tokens"].to(compute)
-    if cfg.fusion.align_memory_rows is not None:
-        token_memory = token_memory[:cfg.fusion.align_memory_rows]
+    token_memory = None
+    if any(mod not in cache for mod in ("image", "audio", "video")):
+        token_memory = _token_memory(params, cfg, compute, tp)
 
     blocks = []
 
@@ -395,23 +426,25 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
         x = dense(x, fp["to_hidden"][mod]["w"], fp["to_hidden"][mod]["b"])
         x = _align(fp[f"{mod}_align"], heads2, x, token_memory,
                    kv_cache=cache.get(mod), dropout_rate=drop,
-                   rng=dropout_rng)
-        blocks.append(torch.cat([_boundary(lp, bids[mod][0], b, compute), x,
-                                 _boundary(lp, bids[mod][1], b, compute)], 1))
+                   rng=dropout_rng, tp=tpar.on(tp, "align"))
+        blocks.append(torch.cat(
+            [_boundary(lp, bids[mod][0], b, compute, tp), x,
+             _boundary(lp, bids[mod][1], b, compute, tp)], 1))
 
     aq = activation_quant
     if images is not None:
-        add_block("image", encode_image(params, cfg, images.to(compute), aq),
+        add_block("image", encode_image(params, cfg, images.to(compute), aq,
+                                        tp),
                   cfg.fusion.image_conv_stride)
     if audios is not None:
         add_block("audio", encode_audio(params, cfg, audios.to(compute),
-                                        dropout_rng, aq),
+                                        dropout_rng, aq, tp),
                   cfg.fusion.audio_conv_stride)
     if videos is not None:
         encode_video = encode_video_long if video_mode == "long" \
             else encode_video_simple
         add_block("video", encode_video(params, cfg, videos.to(compute),
-                                        dropout_rng, aq),
+                                        dropout_rng, aq, tp),
                   cfg.fusion.video_conv_stride)
     prefix_len = sum(blk.shape[1] for blk in blocks)
 

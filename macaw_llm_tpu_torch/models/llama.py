@@ -52,6 +52,7 @@ from macaw_llm_tpu_torch.ops.masks import (NEG_INF, causal_mask,
                                            combine_masks, padding_mask)
 from macaw_llm_tpu_torch.ops.norms import rms_norm
 from macaw_llm_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
 from macaw_llm_tpu_torch.train.lora import lora_delta
 from macaw_llm_tpu_torch.utils import quantize as qz
 
@@ -76,8 +77,12 @@ class KVCache:
 
     @classmethod
     def create(cls, cfg: LlamaConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu") -> "KVCache":
-        shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+               dtype=torch.bfloat16, device="cpu",
+               tp: Optional[tpar.TensorParallel] = None) -> "KVCache":
+        """Zeros for ``batch`` rows of ``max_len`` positions; under a
+        tensor group that cuts the attention, this rank's kv heads."""
+        heads = tpar.local(tpar.on(tp, "llm_attn"), cfg.kv_heads)
+        shape = (cfg.num_layers, batch, max_len, heads, cfg.head_dim)
         if dtype == "int8":
             dtype = torch.int8
         cache = cls(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -133,13 +138,18 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
                flash_bias: Optional[torch.Tensor], use_flash: bool,
                activation_quant: bool, lora: Optional[dict] = None,
                lora_scale: float = 1.0,
-               decode_rows: bool = False, ring=None) -> torch.Tensor:
+               decode_rows: bool = False, ring=None,
+               tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
+    """Self-attention of one layer; under ``tp`` (the attention is cut)
+    this rank's heads, their partial output summed over the ranks."""
     b, s, _ = h.shape
-    n, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    n, nkv = tpar.local(tp, cfg.num_heads), tpar.local(tp, cfg.kv_heads)
+    d = cfg.head_dim
     compute = h.dtype
-    mm = lambda x, w: qz.matmul(x, w, compute,  # noqa: E731
-                                activation_quant=activation_quant,
-                                decode_rows=decode_rows)
+    cols = 1 if tp is None else tp.size
+    mm = lambda x, w, row=None: qz.matmul(  # noqa: E731
+        x, w, compute, activation_quant=activation_quant,
+        decode_rows=decode_rows, tp=row, cols=cols)
     if "qkv" in p:  # packed decode layout
         if lora is not None:
             raise ValueError("the packed qkv layout takes no LoRA adapters")
@@ -207,45 +217,54 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
         out = dot_product_attention_quant(q, k_full, v_full, k_sc, v_sc, mask)
     else:
         out = dot_product_attention(q, k_full, v_full, mask)
-    return mm(out.reshape(b, s, n * d), p["wo"])
+    return mm(out.reshape(b, s, n * d), p["wo"], tp)
 
 
 def _mlp(p: dict, h: torch.Tensor, activation_quant: bool,
-         decode_rows: bool = False) -> torch.Tensor:
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+         decode_rows: bool = False,
+         tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
+    """SwiGLU: down(silu(gate(x)) * up(x)); under ``tp`` (the MLP is cut)
+    this rank's FFN columns, the partial output summed over the ranks."""
     c = h.dtype
-    mm = lambda x, w: qz.matmul(x, w, c,  # noqa: E731
-                                activation_quant=activation_quant,
-                                decode_rows=decode_rows)
+    cols = 1 if tp is None else tp.size
+    mm = lambda x, w, row=None: qz.matmul(  # noqa: E731
+        x, w, c, activation_quant=activation_quant,
+        decode_rows=decode_rows, tp=row, cols=cols)
     if "gateup" in p:  # packed decode layout
         gu = mm(h, p["gateup"])
         i = gu.shape[-1] // 2
-        return mm(silu(gu[..., :i]) * gu[..., i:], p["down"])
-    return mm(silu(mm(h, p["gate"])) * mm(h, p["up"]), p["down"])
+        return mm(silu(gu[..., :i]) * gu[..., i:], p["down"], tp)
+    return mm(silu(mm(h, p["gate"])) * mm(h, p["up"]), p["down"], tp)
 
 
 def _decoder_layer(cfg: LlamaConfig, lp: dict, h: torch.Tensor, mask, cos,
                    sin, kv_cache: Optional[KVCache], write_at, li: int,
                    flash_bias,
                    use_flash: bool, activation_quant: bool,
-                   lora_scale: float, decode_rows: bool = False, ring=None
+                   lora_scale: float, decode_rows: bool = False, ring=None,
+                   tp: Optional[tpar.TensorParallel] = None
                    ) -> torch.Tensor:
     """Pre-norm attention + residual, pre-norm SwiGLU + residual."""
     x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
     h = h + _attention(cfg, lp["attn"], x, mask, cos, sin, kv_cache,
                        write_at, li, flash_bias, use_flash, activation_quant,
-                       lp.get("lora"), lora_scale, decode_rows, ring)
+                       lp.get("lora"), lora_scale, decode_rows, ring,
+                       tpar.on(tp, "llm_attn"))
     x = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
-    return h + _mlp(lp["mlp"], x, activation_quant, decode_rows)
+    return h + _mlp(lp["mlp"], x, activation_quant, decode_rows,
+                    tpar.on(tp, "llm_mlp"))
 
 
 def embed(params: dict, input_ids: torch.Tensor,
-          dtype=torch.float32) -> torch.Tensor:
+          dtype=torch.float32,
+          tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """Token embedding lookup ([B, S] -> [B, S, H]). ``F.embedding`` and
     not ``table[ids]``: on the CPU the backward of advanced indexing
     accumulates repeated ids in a varying order, so a resumed run would not
-    reproduce an uninterrupted one bit for bit."""
-    return F.embedding(input_ids, params["embed_tokens"].to(dtype))
+    reproduce an uninterrupted one bit for bit. Under a ``tp`` that cuts
+    the vocab, the vocab-parallel lookup (``tensor_parallel.embed``)."""
+    return tpar.embed(tpar.on(tp, "vocab"), params["embed_tokens"].to(dtype),
+                      input_ids)
 
 
 def forward_hidden(params: dict, cfg: LlamaConfig,
@@ -259,7 +278,8 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
                    lora_scale: float = 1.0,
                    decode_rows: bool = False,
                    ring_mesh=None, ring_axis: str = "tensor",
-                   ring_layout: str = "zigzag") -> torch.Tensor:
+                   ring_layout: str = "zigzag",
+                   tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """Decoder stack over ``inputs_embeds`` [B, S, H] -> final-normed hidden
     states [B, S, H].
 
@@ -281,7 +301,9 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     ``inputs_embeds`` is this rank's chunk of a sequence cut over the mesh
     axis ``ring_axis`` in the ``ring_layout`` order, ``positions`` its
     original indices, and the attention is ring attention (no padding
-    bias; ``attention_mask`` is refused).
+    bias; ``attention_mask`` is refused). ``tp``: this rank's block of a
+    tensor-parallel tree (``parallel.tensor_parallel``; the cache holds
+    its heads); the hidden states are every rank's, whole.
     """
     if remat and kv_cache is not None:
         raise ValueError("remat is for the no-cache (training) path")
@@ -339,7 +361,8 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     layers = params["layers"]
     for li in range(num_layers(layers)):
         args = (mask, cos, sin, kv_cache, write_at, li, flash_bias,
-                use_kernel, activation_quant, lora_scale, decode_rows, ring)
+                use_kernel, activation_quant, lora_scale, decode_rows, ring,
+                tp)
         h = checkpointed(layer_fn(partial(_decoder_layer, cfg), layers, li),
                          remat, h, *args)
     if kv_cache is not None:
@@ -349,11 +372,19 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
 
 def logits_from_hidden(params: dict, h: torch.Tensor,
                        valid: Optional[int] = None,
-                       decode_rows: bool = False) -> torch.Tensor:
-    """CLM head, fp32 logits; ``valid`` masks padded vocab columns."""
+                       decode_rows: bool = False,
+                       tp: Optional[tpar.TensorParallel] = None
+                       ) -> torch.Tensor:
+    """CLM head, fp32 logits; ``valid`` masks padded vocab columns. Under
+    a ``tp`` that cuts the vocab, each rank's columns are all-gathered
+    first."""
+    vtp = tpar.on(tp, "vocab")
     logits = qz.matmul(h, params["lm_head"], h.dtype,
-                       decode_rows=decode_rows).float()
-    return _mask_padded_vocab(logits, valid)
+                       decode_rows=decode_rows,
+                       cols=1 if vtp is None else vtp.size)
+    if vtp is not None:
+        logits = tpar.gather(vtp, logits, -1)
+    return _mask_padded_vocab(logits.float(), valid)
 
 
 def _mask_padded_vocab(logits: torch.Tensor,
@@ -382,18 +413,19 @@ def forward(params: dict, cfg: LlamaConfig,
             lora_scale: float = 1.0,
             decode_rows: bool = False,
             ring_mesh=None, ring_axis: str = "tensor",
-            ring_layout: str = "zigzag") -> torch.Tensor:
+            ring_layout: str = "zigzag",
+            tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """Full CLM forward -> logits [B, S, V] fp32. Takes token ids or
     embeddings, never both."""
     if (input_ids is None) == (inputs_embeds is None):
         raise ValueError("pass exactly one of input_ids / inputs_embeds")
     if inputs_embeds is None:
-        inputs_embeds = embed(params, input_ids, dtype)
+        inputs_embeds = embed(params, input_ids, dtype, tp)
     h = forward_hidden(params, cfg, inputs_embeds, attention_mask, positions,
                        kv_cache, use_flash, activation_quant, remat,
                        lora_scale, decode_rows, ring_mesh, ring_axis,
-                       ring_layout)
-    return logits_from_hidden(params, h, valid_vocab(cfg), decode_rows)
+                       ring_layout, tp)
+    return logits_from_hidden(params, h, valid_vocab(cfg), decode_rows, tp)
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor):

@@ -28,6 +28,7 @@ from macaw_llm_tpu_torch.ops.activations import gelu
 from macaw_llm_tpu_torch.ops.attention import mha_apply
 from macaw_llm_tpu_torch.ops.linear import dense
 from macaw_llm_tpu_torch.ops.norms import layer_norm
+from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
 
 
 def init_params(gen: torch.Generator, cfg: WhisperConfig,
@@ -76,16 +77,21 @@ def _conv1d(p: dict, x: torch.Tensor, stride: int) -> torch.Tensor:
 
 def _encoder_layer(cfg: WhisperConfig, lp: dict, h: torch.Tensor,
                    use_flash: bool = False,
-                   activation_quant: bool = False) -> torch.Tensor:
+                   activation_quant: bool = False,
+                   tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
+    """Pre-norm attention + residual, pre-norm MLP + residual; under ``tp``
+    the cut attention and MLP run this rank's heads and FFN columns."""
     aq = activation_quant
     ln = layer_norm(h, lp["self_attn_ln"]["w"], lp["self_attn_ln"]["b"],
                     cfg.layer_norm_eps)
     h = h + mha_apply(lp["attn"], cfg.encoder_attention_heads, ln,
-                      use_flash=use_flash, activation_quant=aq)
+                      use_flash=use_flash, activation_quant=aq,
+                      tp=tpar.on(tp, "whisper_attn"))
     ln = layer_norm(h, lp["final_ln"]["w"], lp["final_ln"]["b"],
                     cfg.layer_norm_eps)
     m = gelu(dense(ln, lp["mlp"]["fc1"]["w"], lp["mlp"]["fc1"]["b"], aq))
-    m = dense(m, lp["mlp"]["fc2"]["w"], lp["mlp"]["fc2"]["b"], aq)
+    m = dense(m, lp["mlp"]["fc2"]["w"], lp["mlp"]["fc2"]["b"], aq,
+              tpar.on(tp, "whisper_mlp"))
     return h + m
 
 
@@ -100,12 +106,13 @@ def layerdrop_keep(rng: torch.Generator, n_layers: int,
 def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
            use_flash: bool = False, remat=False,
            layer_keep: Optional[Sequence[bool]] = None,
-           activation_quant: bool = False) -> torch.Tensor:
+           activation_quant: bool = False,
+           tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """mel [B, 80, 3000] -> [B, 1500, d_model]. ``remat`` (False, True,
     "nothing" or "dots", ``models.remat``) checkpoints each layer while the
     tower takes a gradient; ``layer_keep`` (one bool a layer, LayerDrop)
     skips the layers it marks False; ``activation_quant`` sends int8
-    records to W8A8."""
+    records to W8A8; ``tp``: a rank's block of a tensor-parallel tree."""
     x = mel.transpose(1, 2)
     x = gelu(_conv1d(params["conv1"], x, 1))
     x = gelu(_conv1d(params["conv2"], x, 2))  # 3000 -> 1500
@@ -120,6 +127,7 @@ def encode(params: dict, cfg: WhisperConfig, mel: torch.Tensor,
             continue
         fn = layer_fn(partial(_encoder_layer, cfg), layers, i)
         x = checkpointed(partial(fn, use_flash=use_flash,
-                                 activation_quant=activation_quant), remat, x)
+                                 activation_quant=activation_quant, tp=tp),
+                         remat, x)
     return layer_norm(x, params["layer_norm"]["w"], params["layer_norm"]["b"],
                       cfg.layer_norm_eps)

@@ -14,7 +14,12 @@
   (the alignment and video-long attentions); with a dropout generator
   (training) the attention goes through ``dropout_attention_chunked``.
 
-All apply functions are batch-first: [B, S, E].
+All apply functions are batch-first: [B, S, E]. Under a tensor group
+that cuts them (``tp``, ``parallel.tensor_parallel``) the inference paths
+(``mha_apply`` and the cached or memory-projecting alignment) run this
+rank's heads: its q/k/v columns (and bias_k/bias_v), its rows of the
+out-projection, whose partials are summed over the ranks before its bias
+is added once.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from torch.utils.checkpoint import checkpoint
 from macaw_llm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from macaw_llm_tpu_torch.ops.linear import dense
 from macaw_llm_tpu_torch.ops.masks import NEG_INF
+from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
+from macaw_llm_tpu_torch.utils import quantize as qz
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,11 +98,14 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def pack_mha(params: dict) -> dict:
     """Inference layout: one [E, 3E] (stacked [L, E, 3E]) in-projection
-    for q/k/v. Idempotent: an already packed tree comes back as it is."""
+    for q/k/v (plain weights or int8 records, whose per-column scales
+    concatenate the same way). Idempotent: an already packed tree comes
+    back as it is. On a rank's block (``tensor_parallel.tp_params``) it
+    packs [its q | its k | its v]."""
     if "qkv" in params:
         return params
     q, k, v = params["q"], params["k"], params["v"]
-    packed = {"w": torch.cat([q["w"], k["w"], v["w"]], dim=-1)}
+    packed = {"w": qz.cat_columns(q["w"], k["w"], v["w"])}
     if "b" in q:
         packed["b"] = torch.cat([q["b"], k["b"], v["b"]], dim=-1)
     return {"qkv": packed, "o": params["o"]}
@@ -105,34 +115,38 @@ def mha_apply(params: dict, num_heads: int, q_in: torch.Tensor,
               kv_in: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None,
               use_flash: bool = False,
-              activation_quant: bool = False) -> torch.Tensor:
+              activation_quant: bool = False,
+              tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
     """Self- or cross-attention with per-projection weights, [B, S, E]
     in/out. use_flash sends unmasked attention over >= 1024 keys (Whisper's
     1500 frames) to the flash kernel; shorter sequences (CLIP's 197
     tokens) stay on the einsum path, as in the reference package.
-    ``activation_quant``: W8A8 for int8 projection records."""
+    ``activation_quant``: W8A8 for int8 projection records. ``tp``: the
+    weights are this rank's block of ``num_heads`` heads."""
     def _proj(p: dict, x: torch.Tensor) -> torch.Tensor:
         return dense(x, p["w"], p.get("b"), activation_quant)
 
+    n = tpar.local(tp, num_heads)
     if "qkv" in params:
         if kv_in is not None and kv_in is not q_in:
             raise ValueError("packed qkv layout is self-attention only")
-        e = q_in.shape[-1]
         y = _proj(params["qkv"], q_in)
-        q = _split_heads(y[..., :e], num_heads)
-        k = _split_heads(y[..., e:2 * e], num_heads)
-        v = _split_heads(y[..., 2 * e:], num_heads)
+        e = y.shape[-1] // 3
+        q = _split_heads(y[..., :e], n)
+        k = _split_heads(y[..., e:2 * e], n)
+        v = _split_heads(y[..., 2 * e:], n)
     else:
         if kv_in is None:
             kv_in = q_in
-        q = _split_heads(_proj(params["q"], q_in), num_heads)
-        k = _split_heads(_proj(params["k"], kv_in), num_heads)
-        v = _split_heads(_proj(params["v"], kv_in), num_heads)
+        q = _split_heads(_proj(params["q"], q_in), n)
+        k = _split_heads(_proj(params["k"], kv_in), n)
+        v = _split_heads(_proj(params["v"], kv_in), n)
     if use_flash and mask is None and k.shape[1] >= 1024:
         out = flash_sdpa(q, k, v)
     else:
         out = dot_product_attention(q, k, v, mask)
-    return _proj(params["o"], _merge_heads(out))
+    o = params["o"]
+    return dense(_merge_heads(out), o["w"], o.get("b"), activation_quant, tp)
 
 
 # (first row, rows of the whole batch) of this process's batch rows, set by
@@ -238,9 +252,10 @@ def _in_proj(params: dict, dtype: torch.dtype):
     return params["in_proj_w"].to(dtype), params["in_proj_b"].to(dtype)
 
 
-def _out_proj(params: dict, out: torch.Tensor) -> torch.Tensor:
-    return out @ params["out_proj_w"].to(out.dtype).T + \
-        params["out_proj_b"].to(out.dtype)
+def _out_proj(params: dict, out: torch.Tensor,
+              tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
+    y = tpar.row_mm(tp, out, params["out_proj_w"].to(out.dtype).T)
+    return y + params["out_proj_b"].to(out.dtype)
 
 
 def torch_mha_apply(params: dict, num_heads: int, query: torch.Tensor,
@@ -286,9 +301,10 @@ def torch_mha_apply(params: dict, num_heads: int, query: torch.Tensor,
 def shared_kv_project(params: dict, memory: torch.Tensor, *,
                       add_zero_attn: bool = True):
     """Project a batch-shared K=V memory once: [M, E] -> ([M2, E], [M2, E])
-    with the bias_k/bias_v row and the zero row appended."""
-    e = memory.shape[-1]
+    with the bias_k/bias_v row and the zero row appended. On a rank's
+    block of the in-projection, its heads' columns [M2, E / t]."""
     w, b = _in_proj(params, memory.dtype)
+    e = w.shape[0] // 3
     rows_k = [memory @ w[e:2 * e].T + b[e:2 * e]]
     rows_v = [memory @ w[2 * e:].T + b[2 * e:]]
     if "bias_k" in params:
@@ -329,19 +345,29 @@ def torch_mha_apply_shared_kv_dropout(params: dict, num_heads: int,
     return _out_proj(params, out.reshape(bsz, sq, e))
 
 
+def _local_heads(query: torch.Tensor, num_heads: int,
+                 tp: Optional[tpar.TensorParallel]):
+    """(heads, head dim, width) of this rank's share of ``num_heads``
+    heads over the query width."""
+    d = query.shape[-1] // num_heads
+    n = tpar.local(tp, num_heads)
+    return n, d, n * d
+
+
 def torch_mha_apply_shared_kv_einsum(params: dict, num_heads: int,
                                      query: torch.Tensor,
-                                     kv_cache: tuple) -> torch.Tensor:
+                                     kv_cache: tuple,
+                                     tp: Optional[tpar.TensorParallel] = None
+                                     ) -> torch.Tensor:
     """Alignment attention over the cached (optionally int8) K/V rows.
 
     kv_cache: ((k, k_scale), (v, v_scale)); scale None for a plain cache,
     fp32 [M2, 1] per-row scales for int8. The int8 rows enter the dots as
     they are (|q| <= 127 is exact in bf16) and the per-row scales multiply
     the logits (K) and the probabilities (V) after the dots: exact, since
-    each scale is constant along the contracted axis."""
-    e = query.shape[-1]
-    n = num_heads
-    d = e // n
+    each scale is constant along the contracted axis. ``tp``: this rank's
+    heads (the cache holds their columns)."""
+    n, d, e = _local_heads(query, num_heads, tp)
     b, sq, _ = query.shape
     (kq, ks), (vq, vs) = kv_cache
     m2 = kq.shape[0]
@@ -358,14 +384,15 @@ def torch_mha_apply_shared_kv_einsum(params: dict, num_heads: int,
     if vs is not None:
         probs = probs * vs[:, 0]
     out = torch.einsum("bnqk,knd->bqnd", probs.to(query.dtype), v8)
-    return _out_proj(params, out.reshape(b, sq, e))
+    return _out_proj(params, out.reshape(b, sq, e), tp)
 
 
 def torch_mha_apply_shared_kv_flash(params: dict, num_heads: int,
                                     query: torch.Tensor,
                                     memory: Optional[torch.Tensor], *,
                                     add_zero_attn: bool = True,
-                                    kv_cache: Optional[tuple] = None
+                                    kv_cache: Optional[tuple] = None,
+                                    tp: Optional[tpar.TensorParallel] = None
                                     ) -> torch.Tensor:
     """Alignment attention through the flash kernel. The batch-shared
     memory folds the whole attention into one non-causal call: heads
@@ -373,9 +400,9 @@ def torch_mha_apply_shared_kv_flash(params: dict, num_heads: int,
     kernel streams one long K/V sequence per head.
 
     kv_cache: optional precomputed (k, v) [M2, E] pair; otherwise the
-    memory is projected here (``shared_kv_project``)."""
-    e = query.shape[-1]
-    d = e // num_heads
+    memory is projected here (``shared_kv_project``). ``tp``: this rank's
+    heads."""
+    num_heads, d, e = _local_heads(query, num_heads, tp)
     bsz, sq, _ = query.shape
     w, bias = _in_proj(params, query.dtype)
     q = query @ w[:e].T + bias[:e]
@@ -392,4 +419,4 @@ def torch_mha_apply_shared_kv_flash(params: dict, num_heads: int,
                           None, causal=False, scale=d ** -0.5)
     out = out.reshape(num_heads, bsz, sq, d).permute(1, 2, 0, 3) \
         .reshape(bsz, sq, e)
-    return _out_proj(params, out)
+    return _out_proj(params, out, tp)

@@ -12,7 +12,10 @@ train step of the tiny config over the mesh (1, 1, n/2, 2) (or (1, 1, n,
 ``TASKS``: ``train`` (the Trainer over a mesh on given weights and whole
 batches, with an optional restore, save and eval), ``ring`` (ring
 attention on given q/k/v), ``run_train`` (``run_train.main`` in every
-process) and ``dryrun``. A worker imports torch and this package only.
+process), ``tp`` (tensor-parallel inference over the world as one tensor
+group: forward, generation, the fused prefill, the engine, the server,
+``run_inference``) and ``dryrun``. A worker imports torch and this package
+only.
 Each rank writes its results to ``<out>/rank<r>.pt``.
 """
 
@@ -181,8 +184,221 @@ def task_dryrun(p: dict, device, out: str) -> None:
     torch.save({"loss": float(m["loss"]), "shapes": shapes}, out)
 
 
+def task_tp(p: dict, device, out: str) -> None:
+    """Tensor-parallel inference with the world as one tensor group, for
+    each case of ``p["cases"]`` (``TP_CASES``): the model ``case["model"]``
+    (a ``ModelConfig`` dict; default ``p["model"]``) on the whole tree
+    saved at ``case["params"]`` (default ``p["params"]``), of which each
+    rank keeps its block. {case name: result, "cuts": the cut modules of
+    ``p["model"]``, "collectives": counts in all, "collectives_by_case"}
+    to ``out``."""
+    from macaw_llm_tpu_torch.config import MeshConfig
+    from macaw_llm_tpu_torch.parallel.mesh import create_mesh
+    from macaw_llm_tpu_torch.parallel.sharding import COLLECTIVES
+    from macaw_llm_tpu_torch.parallel.tensor_parallel import TensorParallel
+    n = dist.get_world_size()
+    mesh = create_mesh(MeshConfig(dcn=1, data=1, fsdp=1, tensor=n), device)
+    trees: dict = {}
+    res = {"cuts": sorted(TensorParallel.from_mesh(
+        mesh, Config.from_dict({"model": p["model"]}).model).cuts),
+        "collectives_by_case": {}}
+    total: dict = {}
+    for case in p["cases"]:
+        cfg = Config.from_dict({"model": case.get("model", p["model"])}).model
+        path = case.get("params", p.get("params"))
+        if path not in trees:
+            trees[path] = torch.load(path, weights_only=False)
+        COLLECTIVES.clear()
+        res[case["name"]] = TP_CASES[case["kind"]](
+            case, trees[path], cfg, TensorParallel.from_mesh(mesh, cfg),
+            device)
+        res["collectives_by_case"][case["name"]] = dict(COLLECTIVES)
+        for k, v in COLLECTIVES.items():
+            total[k] = total.get(k, 0) + v
+    res["collectives"] = total
+    torch.save(res, out)
+
+
+def _tp_tree(whole, cfg, tp, case: dict, device):
+    """This rank's block of ``whole`` on ``device``, with int8 LLaMA
+    weights as ``case["int8"]`` asks ("whole": quantized, then cut;
+    "block": cut, then quantized on the block) and packed for decode
+    under ``case["pack"]``."""
+    from macaw_llm_tpu_torch.parallel.tensor_parallel import tp_params
+    from macaw_llm_tpu_torch.utils import quantize as qz
+    tree = dict(whole)
+    if case.get("int8") == "whole":
+        tree["llm"] = qz.quantize_llama(tree["llm"])
+    tree = to_device(tp_params(tree, tp), device)
+    if case.get("int8") == "block":
+        tree["llm"] = qz.quantize_llama(tree["llm"], tp)
+    if case.get("pack"):
+        tree["llm"] = qz.pack_llama_for_decode(tree["llm"])
+    return tree
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _load(path: str, device):
+    x = torch.load(path, weights_only=False)
+    return {k: v.to(device) if torch.is_tensor(v) else v
+            for k, v in x.items()}
+
+
+def _tp_forward(case, whole, cfg, tp, device):
+    """LLaMA logits of ``case["ids"]`` (a saved {"ids"})."""
+    from macaw_llm_tpu_torch.models import llama
+    tree = _tp_tree(whole, cfg, tp, case, device)
+    with torch.inference_mode():
+        return llama.forward(tree["llm"], cfg.llm, tp=tp,
+                             **_load(case["inputs"], device)).cpu()
+
+
+def _tp_generate(case, whole, cfg, tp, device):
+    """Tokens of ``generate`` (or ``beam_search``, ``generate_speculative``
+    by ``case["fn"]``) on the saved inputs, keyword arguments from
+    ``case["kw"]``; a ``case["seed"]`` samples from a generator seeded
+    alike on every rank."""
+    from macaw_llm_tpu_torch import generate as G
+    tree = _tp_tree(whole, cfg, tp, case, device)
+    kw = dict(case.get("kw", {}), **_load(case["inputs"], device))
+    if "seed" in case:
+        kw["generator"] = torch.Generator(device=device).manual_seed(
+            case["seed"])
+    fn = getattr(G, case.get("fn", "generate"))
+    out = fn(tree["llm"], cfg.llm, device=device, tp=tp, **kw)
+    return out.tokens.cpu()
+
+
+def _tp_prefill(case, whole, cfg, tp, device):
+    """Logits of the fused prefill (towers, alignment over a cache of
+    ``case["align_cache"]``: "bf16", "int8" or "off", splice, LLaMA) on
+    the saved batch: every position's, and ``prefill.prefill``'s last
+    ones (``case["last"]``: W8A8, flash kernels)."""
+    from macaw_llm_tpu_torch.models import fusion, llama
+    from macaw_llm_tpu_torch.serve import _init_align_cache
+    tree = _tp_tree(whole, cfg, tp, case, device)
+    batch = _load(case["inputs"], device)
+    with torch.inference_mode():
+        tree, cache = _init_align_cache(tree, cfg, case["align_cache"], tp)
+        fused = fusion.prepare_inputs(tree, cfg, align_cache=cache, tp=tp,
+                                      **batch)
+        logits = llama.forward(tree["llm"], cfg.llm,
+                               inputs_embeds=fused.inputs_embeds,
+                               attention_mask=fused.attention_mask, tp=tp)
+    return logits.cpu()
+
+
+def _tp_prefill_entry(case, whole, cfg, tp, device):
+    """``prefill.prefill`` of the saved batch (W8A8 over the gate, the
+    attention kernels' route): the last positions' logits."""
+    from macaw_llm_tpu_torch.prefill import prefill
+    from macaw_llm_tpu_torch.serve import _init_align_cache
+    tree = _tp_tree(whole, cfg, tp, case, device)
+    with torch.inference_mode():
+        tree, cache = _init_align_cache(tree, cfg, case["align_cache"], tp)
+    return prefill(tree, cfg, _load(case["inputs"], device), cache,
+                   device=device, tp=tp).cpu()
+
+
+def _tp_engine(case, whole, cfg, tp, device):
+    """``serve.ContinuousEngine`` (or ``InferenceEngine`` under
+    ``case["static"]``) over the saved requests, all queued before it
+    starts, the generators seeded with ``case["seed"]``: {"results": each
+    request's result on the leader (None on a follower, whose stand-ins
+    mirror them), "stats", and the continuous engine's final slot state
+    "toks" and "lengths"}."""
+    from macaw_llm_tpu_torch import serve
+    serve._seed_from_clock = lambda: case["seed"]
+    tree = _tp_tree(whole, cfg, tp, case, device)
+    reqs = [serve.Request(**r) for r in
+            torch.load(case["requests"], weights_only=False)]
+    tok = _WordTokenizer()
+    if case.get("static"):
+        engine = serve.InferenceEngine(tree, cfg, tok, device=device, tp=tp,
+                                       **case["kw"])
+    else:
+        engine = serve.ContinuousEngine(tree, cfg, tok, device=device,
+                                        tp=tp, **case["kw"])
+    if tp.leader:
+        for r in reqs:
+            engine.queue.put(r)
+    engine.start()
+    if tp.leader:
+        for r in reqs:
+            if not r._done.wait(600):
+                raise TimeoutError("a request did not finish")
+        engine.stop()
+    engine.join()
+    out = {"results": [r._result for r in reqs] if tp.leader else None,
+           "stats": dict(engine.stats)}
+    if not case.get("static"):
+        out.update(toks=engine.toks.cpu(), lengths=engine.lengths.cpu())
+    return out
+
+
+class _WordTokenizer:
+    """Ids of whitespace words by a fixed hash, decoded as their numbers
+    (the same in every process)."""
+
+    def encode(self, text):
+        import zlib
+        return [1] + [16 + zlib.crc32(w.encode()) % 31000
+                      for w in text.split()]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+
+def _tp_http(case, whole, cfg, tp, device):
+    """``serve.serve`` under the group: the leader binds the HTTP server
+    and answers one request; a follower's stand-in follows until the
+    leader stops."""
+    import json as _json
+    import threading
+    import urllib.request
+    from macaw_llm_tpu_torch import serve
+    tree = _tp_tree(whole, cfg, tp, case, device)
+    server = serve.serve(tree, cfg, _WordTokenizer(), host="127.0.0.1",
+                         port=0, device=device, tp=tp, **case["kw"])
+    if not tp.leader:
+        server.serve_forever()
+        return {"follower": type(server).__name__}
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/generate",
+            data=_json.dumps(case["request"]).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = _json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.engine.stop()
+        server.server_close()
+    thread.join(timeout=30)
+    return out
+
+
+def _tp_run_inference(case, whole, cfg, tp, device):
+    """``run_inference.main(case["argv"])`` in every process."""
+    from macaw_llm_tpu_torch import run_inference
+    return run_inference.main(case["argv"])
+
+
+TP_CASES = {"forward": _tp_forward, "generate": _tp_generate,
+            "prefill": _tp_prefill, "prefill_entry": _tp_prefill_entry,
+            "engine": _tp_engine, "http": _tp_http,
+            "run_inference": _tp_run_inference}
+
+
 TASKS = {"train": task_train, "ring": task_ring, "run_train": task_run_train,
-         "dryrun": task_dryrun}
+         "tp": task_tp, "dryrun": task_dryrun}
 
 
 def worker(rank: int, world: int, store: str, device: str, task: str,

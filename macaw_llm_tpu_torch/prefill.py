@@ -7,6 +7,8 @@ LLaMA weights, packed tower projections and the int8 alignment K/V cache;
 int8 projections of >= 256 rows always quantize their activations too
 (W8A8), as the reference benchmark sets for its prefill: the LLaMA's, and
 the towers' when ``utils.quantize.quantize_towers`` made them int8.
+Under a tensor group (``tp``) each rank runs its block of the tree
+(``parallel.tensor_parallel``) and every rank returns the whole logits.
 """
 
 from __future__ import annotations
@@ -18,13 +20,15 @@ import torch
 from macaw_llm_tpu_torch import resolve_device
 from macaw_llm_tpu_torch.config import ModelConfig
 from macaw_llm_tpu_torch.models import fusion, llama
+from macaw_llm_tpu_torch.parallel.tensor_parallel import TensorParallel
 
 
 @torch.inference_mode()
 def prefill(params: dict, cfg: ModelConfig, batch: dict,
             align_cache: Optional[dict] = None, *,
             video_mode: str = "long",
-            device="cuda") -> torch.Tensor:
+            device="cuda",
+            tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """batch: input_ids [B, S], attention_mask [B, S], images uint8
     [B, H, W, 3], audios fp32 [B, 480000], videos uint8 [B, F, H, W, 3],
     all on ``device``; ``video_mode`` as in ``fusion.prepare_inputs``.
@@ -37,9 +41,9 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
         params, cfg, input_ids=batch["input_ids"], images=batch["images"],
         audios=batch["audios"], videos=batch["videos"],
         attention_mask=batch["attention_mask"], align_cache=align_cache,
-        video_mode=video_mode, activation_quant=True)
+        video_mode=video_mode, activation_quant=True, tp=tp)
     h = llama.forward_hidden(params["llm"], cfg.llm, fused.inputs_embeds,
                              fused.attention_mask, use_flash=True,
-                             activation_quant=True)
+                             activation_quant=True, tp=tp)
     return llama.logits_from_hidden(params["llm"], h[:, -1:],
-                                    llama.valid_vocab(cfg.llm))[:, 0]
+                                    llama.valid_vocab(cfg.llm), tp=tp)[:, 0]

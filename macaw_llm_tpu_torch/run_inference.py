@@ -6,6 +6,12 @@ run batched generation with the Alpaca prompt and dump
 ``eval_outputs/{ds}_eval_outputs.json``. Runs on the GPU unless
 ``--device cpu`` is given.
 
+A run config whose mesh has ``tensor = t > 1`` generates tensor-parallel
+over ``t`` processes, one per card (``torchrun --nproc-per-node t``, or the
+reference's COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID environment):
+each rank restores the whole checkpoint, keeps its block
+(``parallel.tensor_parallel``), and rank 0 writes the outputs.
+
 Usage:
     python -m macaw_llm_tpu_torch.run_inference --checkpoint out/ \\
         --dataset vqa --val-json data/vqa/vqa_val_inference.json \\
@@ -18,6 +24,7 @@ import argparse
 import json
 import logging
 import os
+from typing import Optional
 
 import torch
 
@@ -27,6 +34,8 @@ from macaw_llm_tpu_torch.data.loader import MediaSource
 from macaw_llm_tpu_torch.eval import (batch_inference_generation,
                                       load_val_examples)
 from macaw_llm_tpu_torch.models import fusion
+from macaw_llm_tpu_torch.parallel.tensor_parallel import (TensorParallel,
+                                                          tp_params)
 from macaw_llm_tpu_torch.train.checkpoint import (CheckpointManager,
                                                   load_config)
 from macaw_llm_tpu_torch.train.state import merge_params
@@ -64,15 +73,15 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def restore_params(checkpoint_dir: str, cfg: Config, device="cuda") -> dict:
+def restore_params(checkpoint_dir: str, cfg: Config, device="cuda",
+                   tp: Optional[TensorParallel] = None) -> dict:
     """The whole model's parameters from the newest checkpoint under
     ``checkpoint_dir``, on ``device``, in the layout ``cfg``'s trainer
     gives them (frozen leaves in ``frozen_dtype``, an int8 base under
     ``quantize_base``, LoRA adapters under ``lora_rank``). A checkpoint
-    written on a mesh holds whole tensors and restores here as well; a
-    config that asks for a tensor axis above 1 is refused (tensor-parallel
-    serving, ROADMAP A7)."""
-    cfg.validate(serving=True)
+    written on a mesh holds whole tensors and restores here as well. Under
+    ``tp`` (``cfg.mesh.tensor`` ranks) this rank's block of the tree."""
+    cfg.validate(world_size=1 if tp is None else tp.size, serving=True)
     device = resolve_device(device)
     trainer = Trainer(cfg.model, cfg.train, total_steps=1, device=device)
     params = fusion.init_params(cfg.train.seed, cfg.model,
@@ -88,17 +97,36 @@ def restore_params(checkpoint_dir: str, cfg: Config, device="cuda") -> dict:
     restored = CheckpointManager(checkpoint_dir).restore(state)
     if restored is None:
         raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
-    return merge_params(restored.trainable, restored.frozen)
+    return tp_params(merge_params(restored.trainable, restored.frozen), tp)
+
+
+def serving_group(cfg: Config, device) -> Optional[TensorParallel]:
+    """The tensor group of a serving process: joins the job's process
+    group (torchrun's or the reference's environment) when there is one,
+    checks that its world is ``cfg.mesh.tensor`` ranks, and returns the
+    group (None for one process)."""
+    from macaw_llm_tpu_torch.config import MeshConfig
+    from macaw_llm_tpu_torch.parallel.mesh import (create_mesh,
+                                                   multihost_initialize)
+    import torch.distributed as dist
+    world = dist.get_world_size() if multihost_initialize(device) else 1
+    cfg.validate(world_size=world, serving=True)
+    if world == 1:
+        return None
+    mesh = create_mesh(MeshConfig(dcn=1, data=1, fsdp=1, tensor=world),
+                       device)
+    return TensorParallel.from_mesh(mesh, cfg.model)
 
 
 def main(argv=None):
     args = parse_args(argv)
     setup_logging()
     cfg = load_config(args.checkpoint) or Config()
-    params = restore_params(args.checkpoint, cfg, device=args.device)
+    tp = serving_group(cfg, args.device)
+    params = restore_params(args.checkpoint, cfg, device=args.device, tp=tp)
     from macaw_llm_tpu_torch.serve import _init_align_cache
     params, align_cache = _init_align_cache(params, cfg.model,
-                                            args.align_cache)
+                                            args.align_cache, tp)
 
     val_json = args.val_json or os.path.join(
         "data", args.dataset, f"{args.dataset}_val_inference.json")
@@ -124,10 +152,11 @@ def main(argv=None):
         max_new_tokens=args.max_new_tokens,
         num_beams=args.num_beams,
         speculative=args.speculative,
-        out_path=out_path,
+        out_path=out_path if tp is None or tp.leader else None,
         align_cache=align_cache,
-        device=args.device)
-    logger.info("wrote %d generations to %s", len(results), out_path)
+        device=args.device, tp=tp)
+    if tp is None or tp.leader:
+        logger.info("wrote %d generations to %s", len(results), out_path)
     return results
 
 

@@ -16,6 +16,17 @@
 Programmatic use (no HTTP) goes through ``Engine.generate_sync``. Both
 engines run on the GPU unless ``device="cpu"`` is asked for.
 
+Tensor-parallel serving (``tp``: a group of ranks, one process each, every
+one holding its block of the tree, ``parallel.tensor_parallel``): rank 0
+leads. It alone runs HTTP and the request queue; before each iteration it
+broadcasts that iteration's schedule (the admissions, with their prompts,
+media, budgets and temperatures; a stop), and every rank then runs the
+same prefills and decode steps, so the ranks issue their collectives in
+one order. The leader's and the followers' slot bookkeeping is the same
+code on the same tokens (the all-reduces give every rank the same bits,
+and the generators share one seed). One thread a rank does admission and
+decode in turn, with each step's tokens read back before the next.
+
 Where the reference compiles its prefill, admit and step functions and
 donates the cache to them, this module runs eagerly: the cache, ``lengths``
 and ``toks`` are preallocated tensors that admission and the decode step
@@ -45,6 +56,7 @@ from macaw_llm_tpu_torch.config import EOS_ID, ModelConfig, PAD_ID
 from macaw_llm_tpu_torch.data.templates import format_prompt
 from macaw_llm_tpu_torch.generate import _sample, generate
 from macaw_llm_tpu_torch.models import fusion, llama
+from macaw_llm_tpu_torch.parallel.tensor_parallel import TensorParallel
 
 logger = logging.getLogger("macaw.serve")
 
@@ -52,22 +64,64 @@ PROMPT_BUCKETS = (32, 64, 128, 256)
 READBACK_DEPTH = 2  # decode steps dispatched before a step's tokens are read
 
 
-def _init_align_cache(params: dict, mcfg: ModelConfig, mode: str):
+def _init_align_cache(params: dict, mcfg: ModelConfig, mode: str,
+                      tp: Optional[TensorParallel] = None):
     """Engine-side alignment K/V cache setup (see
     ``fusion.precompute_align_cache``): serving never trains, so the
     weight-only projections are computed once at startup and the dead K/V
     in-projection rows are dropped. mode: "bf16" (exact, in the compute
-    dtype), "int8" (half the memory, about 0.2% row error), or "off"."""
+    dtype), "int8" (half the memory, about 0.2% row error), or "off".
+    ``tp``: ``params`` is this rank's block; so is the cache."""
     if mode == "off":
         return fusion.pack_towers(params), None
     with torch.inference_mode():
         cache = fusion.precompute_align_cache(params, mcfg,
-                                              quantize=mode == "int8")
+                                              quantize=mode == "int8", tp=tp)
     return fusion.pack_towers(fusion.strip_align_kv(params)), cache
 
 
 def _seed_from_clock() -> int:
     return int(time.time() * 1e3) % 2**31
+
+
+def _share(tp: Optional[TensorParallel], obj):
+    """``obj`` of the group's rank 0, on every rank (a pickled broadcast);
+    ``obj`` itself without a group."""
+    if tp is None:
+        return obj
+    import torch.distributed as dist
+    box = [obj]
+    src = 0 if tp.group is None else dist.get_global_rank(tp.group, 0)
+    dist.broadcast_object_list(box, src=src, group=tp.group)
+    return box[0]
+
+
+def _shared_seed(tp: Optional[TensorParallel]) -> int:
+    """A clock seed, the leader's on every rank of a group."""
+    return _share(tp, _seed_from_clock())
+
+
+_REQUEST_FIELDS = ("prompt", "image", "audio", "video", "max_new_tokens",
+                   "temperature")
+
+
+def _payload(req) -> dict:
+    """What a follower needs of a request: its prompt, media and limits."""
+    return {k: getattr(req, k) for k in _REQUEST_FIELDS}
+
+
+class _Follower:
+    """A follower rank's stand-in for the HTTP server: ``serve_forever``
+    runs until the leader's engine stops."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def serve_forever(self):
+        self.engine.join()
+
+    def server_close(self):
+        pass
 
 
 @dataclass
@@ -105,10 +159,12 @@ class InferenceEngine:
     def __init__(self, params: dict, cfg: ModelConfig, tokenizer,
                  max_batch: int = 8, batch_timeout_ms: float = 20.0,
                  max_new_tokens: int = 128, align_cache: str = "bf16",
-                 kv_cache_dtype: Optional[str] = None, device="cuda"):
+                 kv_cache_dtype: Optional[str] = None, device="cuda",
+                 tp: Optional[TensorParallel] = None):
         self.device = resolve_device(device)
+        self.tp = tp
         self.params, self.align_cache = _init_align_cache(params, cfg,
-                                                          align_cache)
+                                                          align_cache, tp)
         self.kv_cache_dtype = kv_cache_dtype
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -119,7 +175,7 @@ class InferenceEngine:
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(_seed_from_clock())
+        self._gen.manual_seed(_shared_seed(tp))
         self.stats = {"requests": 0, "batches": 0, "tokens": 0}
 
     # -------------------- lifecycle --------------------
@@ -130,6 +186,11 @@ class InferenceEngine:
     def stop(self):
         self._stop.set()
         self._thread.join(timeout=30)
+
+    def join(self):
+        """Wait for the batching loop to end (a follower's: when the
+        leader stops)."""
+        self._thread.join()
 
     # -------------------- public API --------------------
 
@@ -158,9 +219,23 @@ class InferenceEngine:
                 break
         return batch
 
+    def _next_batch(self) -> Optional[List[Request]]:
+        """The next batch's requests ([] when none came), None to stop;
+        under a tensor group the leader's, on every rank."""
+        if self.tp is not None and not self.tp.leader:
+            plan = _share(self.tp, None)
+            return None if plan is None else [Request(**p) for p in plan]
+        batch = None if self._stop.is_set() else self._collect()
+        if self.tp is not None:
+            _share(self.tp, None if batch is None
+                   else [_payload(r) for r in batch])
+        return batch
+
     def _loop(self):
-        while not self._stop.is_set():
-            batch = self._collect()
+        while True:
+            batch = self._next_batch()
+            if batch is None:
+                return
             if not batch:
                 continue
             try:
@@ -171,6 +246,8 @@ class InferenceEngine:
                 for r in batch:
                     r._result = {"error": str(e)}
                     r._done.set()
+                if self.tp is not None:  # the ranks' collectives diverged
+                    raise
 
     def _bucket(self, n: int) -> int:
         for b in PROMPT_BUCKETS:
@@ -216,7 +293,7 @@ class InferenceEngine:
             audios=torch.from_numpy(audios).to(dev),
             videos=torch.from_numpy(videos).to(dev),
             attention_mask=torch.from_numpy(mask).to(dev),
-            align_cache=self.align_cache)
+            align_cache=self.align_cache, tp=self.tp)
         # per-request semantics: each row keeps its own temperature
         # (greedy rows stay greedy when batched with sampling rows) and
         # its own token budget
@@ -234,7 +311,7 @@ class InferenceEngine:
                        budgets=torch.from_numpy(budgets).to(dev),
                        cache_dtype=self.kv_cache_dtype,
                        generator=self._gen if (temps > 0).any() else None,
-                       device=dev)
+                       device=dev, tp=self.tp)
         toks = out.tokens.cpu().numpy()
         dt = time.perf_counter() - t0
 
@@ -386,15 +463,19 @@ def serve(params: dict, cfg: ModelConfig, tokenizer, *,
           continuous: bool = True,
           align_cache: str = "bf16",
           kv_cache_dtype: Optional[str] = None,
-          device="cuda") -> ThreadingHTTPServer:
+          device="cuda",
+          tp: Optional[TensorParallel] = None) -> ThreadingHTTPServer:
     """Start an engine and return the HTTP server bound to it (the caller
-    runs ``serve_forever``; ``server.engine`` is the engine)."""
+    runs ``serve_forever``; ``server.engine`` is the engine). Under a
+    tensor group only the leader binds the server; a follower gets a
+    stand-in whose ``serve_forever`` follows the leader's engine until it
+    stops."""
     if continuous:
         engine = ContinuousEngine(params, cfg, tokenizer, slots=max_batch,
                                   max_new_tokens=max_new_tokens,
                                   align_cache=align_cache,
                                   kv_cache_dtype=kv_cache_dtype,
-                                  device=device)
+                                  device=device, tp=tp)
     else:
         engine = InferenceEngine(params, cfg, tokenizer,
                                  max_batch=max_batch,
@@ -402,8 +483,10 @@ def serve(params: dict, cfg: ModelConfig, tokenizer, *,
                                  max_new_tokens=max_new_tokens,
                                  align_cache=align_cache,
                                  kv_cache_dtype=kv_cache_dtype,
-                                 device=device)
+                                 device=device, tp=tp)
     engine.start()
+    if tp is not None and not tp.leader:
+        return _Follower(engine)
     server = ThreadingHTTPServer((host, port), make_handler(engine, cfg))
     server.engine = engine
     logger.info("serving on %s:%d (max_batch=%d)", host, port, max_batch)
@@ -413,10 +496,14 @@ def serve(params: dict, cfg: ModelConfig, tokenizer, *,
 def build_server(argv=None) -> ThreadingHTTPServer:
     """The command line's server: parse the flags, restore the checkpoint,
     quantize and pack the LLaMA weights as asked, start the engine and
-    bind the HTTP server (not yet serving)."""
+    bind the HTTP server (not yet serving). A run config whose mesh has
+    ``tensor = t > 1`` serves tensor-parallel over ``t`` processes
+    (torchrun, or the reference's environment): rank 0 binds the server,
+    the others follow it."""
     import argparse
     from macaw_llm_tpu_torch.config import Config
-    from macaw_llm_tpu_torch.run_inference import restore_params
+    from macaw_llm_tpu_torch.run_inference import (restore_params,
+                                                   serving_group)
     from macaw_llm_tpu_torch.train.checkpoint import load_config
 
     p = argparse.ArgumentParser(description="Macaw serving (PyTorch)")
@@ -454,12 +541,13 @@ def build_server(argv=None) -> ThreadingHTTPServer:
     args = p.parse_args(argv)
 
     cfg = load_config(args.checkpoint) or Config()
-    params = restore_params(args.checkpoint, cfg, device=args.device)
+    tp = serving_group(cfg, args.device)
+    params = restore_params(args.checkpoint, cfg, device=args.device, tp=tp)
     from macaw_llm_tpu_torch.utils.quantize import (pack_llama_for_decode,
                                                     quantize_llama)
     with torch.no_grad():
         if args.quantize == "int8":
-            params["llm"] = quantize_llama(params["llm"])
+            params["llm"] = quantize_llama(params["llm"], tp)
         if not args.no_pack:
             params["llm"] = pack_llama_for_decode(params["llm"])
     from transformers import AutoTokenizer
@@ -469,7 +557,8 @@ def build_server(argv=None) -> ThreadingHTTPServer:
                  batch_timeout_ms=args.batch_timeout_ms,
                  max_new_tokens=args.max_new_tokens,
                  continuous=not args.static, align_cache=args.align_cache,
-                 kv_cache_dtype=args.kv_cache_dtype, device=args.device)
+                 kv_cache_dtype=args.kv_cache_dtype, device=args.device,
+                 tp=tp)
 
 
 def main(argv=None):
@@ -507,6 +596,9 @@ class ContinuousEngine:
         to two extra masked steps: bounded waste, never wrong output)
       * per-slot temperature: greedy and sampling requests share the
         batch without contaminating each other
+
+    Under a tensor group (``tp``) one thread a rank runs the leader's
+    schedule instead (``_tp_loop``; the module docstring).
     """
 
     supports_streaming = True
@@ -514,10 +606,12 @@ class ContinuousEngine:
     def __init__(self, params: dict, cfg: ModelConfig, tokenizer, *,
                  slots: int = 8, prompt_bucket: int = 256,
                  max_new_tokens: int = 128, align_cache: str = "bf16",
-                 kv_cache_dtype: Optional[str] = None, device="cuda"):
+                 kv_cache_dtype: Optional[str] = None, device="cuda",
+                 tp: Optional[TensorParallel] = None):
         self.device = resolve_device(device)
+        self.tp = tp
         self.params, self.align_cache = _init_align_cache(params, cfg,
-                                                          align_cache)
+                                                          align_cache, tp)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.slots = slots
@@ -535,7 +629,7 @@ class ContinuousEngine:
             else kv_cache_dtype
 
         cache = llama.KVCache.create(cfg.llm, slots, self.total_len,
-                                     self._cache_dtype, self.device)
+                                     self._cache_dtype, self.device, tp)
         # the device state, updated in place by admission and by each step
         self.cache = {"k": cache.k, "v": cache.v}
         if cache.k_scale is not None:
@@ -563,7 +657,7 @@ class ContinuousEngine:
         self._admit_q: "queue.Queue[tuple]" = queue.Queue(maxsize=slots)
         self._stop = threading.Event()
         # one generator per thread that samples
-        seed = _seed_from_clock()
+        seed = _shared_seed(tp)
         self._gen_admit = torch.Generator(device=self.device)
         self._gen_admit.manual_seed(seed)
         self._gen_step = torch.Generator(device=self.device)
@@ -575,8 +669,9 @@ class ContinuousEngine:
         self._zero_prefix = None   # computed lazily, once, on admission
 
         on_gpu = self.device.type == "cuda"
-        self._admit_stream = torch.cuda.Stream(self.device) if on_gpu \
-            else None
+        # under a tensor group admission runs on the decode thread's stream
+        self._admit_stream = torch.cuda.Stream(self.device) \
+            if on_gpu and tp is None else None
         self._decode_stream = torch.cuda.Stream(self.device) if on_gpu \
             else None
         # pinned host buffers of the token readback: at most READBACK_DEPTH
@@ -594,13 +689,20 @@ class ContinuousEngine:
             # the weights, the alignment cache and the slot cache were made
             # on the default stream: both engine streams start after them
             torch.cuda.synchronize(self.device)
-        self._prefill_thread.start()
+        if self.tp is None:
+            self._prefill_thread.start()
         self._thread.start()
 
     def stop(self):
         self._stop.set()
-        self._prefill_thread.join(timeout=60)
+        if self._prefill_thread.is_alive():
+            self._prefill_thread.join(timeout=60)
         self._thread.join(timeout=60)
+
+    def join(self):
+        """Wait for the decode loop to end (a follower's: when the leader
+        stops)."""
+        self._thread.join()
 
     def generate_sync(self, req: Request, timeout: float = 600.0) -> dict:
         self.queue.put(req)
@@ -621,7 +723,7 @@ class ContinuousEngine:
         llm = self.cfg.llm
         dev = self.device
         cache = llama.KVCache.create(llm, 1, self.total_len,
-                                     self._cache_dtype, dev)
+                                     self._cache_dtype, dev, self.tp)
         mask = fused.attention_mask.to(torch.int32)
         s = mask.shape[1]
         full_mask = torch.cat(
@@ -632,11 +734,12 @@ class ContinuousEngine:
         # position (the [1, S, V] fp32 prefill logits never exist)
         h = llama.forward_hidden(self.params["llm"], llm,
                                  fused.inputs_embeds, attention_mask=full_mask,
-                                 positions=pos, kv_cache=cache)
+                                 positions=pos, kv_cache=cache, tp=self.tp)
         last = (mask * torch.arange(s, device=dev)[None, :]).amax(1)
         h_last = h[torch.arange(1, device=dev), last][:, None]
         first_logits = llama.logits_from_hidden(
-            self.params["llm"], h_last, llama.valid_vocab(llm))[:, 0]
+            self.params["llm"], h_last, llama.valid_vocab(llm),
+            tp=self.tp)[:, 0]
         first_tok = _sample(first_logits,
                             self._gen_admit if temp > 0 else None, temp)
         new = {"k": cache.k[:, 0], "v": cache.v[:, 0]}
@@ -648,7 +751,8 @@ class ContinuousEngine:
     def _prefill(self, ids, image, audio, video, mask, temp: float):
         fused = fusion.prepare_inputs(
             self.params, self.cfg, input_ids=ids, images=image, audios=audio,
-            videos=video, attention_mask=mask, align_cache=self.align_cache)
+            videos=video, attention_mask=mask, align_cache=self.align_cache,
+            tp=self.tp)
         return self._prefill_body(fused, temp)
 
     def _make_zero_prefix(self) -> torch.Tensor:
@@ -668,7 +772,7 @@ class ContinuousEngine:
             videos=torch.zeros((1, mcfg.fusion.n_frames, vis.image_size,
                                 vis.image_size, 3), dtype=torch.uint8,
                                device=dev),
-            align_cache=self.align_cache)
+            align_cache=self.align_cache, tp=self.tp)
         return fused.inputs_embeds[:, 1:]   # drop BOS: [1, P, H]
 
     def _prefill_text(self, ids, mask, temp: float):
@@ -678,7 +782,8 @@ class ContinuousEngine:
         if self._zero_prefix is None:
             self._zero_prefix = self._make_zero_prefix()
         prefix = self._zero_prefix
-        text_emb = self.params["llm"]["embed_tokens"].to(self._compute)[ids]
+        text_emb = llama.embed(self.params["llm"], ids, self._compute,
+                               self.tp)
         emb = torch.cat([text_emb[:, :1], prefix.to(self._compute),
                          text_emb[:, 1:]], dim=1)
         full_mask = torch.cat([mask.new_ones((1, prefix.shape[1])), mask],
@@ -797,7 +902,7 @@ class ContinuousEngine:
                            v_scale=self.cache.get("vs"))
         logits = llama.forward(self.params["llm"], self.cfg.llm,
                                input_ids=self.toks[:, None], kv_cache=kv,
-                               dtype=self._compute)
+                               dtype=self._compute, tp=self.tp)
         nxt = _sample(logits[:, 0],
                       self._gen_step if self._sampling else None,
                       self._temps_dev)
@@ -856,7 +961,10 @@ class ContinuousEngine:
         try:
             with torch.inference_mode(), \
                     self._on_stream(self._decode_stream):
-                self._decode_loop()
+                if self.tp is None:
+                    self._decode_loop()
+                else:
+                    self._tp_loop()
         except Exception as e:  # noqa: BLE001: fail the requests in flight
             logger.exception("decode loop failed")
             self._stop.set()
@@ -911,6 +1019,54 @@ class ContinuousEngine:
                 self._process_readback(pending.popleft())
         while pending:
             self._process_readback(pending.popleft())
+
+    # -------------------- tensor-parallel schedule --------------------
+
+    def _tp_plan(self) -> Optional[dict]:
+        """The leader's next iteration: requests from the queue into the
+        free slots (waiting up to 0.1 s for one while no slot is
+        active), with the slots active before them; None once stopped."""
+        if self._stop.is_set():
+            return None
+        active = [i for i, r in enumerate(self._reqs) if r is not None]
+        free = [i for i, r in enumerate(self._reqs) if r is None]
+        wait = 0.1 if not active else 0.0
+        self._tp_admitted = []
+        while len(self._tp_admitted) < len(free):
+            try:
+                req = self.queue.get(timeout=wait) if wait \
+                    else self.queue.get_nowait()
+            except queue.Empty:
+                break
+            self._tp_admitted.append(req)
+            wait = 0.0
+        return {"active": active,
+                "admit": [(slot, _payload(req)) for slot, req in
+                          zip(free, self._tp_admitted)]}
+
+    def _tp_loop(self):
+        """Every rank, one thread: take the leader's plan, admit its
+        requests (prefill on this thread), run one decode step of the
+        active slots and read its tokens back before the next plan. Each
+        rank's bookkeeping follows the same tokens, so the slots stay the
+        same on every rank; a rank that finds otherwise raises."""
+        while True:
+            plan = _share(self.tp, self._tp_plan() if self.tp.leader
+                          else None)
+            if plan is None:
+                return
+            active = [i for i, r in enumerate(self._reqs) if r is not None]
+            if active != plan["active"]:
+                raise RuntimeError(f"rank {self.tp.rank}: active slots "
+                                   f"{active}, the leader's "
+                                   f"{plan['active']}")
+            for n, (slot, payload) in enumerate(plan["admit"]):
+                req = self._tp_admitted[n] if self.tp.leader \
+                    else Request(**payload)
+                self._place(slot, self._run_prefill(req))
+            active = [i for i, r in enumerate(self._reqs) if r is not None]
+            if active:
+                self._process_readback(self._dispatch(active))
 
 
 if __name__ == "__main__":

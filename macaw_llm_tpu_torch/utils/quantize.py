@@ -21,6 +21,11 @@ The W8A8 and decode switches that the JAX package keeps as process-wide
 setters (``set_activation_quant`` / ``set_decode_kernel``) are explicit
 keyword flags of ``matmul`` here.
 
+Under a tensor group (``tp``: a row-parallel weight's block of rows) the
+ranks' partial products are summed over the group; W8A8's input takes the
+whole row's per-token scale and the ranks' int32 dots are summed before
+the scales, exactly: a rank computes one device's product bit for bit.
+
 Both multi-row routes are differentiable in x; the int8 records never take
 a gradient. The weight-only backward keeps only the int8 record and
 dequantizes it again in the backward (one layer at a time inside the
@@ -37,6 +42,7 @@ import torch
 
 from macaw_llm_tpu_torch.ops.kernels.matvec import (matvec_int8,
                                                     matvec_int8_pipelined)
+from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 ACT_QUANT_MIN_ROWS = 256
@@ -48,19 +54,30 @@ def is_record(w) -> bool:
     return isinstance(w, dict) and "q" in w
 
 
-def quantize_tensor(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_tensor(w: torch.Tensor, tp=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 with a per-output-channel fp32 scale, reducing |w|
     over the contraction axis (-2). Stacked [L, in, out] weights quantize
-    one layer at a time, so the fp32 temporary is one layer."""
-    if w.dim() == 3:
-        parts = [quantize_tensor(w[i]) for i in range(w.shape[0])]
-        return (torch.stack([p[0] for p in parts]),
-                torch.stack([p[1] for p in parts]))
-    wf = w.float()
-    scale = wf.abs().amax(-2, keepdim=True) / 127.0
-    q = torch.clamp(torch.round(wf / torch.clamp(scale, min=1e-12)),
-                    -127, 127)
-    return q.to(torch.int8), scale
+    one layer at a time, so the fp32 temporary is one layer. ``tp`` (a
+    ``parallel.tensor_parallel.TensorParallel``): ``w`` is this rank's
+    block of the contraction rows (a row-parallel weight), and the scale
+    is the whole column's, its max over the ranks: the record is the
+    rank's block of the whole weight's."""
+    layers = [w[i] for i in range(w.shape[0])] if w.dim() == 3 else [w]
+    amax = torch.stack([x.float().abs().amax(-2, keepdim=True)
+                        for x in layers])
+    amax = tpar.reduce_max(tp, amax)
+    parts = []
+    for x, m in zip(layers, amax):
+        scale = m / 127.0
+        q = torch.clamp(torch.round(x.float() / torch.clamp(scale,
+                                                            min=1e-12)),
+                        -127, 127)
+        parts.append((q.to(torch.int8), scale))
+    if w.dim() != 3:
+        return parts[0]
+    return (torch.stack([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts]))
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor,
@@ -68,17 +85,21 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale).to(dtype)
 
 
-def quantize_llama(params: dict) -> dict:
+def quantize_llama(params: dict, tp=None) -> dict:
     """LLaMA params -> the same tree with the attention/MLP weights and
     lm_head replaced by int8 records. Norms and embeddings stay as they
-    are (embeddings feed the alignment memory and the prefix lookups)."""
+    are (embeddings feed the alignment memory and the prefix lookups).
+    ``tp``: ``params`` is this rank's block of a tensor-parallel tree, and
+    the records are the blocks of the whole tree's (``quantize_tensor``:
+    the row-parallel wo and down take their scales over the ranks)."""
     out = dict(params)
     layers = dict(params["layers"])
+    row = {"wo": tpar.on(tp, "llm_attn"), "down": tpar.on(tp, "llm_mlp")}
     for group in ("attn", "mlp"):
         g = dict(layers[group])
         for name in list(g):
             if name in QUANT_KEYS:
-                qv, sv = quantize_tensor(g[name])
+                qv, sv = quantize_tensor(g[name], row.get(name))
                 g[name] = {"q": qv, "s": sv}
         layers[group] = g
     out["layers"] = layers
@@ -87,24 +108,28 @@ def quantize_llama(params: dict) -> dict:
     return out
 
 
+def cat_columns(*parts):
+    """Weights concatenated along the output dim: plain tensors, or int8
+    records with their per-output scales concatenated the same way."""
+    if is_record(parts[0]):
+        return {"q": torch.cat([p["q"] for p in parts], dim=-1),
+                "s": torch.cat([p["s"] for p in parts], dim=-1)}
+    return torch.cat(parts, dim=-1)
+
+
 def pack_llama_for_decode(params: dict) -> dict:
     """Serving layout: wq/wk/wv -> "qkv" and gate/up -> "gateup",
-    concatenated along the output dim (plain tensors or int8 records; the
-    per-output scales concatenate the same way). One matvec per packed
-    stream instead of three or two."""
-    def cat(*parts):
-        if is_record(parts[0]):
-            return {"q": torch.cat([p["q"] for p in parts], dim=-1),
-                    "s": torch.cat([p["s"] for p in parts], dim=-1)}
-        return torch.cat(parts, dim=-1)
-
+    concatenated along the output dim (``cat_columns``). One matvec per
+    packed stream instead of three or two. On a rank's block
+    (``parallel.tensor_parallel.tp_params``) it packs [its q heads | its k
+    heads | its v heads] and [its gate | its up]: pack after cutting."""
     out = dict(params)
     layers = dict(params["layers"])
     attn = dict(layers["attn"])
-    attn["qkv"] = cat(attn.pop("wq"), attn.pop("wk"), attn.pop("wv"))
+    attn["qkv"] = cat_columns(attn.pop("wq"), attn.pop("wk"), attn.pop("wv"))
     layers["attn"] = attn
     mlp = dict(layers["mlp"])
-    mlp["gateup"] = cat(mlp.pop("gate"), mlp.pop("up"))
+    mlp["gateup"] = cat_columns(mlp.pop("gate"), mlp.pop("up"))
     layers["mlp"] = mlp
     out["layers"] = layers
     return out
@@ -155,19 +180,25 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def w8a8_dot(x: torch.Tensor, q: torch.Tensor,
-             s: torch.Tensor) -> torch.Tensor:
+             s: torch.Tensor, tp=None) -> torch.Tensor:
     """Per-token symmetric int8 activations x int8 weights, int32 dot,
     fp32 rescale by (per-token scale) x (per-channel scale). Returns fp32
-    [..., N]; differentiable in x by the straight-through estimator."""
-    return _W8A8Dot.apply(x, q, s)
+    [..., N]; differentiable in x by the straight-through estimator.
+    ``tp``: x is this rank's block of a row-parallel input; the per-token
+    scale is the whole row's (its max over the ranks), so the int8
+    activations are the block of one device's, and the int32 dots are
+    summed over the ranks (exactly) before the scales: one device's
+    product, bit for bit."""
+    return _W8A8Dot.apply(x, q, s, tp)
 
 
 def _w8a8_forward(x: torch.Tensor, q: torch.Tensor,
-                  s: torch.Tensor) -> torch.Tensor:
+                  s: torch.Tensor, tp=None) -> torch.Tensor:
     xf = x.float()
-    xs = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-12) / 127.0
+    amax = tpar.reduce_max(tp, xf.abs().amax(-1, keepdim=True))
+    xs = torch.clamp(amax, min=1e-12) / 127.0
     xq = torch.round(xf / xs).to(torch.int8)
-    y32 = _int_mm(xq.reshape(-1, xq.shape[-1]), q)
+    y32 = tpar.reduce(tp, _int_mm(xq.reshape(-1, xq.shape[-1]), q))
     y = y32.reshape(*x.shape[:-1], q.shape[-1]).float()
     return y * xs * s.reshape(-1)
 
@@ -178,16 +209,16 @@ class _W8A8Dot(torch.autograd.Function):
     to x's dtype; the int8 weight and its scale take no gradient."""
 
     @staticmethod
-    def forward(ctx, x, q, s):
+    def forward(ctx, x, q, s, tp):
         ctx.save_for_backward(q, s)
         ctx.x_dtype = x.dtype
-        return _w8a8_forward(x, q, s)
+        return _w8a8_forward(x, q, s, tp)
 
     @staticmethod
     def backward(ctx, g):
         q, s = ctx.saved_tensors
         w = q.float() * s
-        return (g.float() @ w.T).to(ctx.x_dtype), None, None
+        return (g.float() @ w.T).to(ctx.x_dtype), None, None, None
 
 
 class _Int8Matmul(torch.autograd.Function):
@@ -213,14 +244,24 @@ class _Int8Matmul(torch.autograd.Function):
 def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
            activation_quant: bool = False,
            decode_kernel: bool = True,
-           decode_rows: bool = False) -> torch.Tensor:
+           decode_rows: bool = False, tp=None,
+           cols: int = 1) -> torch.Tensor:
     """x [..., K] @ weight (plain tensor or int8 record) -> [..., N] in
     ``compute``. See the module docstring for the three int8 routes;
     ``decode_kernel=False`` keeps single-row calls on the weight-only
     matmul; ``decode_rows=True`` sends x [B, S, K] of at most 32 rows in
-    all to the matvec kernels."""
+    all to the matvec kernels.
+
+    Tensor parallel (``parallel.tensor_parallel``): under ``tp`` w is this
+    rank's block of the rows of a row-parallel weight, and the ranks'
+    partial products are summed over the group: W8A8's exactly, as int32
+    dots (``w8a8_dot``), the others in fp32 and rounded once to
+    ``compute``, as one device rounds its fp32 sum once (the sum's order
+    differs). ``cols``: w is one of ``cols`` column blocks of a weight,
+    and the decode kernels split its contraction as the whole weight's, so
+    its columns are the whole product's bits."""
     if not is_record(w):
-        return x @ w.to(compute)
+        return tpar.row_mm(tp, x, w.to(compute))
     q, s = w["q"], w["s"]
     rows = x.numel() // x.shape[-1]
     if decode_kernel and x.dim() == 3 and q.dim() == 2 and (
@@ -228,8 +269,15 @@ def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
         x1 = x.reshape(rows, x.shape[-1]).to(compute).contiguous()
         kernel = matvec_int8 if rows <= MATVEC_MAX_ROWS \
             else matvec_int8_pipelined
-        y = kernel(x1, q, s, out_dtype=compute)
+        if tp is None:
+            y = kernel(x1, q, s, out_dtype=compute, plan_n=q.shape[1] * cols)
+        else:
+            y = tpar.reduce(tp, kernel(x1, q, s, out_dtype=torch.float32)
+                            ).to(compute)
         return y.reshape(x.shape[0], x.shape[1], y.shape[-1])
     if activation_quant and rows >= ACT_QUANT_MIN_ROWS and q.dim() == 2:
-        return w8a8_dot(x, q, s).to(compute)
+        return w8a8_dot(x, q, s, tp).to(compute)
+    if tp is not None:  # rounded once, then scaled, as _Int8Matmul does
+        y = tpar.row_mm(tp, x, q.to(compute))
+        return (y * s.reshape(-1)).to(compute)
     return _Int8Matmul.apply(x, q, s, compute)

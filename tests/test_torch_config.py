@@ -119,12 +119,14 @@ def test_geometry_errors_raise_in_both(llm, fusion):
 
 def _unported():
     m = tconfig.tiny_model_config()
+    sharded = dataclasses.replace(m, shard_sequence=True)
     return {
-        "shard_sequence": (tconfig.Config(model=dataclasses.replace(
-            m, shard_sequence=True)), {}, "A7"),
+        "shard_sequence": (tconfig.Config(model=sharded), {}, "A7b"),
+        # tensor-parallel serving is ported; the sequence sharding is not,
+        # on a serving tensor group either
         "serving tensor=2": (tconfig.Config(
-            model=m, mesh=tconfig.MeshConfig(fsdp=1, tensor=2)),
-            {"serving": True}, "A7"),
+            model=sharded, mesh=tconfig.MeshConfig(fsdp=1, tensor=2)),
+            {"serving": True, "world_size": 2}, "A7b"),
     }
 
 

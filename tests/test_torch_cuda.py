@@ -229,6 +229,83 @@ def test_matvec_pipelined_kernel(gen, b, k, n):
     assert torch.equal(again, outs[2])
 
 
+# a tensor-parallel rank's decode shapes of the 7b at t = 2 and 4: the
+# column-parallel qkv and gateup cut N, the row-parallel wo and down cut K
+TP_MATVEC_SHAPES = [(4096, 6144), (2048, 4096), (4096, 11008), (5504, 4096),
+                    (4096, 3072), (1024, 4096), (4096, 5504), (2752, 4096)]
+
+
+@pytest.mark.parametrize("k,n", TP_MATVEC_SHAPES)
+@pytest.mark.parametrize("b", [4, 16])
+def test_matvec_kernels_at_tensor_parallel_shard_shapes(gen, b, k, n):
+    """B5 and B6 at a rank's shard shapes against the plain version,
+    bitwise on a rerun."""
+    x, q, s = _matvec_inputs(gen, b, k, n)
+    ref = mv.matvec_reference(x.float(), q, s)
+    for fn in (mv.matvec_int8, mv.matvec_int8_pipelined):
+        before = fn.launches
+        out, again = fn(x, q, s), fn(x, q, s)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        err = (out.float() - ref).abs().max() / ref.abs().max()
+        assert err.item() <= MATVEC_REL and torch.equal(out, again)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 12288), (11008, 4096)])
+@pytest.mark.parametrize("b", [4, 16])
+def test_matvec_blocks_of_a_tensor_parallel_weight(gen, b, k, n):
+    """A column block planned as the whole weight (``plan_n``) gives the
+    whole product's columns bit for bit; the fp32 output is the kernel's
+    own sum unrounded (its bf16 rounding is the bf16 output), and two row
+    blocks' fp32 outputs add up to the whole product within a bf16 ulp."""
+    x, q, s = _matvec_inputs(gen, b, k, n)
+    for fn in (mv.matvec_int8, mv.matvec_int8_pipelined):
+        whole = fn(x, q, s)
+        cols = fn(x, q[:, :n // 2].contiguous(), s[:, :n // 2].contiguous(),
+                  plan_n=n)
+        f32 = fn(x, q, s, out_dtype=torch.float32)
+        lo = fn(x[:, :k // 2].contiguous(), q[:k // 2].contiguous(), s,
+                out_dtype=torch.float32)
+        hi = fn(x[:, k // 2:].contiguous(), q[k // 2:].contiguous(), s,
+                out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(cols, whole[:, :n // 2])
+        assert f32.dtype == torch.float32
+        assert torch.equal(f32.to(torch.bfloat16), whole)
+        err = ((lo + hi).to(torch.bfloat16).float() - whole.float()).abs()
+        assert (err <= whole.float().abs() * 2.0 ** -7 + 1e-30).all()
+
+
+@pytest.mark.parametrize("n", [16, 8])
+def test_mh_attention_kernel_at_tensor_parallel_heads(gen, n):
+    """B1 at the 7b prefill's [16, 312, n, 128] with a rank's heads, a
+    row with no valid key and half a row masked."""
+    q, k, v = (_rn(gen, 16, 312, n, 128) for _ in range(3))
+    bias = _bias("pad", 16, 312, 64)
+    out = mh.mh_attention(q, k, v, bias, causal=True)
+    torch.cuda.synchronize()
+    ref, _ = fa.attention_reference(q, k, v, bias, causal=True)
+    assert _row_rel_err(out, ref) <= ATTN_ROW_REL
+    assert not out[0].any()
+
+
+@pytest.mark.parametrize("b,sq,sk,n,d", [
+    (16, 1500, 1500, 4, 64), (16, 1500, 1500, 2, 64),   # Whisper, t = 2, 4
+    (8, 624, 32009, 1, 256), (4, 624, 32009, 1, 256),   # alignment fold
+    (1, 1500, 1500, 4, 64)])                            # an admission
+def test_flash_attention_kernel_at_tensor_parallel_heads(gen, b, sq, sk, n,
+                                                         d):
+    """B2 (split over keys where ``split_plan`` cuts them) at a rank's
+    Whisper and alignment shapes against the plain version."""
+    q, k, v = _rn(gen, b, sq, n, d), _rn(gen, b, sk, n, d), \
+        _rn(gen, b, sk, n, d)
+    out, lse = fa.flash_attention_with_lse(q, k, v, None, causal=False)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.attention_reference(q, k, v, None, causal=False)
+    assert _row_rel_err(out, ref) <= ATTN_ROW_REL
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+
+
 @pytest.mark.parametrize("b", [1, 3, 8, 17])
 def test_matvec_pipelined_other_row_counts(gen, b):
     x, q, s = _matvec_inputs(gen, b, 1000, 520)  # K no multiple of 32
