@@ -24,7 +24,8 @@ Phases, in order (any failure raises and the script exits non-zero):
     with B5, the fp32 FMA bound and the library call beside it; B5 and B6
     at a tensor-parallel rank's shard shapes (t = 2: qkv (4096, 6144), wo
     (2048, 4096), gateup (4096, 11008), down (5504, 4096); t = 4: (4096,
-    3072), (1024, 4096), (4096, 5504), (2752, 4096)) at 4 and 16 rows;
+    3072), (1024, 4096), (4096, 5504), (2752, 4096)) at 4 and 16 rows, wo
+    and down with the fp32 output the TP decode asks for;
  3b. the same for the backward kernels (delta, flash dq, flash dk/dv) at
     the 7b train shape and at the edge cases (ragged tail, a fully masked
     batch row, an LSE cotangent, head dims 64 and 256), after holding the
@@ -103,15 +104,20 @@ Phases, in order (any failure raises and the script exits non-zero):
     through host memory), each drawing the whole tree from phase 5's seed
     and keeping its block. 13a: phase 5's b16 W8A8 prefill, held stage by
     stage: the ranks' LLaMA on phase 5's own prefix gives phase 5's logits
-    bit for bit, their prefix (towers and alignment cut too) is within 3e-2
+    bit for bit, their prefix (towers and alignment cut too) is within 1e-3
     of phase 5's and their logits are one device's LLaMA on it, bit for bit
     (the end-to-end logits reported beside how far one device's move under
     a one-ulp change of 1% of its prefix); phase 6's 4 x 16 greedy decode
     on phase 6's prefix (tokens phase 6's, or first differing at a near
     tie: phase 4c's rule); 13b: the engine over 16 requests (4 with media,
-    2 sampled) against the one-device engine's tokens by the same rule at
-    twice its bar (the sampled ones in the vocab and their budgets), both
-    ranks ending in the same slot state; per-rank ms, collectives and peak
+    2 sampled), with the int8 KV cache and with a bf16 one, held by the
+    same stages: each request's prefix within 1e-3 of the one-device
+    engine's, and the tokens those of the one-device engine on the ranks'
+    prefixes or first differing at a near tie of its own logits (phase
+    4c's bar; the sampled ones in the vocab and their budgets), both ranks
+    ending in the same slot state; the end-to-end tokens read beside the
+    gaps at which the one-device engine's tokens move under a one-ulp
+    change of 1% of its token table; per-rank ms, collectives and peak
     memory, which say nothing of tensor parallelism's speed across cards
     (the ranks share one card);
  11. one ``{"kernels": [...]}`` line (with a tensor-parallel rank's
@@ -132,6 +138,7 @@ chiprun_out/chip_smoke.log.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -771,24 +778,28 @@ def matvec_weights(torch, gen, k: int, n: int, per: int):
     return ws, s, cycle
 
 
-def matvec_times(torch, mv, fn, x, ws, s, cycle, ref, library: bool):
+def matvec_times(torch, mv, fn, x, ws, s, cycle, ref, library: bool,
+                 out_dtype=None):
     """A matvec's times at one shape and row count: device time per call
     (``kernel_ms``, a CUDA graph of 4 calls a weight copy, at least 8),
     the back-to-back event time that earlier rows report (``event_ms``),
-    the plain version, the library call (where asked) and the byte
-    bound."""
+    the plain version (with ``fn``'s output dtype), the library call
+    (where asked) and the byte bound."""
     b, k = x.shape
     n = ws[0].shape[1]
     iters = max(8, 4 * len(ws))
     row = {"kernel_ms": graph_ms(torch, cycle(fn), iters),
            "event_ms": cuda_ms(torch, cycle(fn), iters),
            "plain_ms": cuda_ms(torch, cycle(
-               lambda w: mv.matvec_reference(x, w, s)), 2 * len(ws))}
+               lambda w: mv.matvec_reference(x, w, s, out_dtype)),
+               2 * len(ws))}
     if library:
         lib, lib_err, lib_note = library_int8_mm(torch, x, ws, s, ref, cycle)
         row.update(library_ms=lib, library_rel_err=lib_err,
                    library_note=lib_note)
-    bms, by = bound(2 * b * k * n, k * n + n * 4 + b * k * 2 + b * n * 2)
+    out_bytes = 4 if out_dtype == torch.float32 else 2
+    bms, by = bound(2 * b * k * n,
+                    k * n + n * 4 + b * k * 2 + b * n * out_bytes)
     row.update(bound_ms=bms, bound_by=by)
     return row
 
@@ -828,7 +839,8 @@ def check_matvec(torch, mv, gen):
 
 # the decode shapes of a tensor-parallel rank of the 7b (phase 13) at
 # t = 2 and 4: the column-parallel qkv and gateup cut N, the row-parallel
-# wo and down cut K (2752 = 43 x 64: whole 64-row k tiles); the lm_head's
+# wo and down cut K (2752 = 43 x 64: whole 64-row k tiles) and write fp32
+# (``qz.matmul`` sums them over the ranks before it rounds); the lm_head's
 # 32007 columns stay whole (phase 3a's row)
 TP_SIZES = (2, 4)
 TP_MATVEC_ROWS = (4, 16)
@@ -842,22 +854,26 @@ def tp_matvecs(t: int):
 
 def check_tp_matvec(torch, mv, gen):
     """B5 and B6 (depth 4) at a tensor-parallel rank's shard shapes, 4 and
-    16 rows, against the plain version under phase 3a's bar and bitwise on
-    a rerun; timed as ``check_matvec`` times them (device time of a CUDA
-    graph over >= 128 MB of distinct weights), with the plain version, the
-    library call and the byte bound. Returns rows by kernel."""
+    16 rows, called as the TP decode calls them (``qz.matmul`` under a
+    tensor group: the row-parallel wo and down with an fp32 output),
+    against the plain version under phase 3a's bar and bitwise on a rerun;
+    timed as ``check_matvec`` times them (device time of a CUDA graph over
+    >= 128 MB of distinct weights), with the plain version, the library
+    call and the byte bound. Returns rows by kernel."""
     kernels = (("matvec_int8", mv.matvec_int8),
                ("matvec_int8_pipelined",
-                lambda x, w, s: mv.matvec_int8_pipelined(x, w, s, depth=4)))
+                functools.partial(mv.matvec_int8_pipelined, depth=4)))
     rows = {name: [] for name, _ in kernels}
     for t in TP_SIZES:
         for name, k, n, per in tp_matvecs(t):
+            od = torch.float32 if name in ("wo", "down") else None
             ws, s, cycle = matvec_weights(torch, gen, k, n, per)
             for b in TP_MATVEC_ROWS:
                 x = torch.randn(b, k, generator=gen, device="cuda").to(
                     torch.bfloat16)
-                ref = mv.matvec_reference(x, ws[0], s).float()
-                for kname, fn in kernels:
+                ref = mv.matvec_reference(x.float(), ws[0], s)
+                for kname, kfn in kernels:
+                    fn = functools.partial(kfn, out_dtype=od)
                     out, again = fn(x, ws[0], s), fn(x, ws[0], s)
                     torch.cuda.synchronize()
                     err = (out.float() - ref).abs().max().item()
@@ -868,10 +884,11 @@ def check_tp_matvec(torch, mv, gen):
                             f"{kname} tp{t} {name} at {b} rows: rel err "
                             f"{rel}, rerun equal {torch.equal(out, again)}")
                     row = dict(call=f"tp{t}_{name}", tp=t, shape=[b, k, n],
+                               out_dtype=str(out.dtype).split(".")[1],
                                max_abs_err=err, rel_err=rel, per_step=per)
                     row.update(matvec_times(
                         torch, mv, lambda w: fn(x, w, s), x, ws, s, cycle,
-                        ref, library=True))
+                        ref, library=True, out_dtype=od))
                     rows[kname].append(row)
             del ws
             torch.cuda.empty_cache()
@@ -2624,14 +2641,16 @@ def run_ring_child(torch, card: str, work: Path, llama_dir,
 TP_RANKS = 2
 TP_NEW = 16
 TP_TIMEOUT_S = 600.0  # the ranks are killed, and the phase fails, after this
-# 13b's token flips against the one-device engine: twice phase 4c's bar
-# (set at 2 layers), as phase 12a doubles phase 3's for the ring. A rank's
-# row-parallel sums round in another order than one device's (rarely: an
-# fp32 sum, rounded once); the engine's int8 KV cache turns a one-ulp
-# difference of a key into a step of its int8 row, and 32 layers of the
-# random 7b amplify it (13a reports how far one device moves under a
-# one-ulp change). 13a's greedy decode (a bf16 cache) keeps phase 4c's bar
-TP_FLIP_TOL = 2 * LOGITS_REL_TOL
+# the ranks' fused prefix (towers and alignment cut) against one device's,
+# relative to max |x|: bf16 roundings of sums in another order, read at
+# 1.7e-5 to 2.1e-5 on an H100 80GB HBM3. The random 7b's 32 layers amplify
+# such a rounding past any near-tie bar (13a reads one device's own logits
+# under a one-ulp change of its prefix, 13b its engine's tokens under a
+# one-ulp change of its token table), so 13a and 13b hold the prefix and
+# the LLaMA that reads it apart: the prefix to this bar, the tokens to
+# phase 4c's near-tie rule against one device's LLaMA on the ranks'
+# prefix
+TP_PREFIX_TOL = 1e-3
 
 
 def kernel_table(mh, fa, mv) -> dict:
@@ -2659,6 +2678,8 @@ def tp_requests(cfg):
 
 TP_ENGINE_KW = dict(slots=16, prompt_bucket=64, max_new_tokens=TP_NEW,
                     align_cache="int8", kv_cache_dtype="int8")
+# 13b's second engine run: the same with a bf16 KV cache
+TP_KV_BF16 = dict(TP_ENGINE_KW, kv_cache_dtype=None)
 
 
 def tp_worker(job_path: str, rank: int) -> None:
@@ -2669,9 +2690,9 @@ def tp_worker(job_path: str, rank: int) -> None:
     13a: phase 5's b16 prefill through ``prefill`` (its fused prefix saved
     by rank 0), the LLaMA alone on phase 5's own prefix (saved by the
     parent), phase 6's 4 x 16 greedy ``generate`` on phase 6's prefix;
-    13b: the engine over ``tp_requests``. Launches and collectives
-    counted, each timed on this rank; its results to the job's
-    directory."""
+    13b: the engine over ``tp_requests``, with the int8 KV cache and then
+    with a bf16 one. Launches and collectives counted, each timed on this
+    rank; its results to the job's directory."""
     import torch
     import torch.distributed as dist
     from macaw_llm_tpu_torch import serve
@@ -2789,33 +2810,58 @@ def tp_worker(job_path: str, rank: int) -> None:
     del emb, mask, cache, served
     torch.cuda.empty_cache()
 
-    # 13b: the engine, the leader's schedule broadcast to the follower
+    # 13b: the engine, the leader's schedule broadcast to the follower;
+    # then the same with a bf16 KV cache
     serve._seed_from_clock = lambda: 1234
-    engine = serve.ContinuousEngine(block, cfg, BenchTok(), tp=tp,
-                                    **TP_ENGINE_KW)
-    reqs = tp_requests(cfg)
+
+    def run_engine_tp(kw, prefixes=None, logits=None):
+        """The engine over ``tp_requests``: the leader's token lists (None
+        on the follower), the seconds and the engine; the leader keeps
+        each request's fused prefix in ``prefixes`` and its logits in
+        ``logits``."""
+        engine = serve.ContinuousEngine(block, cfg, BenchTok(), tp=tp, **kw)
+        if tp.leader and prefixes is not None:
+            record_prefixes(engine, prefixes)
+        with (logits_recorded(engine, logits)
+              if tp.leader and logits is not None
+              else contextlib.nullcontext()):
+            return drive(engine)
+
+    def drive(engine):
+        reqs = tp_requests(cfg)
+        t1 = time.perf_counter()
+        if tp.leader:
+            for r in reqs:
+                engine.queue.put(r)
+        engine.start()
+        if tp.leader:
+            for r in reqs:
+                if not r._done.wait(TP_TIMEOUT_S):
+                    raise TimeoutError("13b: a request did not finish")
+            engine.stop()
+        engine.join()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        if not tp.leader:
+            return None, seconds, engine
+        if any(r._result is None or "text" not in r._result for r in reqs):
+            raise AssertionError("13b: a request failed")
+        return [result_tokens(r._result) for r in reqs], seconds, engine
+
     start()
-    t1 = time.perf_counter()
-    if tp.leader:
-        for r in reqs:
-            engine.queue.put(r)
-    engine.start()
-    if tp.leader:
-        for r in reqs:
-            if not r._done.wait(TP_TIMEOUT_S):
-                raise TimeoutError("13b: a request did not finish")
-        engine.stop()
-    engine.join()
-    torch.cuda.synchronize()
-    res["engine_s"] = time.perf_counter() - t1
+    res["engine_prefixes"], res["engine_logits"] = {}, {}
+    res["engine_tokens"], res["engine_s"], engine = run_engine_tp(
+        TP_ENGINE_KW, res["engine_prefixes"], res["engine_logits"])
     counted("engine")
     res["engine_stats"] = dict(engine.stats)
     res["engine_state"] = [engine.toks.cpu(), engine.lengths.cpu()]
     res["engine_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    if tp.leader:
-        if any(r._result is None or "text" not in r._result for r in reqs):
-            raise AssertionError("13b: a request failed")
-        res["engine_tokens"] = [result_tokens(r._result) for r in reqs]
+    del engine
+    torch.cuda.empty_cache()
+    sync()
+    res["engine_bf16_tokens"], res["engine_bf16_s"], engine = \
+        run_engine_tp(TP_KV_BF16)
+    del engine
     dist.barrier()
     torch.save(res, work / f"rank{rank}.pt")
     dist.destroy_process_group()
@@ -2865,12 +2911,18 @@ def spawn_tp(world: int, work: Path) -> list:
             for r in range(world)]
 
 
-def engine_flips(torch, engine, cfg, reqs, got, ref, tol):
+def engine_flips(torch, engine, cfg, reqs, got, ref, tol, prefixes=None,
+                 logits=None):
     """Greedy requests whose token lists differ between ``got`` and
-    ``ref`` (the one-device engine's): at the first difference (a list
-    that ends first emitted EOS there) the one-device logits of the two
-    tokens, after the prompt and the common prefix (no cache), must be
-    within ``tol`` of max |logit| (phase 4c's rule)."""
+    ``ref`` (a one-device engine's): at the first difference (a list that
+    ends first emitted EOS there) the one-device logits of the two tokens,
+    after the request's fused prefix and the common tokens (no cache,
+    ``engine``'s weights), must be within ``tol`` of max |logit| (phase
+    4c's rule; ``math.inf`` only reads the gaps). The prefix is
+    ``prefixes[prompt]`` where given, else ``engine``'s own. With
+    ``logits`` (``ref``'s engine's own, ``logits_recorded``) the rule
+    reads those at the difference instead (``rel_gap``; the no-cache
+    logits' gap is ``clean_rel_gap``)."""
     from macaw_llm_tpu_torch.config import EOS_ID
     from macaw_llm_tpu_torch.data.templates import format_prompt
     from macaw_llm_tpu_torch.models import fusion, llama
@@ -2884,17 +2936,20 @@ def engine_flips(torch, engine, cfg, reqs, got, ref, tol):
                  min(len(g), len(c)))
         tg = g[j] if j < len(g) else EOS_ID
         tc = c[j] if j < len(c) else EOS_ID
-        ids = torch.tensor([tok.encode(format_prompt(req.prompt))],
-                           device="cuda")
-        media = {k: torch.from_numpy(
-            (getattr(req, k) if getattr(req, k) is not None
-             else zeros[k] * 0)[None]).cuda() for k in zeros}
         with torch.inference_mode():
-            fused = fusion.prepare_inputs(
-                engine.params, cfg, input_ids=ids, images=media["image"],
-                audios=media["audio"], videos=media["video"],
-                align_cache=engine.align_cache)
-            emb = fused.inputs_embeds
+            if prefixes is not None:
+                emb = prefixes[req.prompt]
+            else:
+                ids = torch.tensor([tok.encode(format_prompt(req.prompt))],
+                                   device="cuda")
+                media = {k: torch.from_numpy(
+                    (getattr(req, k) if getattr(req, k) is not None
+                     else zeros[k] * 0)[None]).cuda() for k in zeros}
+                emb = fusion.prepare_inputs(
+                    engine.params, cfg, input_ids=ids,
+                    images=media["image"], audios=media["audio"],
+                    videos=media["video"],
+                    align_cache=engine.align_cache).inputs_embeds
             if j:
                 emb = torch.cat([emb, llama.embed(
                     engine.params["llm"], torch.tensor([c[:j]],
@@ -2904,12 +2959,33 @@ def engine_flips(torch, engine, cfg, reqs, got, ref, tol):
             lg = llama.logits_from_hidden(engine.params["llm"], h[:, -1:],
                                           llama.valid_vocab(cfg.llm))[0, 0]
         gap = (lg[tc] - lg[tg]).abs().item() / lg.abs().max().item()
-        flips.append(dict(request=i, step=j, rel_gap=gap))
+        flip = dict(request=i, step=j, rel_gap=gap)
+        if logits is not None:
+            own = logits[req.prompt][j]
+            gap = (own[tc] - own[tg]).abs().item() / own.abs().max().item()
+            flip.update(rel_gap=gap, clean_rel_gap=flip["rel_gap"])
+        flips.append(flip)
         if not gap <= tol:
             raise AssertionError(f"13b request {i} differs from the "
                                  f"one-device engine at token {j}: the "
                                  f"logits are {gap} apart (bar {tol})")
     return flips
+
+
+def logits_drift(torch, reqs, got, ref, a: dict, b: dict) -> float:
+    """The largest difference of two engines' recorded logits
+    (``logits_recorded``) over the greedy requests' steps before their
+    tokens first differ, relative to the step's max |logit| in ``b``."""
+    worst = 0.0
+    for g, c, req in zip(got, ref, reqs):
+        if req.temperature > 0:
+            continue
+        same = next((j for j, (x, y) in enumerate(zip(g, c)) if x != y),
+                    min(len(g), len(c)))
+        for x, y in zip(a[req.prompt][:same + 1], b[req.prompt][:same + 1]):
+            worst = max(worst, ((x - y).abs().max() /
+                                y.abs().max()).item())
+    return worst
 
 
 def llama_last_logits(torch, llm, cfg, emb, mask):
@@ -2923,6 +2999,110 @@ def llama_last_logits(torch, llm, cfg, emb, mask):
                                         llama.valid_vocab(cfg.llm))[:, 0]
 
 
+def nudge(torch, x, seed: int):
+    """``x`` with one bf16 ulp taken off 1% of its elements (drawn from
+    ``seed``)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pick = torch.rand(x.shape, generator=g, device="cuda") < 0.01
+    return torch.where(pick, (x.float() * (1 - 2.0 ** -7)).to(x.dtype), x)
+
+
+def record_prefixes(engine, store: dict) -> None:
+    """Make ``engine``'s admission keep each request's fused prefix (the
+    embeddings and mask its prefill reads, on the host) in
+    ``store[prompt]``."""
+    run, body, now = engine._run_prefill, engine._prefill_body, {}
+
+    def run_prefill(req):
+        now["prompt"] = req.prompt
+        return run(req)
+
+    def prefill_body(fused, temp):
+        store[now["prompt"]] = (fused.inputs_embeds.cpu(),
+                                fused.attention_mask.cpu())
+        return body(fused, temp)
+    engine._run_prefill, engine._prefill_body = run_prefill, prefill_body
+
+
+def replay_prefixes(engine, store: dict) -> None:
+    """Make ``engine``'s prefill read ``store[prompt]`` (another engine's
+    fused prefix, ``record_prefixes``) instead of its own towers and
+    alignment."""
+    from macaw_llm_tpu_torch.models.fusion import FusedBatch
+    run, now = engine._run_prefill, {}
+
+    def run_prefill(req):
+        now["prompt"] = req.prompt
+        return run(req)
+
+    def prefilled(temp):
+        emb, mask = store[now["prompt"]]
+        return engine._prefill_body(FusedBatch(
+            emb.to(engine.device), mask.to(engine.device), None), temp)
+    engine._run_prefill = run_prefill
+    engine._prefill = lambda *args: prefilled(args[-1])
+    engine._prefill_text = lambda ids, mask, temp: prefilled(temp)
+
+
+@contextlib.contextmanager
+def logits_recorded(engine, store: dict):
+    """While open, ``engine`` keeps the logits each request's tokens are
+    drawn from: ``store[prompt]`` = [the prefill's row, then one row a
+    decode step] (fp32 on the host; a request that finished keeps the rows
+    of its masked steps after its last token). ``serve._sample`` is
+    wrapped, so one engine a process runs while it is open."""
+    from macaw_llm_tpu_torch import serve
+    sample, run, now = serve._sample, engine._run_prefill, {}
+
+    def run_prefill(req):
+        now["prompt"] = req.prompt
+        return run(req)
+
+    def recording(logits, gen, temp):
+        rows = logits.float().cpu()
+        if rows.shape[0] == engine.slots:  # a decode step
+            for slot, req in enumerate(engine._reqs):
+                if req is not None:
+                    store[req.prompt].append(rows[slot])
+        else:  # an admission's first token
+            store[now["prompt"]] = [rows[0]]
+        return sample(logits, gen, temp)
+    engine._run_prefill = run_prefill
+    serve._sample = recording
+    try:
+        yield
+    finally:
+        serve._sample = sample
+
+
+def unpadded(store: dict) -> dict:
+    """``record_prefixes``'s prefixes without their padding, on the card:
+    [1, valid, H] by prompt."""
+    return {k: emb[:, mask[0].bool()].cuda()
+            for k, (emb, mask) in store.items()}
+
+
+def one_device_engine(torch, params, cfg, kw, record=None, replay=None,
+                      logits=None) -> list:
+    """The one-device engine over ``tp_requests``: the token lists.
+    ``record``/``replay``: a prefix store (``record_prefixes``,
+    ``replay_prefixes``); ``logits``: a store for ``logits_recorded``."""
+    from macaw_llm_tpu_torch.serve import ContinuousEngine
+    engine = ContinuousEngine(params, cfg, BenchTok(), **kw)
+    if record is not None:
+        record_prefixes(engine, record)
+    if replay is not None:
+        replay_prefixes(engine, replay)
+    with (logits_recorded(engine, logits) if logits is not None
+          else contextlib.nullcontext()):
+        engine.start()
+        try:
+            out, _ = serve_all(engine, tp_requests(cfg))
+        finally:
+            engine.stop()
+    return [result_tokens(r) for r in out]
+
+
 def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
            engine_params, logits_5, fused_6, greedy, work: Path) -> dict:
     """Phase 13: the port's tensor-parallel path at ``macaw_7b()`` full width
@@ -2932,19 +3112,30 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
     13a prefill, held stage by stage: the ranks' LLaMA on phase 5's own
     fused prefix gives phase 5's logits bit for bit (W8A8: the int32 dots
     summed exactly over the ranks); the ranks' fused prefix (towers and
-    alignment cut too) is within LOGITS_REL_TOL of phase 5's, and their
+    alignment cut too) is within TP_PREFIX_TOL of phase 5's, and their
     logits are one device's LLaMA on that prefix, bit for bit. The
     end-to-end logits against phase 5's are reported beside how far one
     device's own move when one bf16 ulp changes in 1% of phase 5's prefix
     (the random 7b amplifies such a change through 32 layers). 13a decode:
     the ranks' 4 x 16 greedy tokens on phase 6's prefix against phase 6's
-    (identical, or first differing at a near tie: phase 4c's rule). 13b:
-    the engine's 16 requests against the one-device engine's (run here
-    first, on ``engine_params``): greedy ones by phase 4c's rule at
-    TP_FLIP_TOL, sampled ones in the vocab and within their budgets, both
-    ranks ending in the same slot state. Both ranks' results the same bits, their launches the counts a
-    rank's shapes give. ``params5``: phase 5's serving tree; ``params6``:
-    phase 6's (the LLaMA packed for decode)."""
+    (identical, or first differing at a near tie: phase 4c's rule). 13b,
+    the engine's 16 requests with the int8 KV cache and again with a bf16
+    one, held by the same stages: each request's fused prefix within
+    TP_PREFIX_TOL of the one-device engine's (run here first, on
+    ``engine_params``), and the greedy tokens those of the one-device
+    engine replaying the ranks' prefixes, or first differing at a near
+    tie: phase 4c's bar on that engine's own logits at the difference
+    (``logits_recorded``; at 32 layers they are up to ~5% of max |logit|
+    from the no-cache logits 4c reads at 2 layers, whose gaps are
+    reported beside them); the sampled ones in the vocab and within their
+    budgets, both ranks ending in the same slot state. Read, not held: the
+    ranks' and one device's logits on the same tokens, and the tokens
+    against the one-device engine's end to end, with either cache, beside
+    how far the one-device engine's own move under a one-ulp change of 1%
+    of its token table. Both ranks' results the same bits, their launches
+    the counts a rank's shapes give.
+    ``params5``: phase 5's serving tree; ``params6``: phase 6's (the LLaMA
+    packed for decode)."""
     from macaw_llm_tpu_torch.models import fusion
     from macaw_llm_tpu_torch.serve import ContinuousEngine
     work.mkdir(parents=True, exist_ok=True)
@@ -2960,10 +3151,7 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
                                          mask5).float().cpu(), logits_5):
         raise AssertionError("phase 5's LLaMA on its prefix left its logits")
     # one device under a one-ulp change of 1% of the prefix's elements
-    g = torch.Generator(device="cuda").manual_seed(13)
-    pick = torch.rand(prefix5.shape, generator=g, device="cuda") < 0.01
-    nudged = torch.where(pick, (prefix5.float() * (1 - 2.0 ** -7)).to(
-        prefix5.dtype), prefix5)
+    nudged = nudge(torch, prefix5, 13)
     lg_n = llama_last_logits(torch, params5["llm"], cfg, nudged,
                              mask5).float().cpu()
     sensitivity = dict(
@@ -2972,19 +3160,26 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
                  logits_5.abs().max()).item(),
         argmax_agreement=int((lg_n.argmax(-1) ==
                               logits_5.argmax(-1)).sum()))
-    del nudged, pick
+    del nudged
     torch.save(prefix5.cpu(), work / "prefix5.pt")
     torch.save([x.cpu() for x in (fused_6.inputs_embeds,
                                   fused_6.attention_mask)],
                work / "prefix6.pt")
     reqs = tp_requests(cfg)
     engine = ContinuousEngine(engine_params, cfg, BenchTok(), **TP_ENGINE_KW)
+    one_prefixes = {}
+    record_prefixes(engine, one_prefixes)
     engine.start()
     try:
         ref, _ = serve_all(engine, reqs)
     finally:
         engine.stop()
     ref = [result_tokens(r) for r in ref]
+    ref_bf16 = one_device_engine(torch, engine_params, cfg, TP_KV_BF16)
+    llm = engine_params["llm"]
+    ref_nudged = one_device_engine(
+        torch, dict(engine_params, llm=dict(llm, embed_tokens=nudge(
+            torch, llm["embed_tokens"], 14))), cfg, TP_ENGINE_KW)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ranks = spawn_tp(TP_RANKS, work)
@@ -3026,7 +3221,7 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
                   prefix5.float().abs().max()).item()
     one_on_tp = llama_last_logits(torch, params5["llm"], cfg, tp_prefix,
                                   mask5).float().cpu()
-    if not (prefix_rel <= LOGITS_REL_TOL and
+    if not (prefix_rel <= TP_PREFIX_TOL and
             torch.equal(one_on_tp, lead["logits"])):
         raise AssertionError(f"13a: the ranks' prefix {prefix_rel} from phase "
                              "5's, or their logits not one device's LLaMA "
@@ -3044,15 +3239,53 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
                                TP_NEW))
     if not all(r["decode_repeatable"] for r in ranks):
         raise AssertionError("13a: greedy decode not repeatable")
-    # 13b
-    got = lead["engine_tokens"]
-    eflips = engine_flips(torch, engine, cfg, reqs, got, ref, TP_FLIP_TOL)
-    for g_, req in zip(got, reqs):
+    # 13b, the prefix: each request's against one device's
+    tp_prefixes = lead["engine_prefixes"]
+    prefix_errs = []
+    for req in reqs:
+        (a_, am), (b_, bm) = tp_prefixes[req.prompt], one_prefixes[req.prompt]
+        if not torch.equal(am, bm):
+            raise AssertionError(f"13b: {req.prompt!r}'s prefix mask is not "
+                                 "one device's")
+        prefix_errs.append(((a_.float() - b_.float()).abs().max() /
+                            b_.float().abs().max()).item())
+    if not max(prefix_errs) <= TP_PREFIX_TOL:
+        raise AssertionError(f"13b: the ranks' prefixes {prefix_errs} from "
+                             f"one device's (bar {TP_PREFIX_TOL})")
+    # 13b, the LLaMA: the tokens against one device's on the same prefixes
+    got, got_bf16 = lead["engine_tokens"], lead["engine_bf16_tokens"]
+    one_logits, one_logits_bf16 = {}, {}
+    replay = one_device_engine(torch, engine_params, cfg, TP_ENGINE_KW,
+                               replay=tp_prefixes, logits=one_logits)
+    replay_bf16 = one_device_engine(torch, engine_params, cfg, TP_KV_BF16,
+                                    replay=tp_prefixes,
+                                    logits=one_logits_bf16)
+    tp_emb = unpadded(tp_prefixes)
+    eflips = engine_flips(torch, engine, cfg, reqs, got, replay,
+                          LOGITS_REL_TOL, prefixes=tp_emb, logits=one_logits)
+    eflips_bf16 = engine_flips(torch, engine, cfg, reqs, got_bf16,
+                               replay_bf16, LOGITS_REL_TOL, prefixes=tp_emb,
+                               logits=one_logits_bf16)
+    drift = logits_drift(torch, reqs, got, replay, lead["engine_logits"],
+                         one_logits)
+    del tp_emb
+    # read: end to end, with the int8 and a bf16 KV cache, and one device
+    # under a one-ulp change of its token table
+    e2e_flips = engine_flips(torch, engine, cfg, reqs, got, ref, math.inf)
+    e2e_flips_bf16 = engine_flips(torch, engine, cfg, reqs, got_bf16,
+                                  ref_bf16, math.inf)
+    nudge_flips = engine_flips(torch, engine, cfg, reqs, ref_nudged, ref,
+                               math.inf)
+    for g_, req in zip(got + got_bf16, reqs + reqs):
         if not (0 < len(g_) <= req.max_new_tokens and
                 all(0 <= x < cfg.llm.vocab_size for x in g_)):
             raise AssertionError(f"13b tokens out of range: {g_}")
     del engine, prefix5, tp_prefix
     torch.cuda.empty_cache()
+
+    def identical(a, b):
+        return sum(x == y for x, y, req in zip(a, b, reqs)
+                   if req.temperature == 0)
     result = dict(
         ranks=t, card=card, seconds=seconds,
         note="the ranks share one card's SMs and talk through gloo over "
@@ -3061,6 +3294,7 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
         cuts=lead["cuts"], build_s=[r["build_s"] for r in ranks],
         block_gb=[r["block_gb"] for r in ranks],
         prefill=dict(llama_on_prefix5_bitwise=True, prefix_rel_err=prefix_rel,
+                     prefix_tol=TP_PREFIX_TOL,
                      logits_one_device_on_tp_prefix_bitwise=True,
                      end_to_end_rel_err=rel, end_to_end_argmax=argmax,
                      one_device_sensitivity=sensitivity,
@@ -3076,10 +3310,24 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
                     launches=lead["decode_launches"],
                     collectives=lead["decode_collectives"]),
         engine=dict(requests=len(reqs), steps=lead["engine_stats"]["steps"],
-                    greedy_identical=sum(
-                        g_ == c for g_, c, req in zip(got, ref, reqs)
-                        if req.temperature == 0),
-                    flips=eflips, flip_tol=TP_FLIP_TOL,
+                    prefix_rel_err_max=max(prefix_errs),
+                    prefix_tol=TP_PREFIX_TOL,
+                    greedy_identical=identical(got, replay),
+                    flips=eflips, flip_tol=LOGITS_REL_TOL,
+                    logits_drift=drift,
+                    kv_bf16=dict(greedy_identical=identical(got_bf16,
+                                                            replay_bf16),
+                                 flips=eflips_bf16,
+                                 flip_tol=LOGITS_REL_TOL),
+                    end_to_end=dict(greedy_identical=identical(got, ref),
+                                    flips=e2e_flips),
+                    end_to_end_kv_bf16=dict(
+                        greedy_identical=identical(got_bf16, ref_bf16),
+                        flips=e2e_flips_bf16,
+                        seconds=[r["engine_bf16_s"] for r in ranks]),
+                    one_device_nudged=dict(
+                        greedy_identical=identical(ref_nudged, ref),
+                        flips=nudge_flips),
                     sampled_same_as_one_device=[
                         g_ == c for g_, c, req in zip(got, ref, reqs)
                         if req.temperature > 0],
@@ -3538,8 +3786,9 @@ def main() -> int:
             entry["ring_launches"] = ring_launches[entry["name"]]
     # 13: a tensor-parallel rank's launches (t = 2) and phase 3's shard
     # shapes (t = 2 and 4)
-    keep = ("call", "shape", "shape_q", "shape_kv", "chunks", "max_abs_err",
-            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    keep = ("call", "shape", "shape_q", "shape_kv", "chunks", "out_dtype",
+            "max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
     for entry in entries:
         name = entry["name"]
         entry["tp_launches"] = {

@@ -1,5 +1,7 @@
 // Int8 weight-streaming matvecs of decode, on the tensor cores:
-//   out[B, N] = bf16((x[B, K] @ q[K, N]) * s[N]), fp32 accumulation, B <= 32.
+//   out[B, N] = bf16((x[B, K] @ q[K, N]) * s[N]), fp32 accumulation, B <= 32
+// (or the same product unrounded, as fp32: a tensor-parallel rank's
+// row-parallel partial, summed over the ranks before it is rounded).
 //
 // Replaces two TPU kernels that compute the same function:
 //   * macaw_llm_tpu/ops/pallas/matvec.py:79, matvec_int8 / _kernel (the
@@ -44,7 +46,8 @@
 // Each K range writes fp32 partials [splits, B, N]; a second kernel,
 // launched as a programmatic dependent so that its launch overlaps this
 // one's run, adds them in split order, applies the scale once and rounds
-// to bf16 (one range writes the output directly). No atomics: the same
+// to bf16 or writes fp32 (one range writes the output directly). No
+// atomics: the same
 // bits on every run and at every depth (the grid does not depend on it).
 #include <cuda.h>
 
@@ -210,8 +213,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     matvec_wgmma(const __grid_constant__ QMaps<VEC> tm_q,
                  const __grid_constant__ CUtensorMap tm_x,
                  const int8_t* __restrict__ q, float* __restrict__ ws,
-                 const float* __restrict__ s, bf16* __restrict__ out, int B,
-                 int K, int N, int tiles_per_split, int depth, int log_p) {
+                 const float* __restrict__ s, bf16* __restrict__ out,
+                 float* __restrict__ out32, int B, int K, int N,
+                 int tiles_per_split, int depth, int log_p) {
   using L = MvLayout<R, VEC>;
   constexpr int KT = L::KT;
   extern __shared__ unsigned char smem_raw[];
@@ -350,7 +354,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (row < B && col < N) {
           const float v = d[4 * j + 2 * r + h];
           if (gridDim.y == 1) {
-            out[static_cast<size_t>(row) * N + col] = f2bf(v * s[col]);
+            const size_t at = static_cast<size_t>(row) * N + col;
+            if (out32 != nullptr) {
+              out32[at] = v * s[col];
+            } else {
+              out[at] = f2bf(v * s[col]);
+            }
           } else {
             ws[(static_cast<size_t>(blockIdx.y) * B + row) * N + col] = v;
           }
@@ -360,13 +369,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// out = bf16(sum of the K ranges' partials, in range order, * s); launched
-// as a programmatic dependent of the main kernel, so its launch overlaps
-// the main kernel's run
+// out = bf16(sum of the K ranges' partials, in range order, * s), or the
+// same unrounded into out32 when it is given; launched as a programmatic
+// dependent of the main kernel, so its launch overlaps the main kernel's
+// run
 __global__ void __launch_bounds__(256)
     matvec_reduce_kernel(const float* __restrict__ ws,
                          const float* __restrict__ s, bf16* __restrict__ out,
-                         int B, int N, int splits) {
+                         float* __restrict__ out32, int B, int N,
+                         int splits) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t total = static_cast<size_t>(B) * N;
   for (size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
@@ -374,7 +385,11 @@ __global__ void __launch_bounds__(256)
        idx < total; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float acc = 0.f;
     for (int sp = 0; sp < splits; ++sp) acc += ws[sp * total + idx];
-    out[idx] = f2bf(acc * s[idx % N]);
+    if (out32 != nullptr) {
+      out32[idx] = acc * s[idx % N];
+    } else {
+      out[idx] = f2bf(acc * s[idx % N]);
+    }
   }
 }
 
@@ -394,8 +409,8 @@ bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
 
 template <int R, bool VEC>
 cudaError_t launch(const void* x, const void* q, const void* s, void* ws,
-                   void* out, int B, int K, int N, int splits, int depth,
-                   cudaStream_t stream) {
+                   void* out, int f32, int B, int K, int N, int splits,
+                   int depth, cudaStream_t stream) {
   using L = MvLayout<R, VEC>;
   static const cudaError_t configured = [] {
     cudaError_t err = cudaFuncSetAttribute(
@@ -442,9 +457,11 @@ cudaError_t launch(const void* x, const void* q, const void* s, void* ws,
   // ``depth`` counts 64-row tiles in flight: a ragged stage holds two
   depth = std::min((depth + L::KT / 64 - 1) / (L::KT / 64), L::kDepth);
   const dim3 grid((N + kTileN - 1) / kTileN, splits);
+  bf16* const out16 = f32 ? nullptr : static_cast<bf16*>(out);
+  float* const out32 = f32 ? static_cast<float*>(out) : nullptr;
   matvec_wgmma<R, VEC><<<grid, kThreads, L::bytes(depth), stream>>>(
       mq, mx, static_cast<const int8_t*>(q), static_cast<float*>(ws),
-      static_cast<const float*>(s), static_cast<bf16*>(out), B, K, N,
+      static_cast<const float*>(s), out16, out32, B, K, N,
       (kt + splits - 1) / splits, depth, log_p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -461,25 +478,25 @@ cudaError_t launch(const void* x, const void* q, const void* s, void* ws,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, matvec_reduce_kernel,
                            static_cast<const float*>(ws),
-                           static_cast<const float*>(s),
-                           static_cast<bf16*>(out), B, N, splits);
+                           static_cast<const float*>(s), out16, out32, B, N,
+                           splits);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int R>
 cudaError_t launch_rows(const void* x, const void* q, const void* s,
-                        void* ws, void* out, int B, int K, int N, int splits,
-                        int depth, cudaStream_t stream) {
+                        void* ws, void* out, int f32, int B, int K, int N,
+                        int splits, int depth, cudaStream_t stream) {
   const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  return vec ? launch<R, true>(x, q, s, ws, out, B, K, N, splits, depth,
-                               stream)
-             : launch<R, false>(x, q, s, ws, out, B, K, N, splits, depth,
-                                stream);
+  return vec ? launch<R, true>(x, q, s, ws, out, f32, B, K, N, splits,
+                               depth, stream)
+             : launch<R, false>(x, q, s, ws, out, f32, B, K, N, splits,
+                                depth, stream);
 }
 
 cudaError_t run(const void* x, const void* q, const void* s, void* ws,
-                void* out, int B, int K, int N, int splits, int depth,
-                void* stream) {
+                void* out, int f32, int B, int K, int N, int splits,
+                int depth, void* stream) {
   if (B < 1 || B > 32 || K < 1 || N < 1 || K % 8 != 0 || depth < 1 ||
       depth > kMaxDepth || splits < 1 || splits > kMaxSplits ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0) {
@@ -487,28 +504,32 @@ cudaError_t run(const void* x, const void* q, const void* s, void* ws,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 8) {
-    return launch_rows<8>(x, q, s, ws, out, B, K, N, splits, depth, st);
+    return launch_rows<8>(x, q, s, ws, out, f32, B, K, N, splits, depth,
+                        st);
   }
   if (B <= 16) {
-    return launch_rows<16>(x, q, s, ws, out, B, K, N, splits, depth, st);
+    return launch_rows<16>(x, q, s, ws, out, f32, B, K, N, splits, depth,
+                         st);
   }
   if (B <= 24) {
-    return launch_rows<24>(x, q, s, ws, out, B, K, N, splits, depth, st);
+    return launch_rows<24>(x, q, s, ws, out, f32, B, K, N, splits, depth,
+                         st);
   }
-  return launch_rows<32>(x, q, s, ws, out, B, K, N, splits, depth, st);
+  return launch_rows<32>(x, q, s, ws, out, f32, B, K, N, splits, depth,
+                         st);
 }
 
 }  // namespace
 }  // namespace macaw
 
 // x bf16 [B, K] (K % 8 == 0, 16-byte aligned), q int8 [K, N], s fp32 [N],
-// ws fp32 [splits, B, N] (unused for one split), out bf16 [B, N]; the K
-// tiles of 64 rows split into ``splits`` (1 to 8) ranges of
-// ceil(tiles / splits).
+// ws fp32 [splits, B, N] (unused for one split), out [B, N]: bf16, or fp32
+// unrounded when ``f32`` is set; the K tiles of 64 rows split into
+// ``splits`` (1 to 8) ranges of ceil(tiles / splits).
 extern "C" int macaw_matvec_int8(const void* x, const void* q, const void* s,
-                                 void* ws, void* out, int B, int K, int N,
-                                 int splits, void* stream) {
-  return static_cast<int>(macaw::run(x, q, s, ws, out, B, K, N, splits,
+                                 void* ws, void* out, int f32, int B, int K,
+                                 int N, int splits, void* stream) {
+  return static_cast<int>(macaw::run(x, q, s, ws, out, f32, B, K, N, splits,
                                      macaw::kMatvecDepth, stream));
 }
 
@@ -518,10 +539,11 @@ extern "C" int macaw_matvec_int8(const void* x, const void* q, const void* s,
 // depend on the depth.
 extern "C" int macaw_matvec_int8_pipelined(const void* x, const void* q,
                                            const void* s, void* ws, void* out,
-                                           int B, int K, int N, int splits,
-                                           int depth, void* stream) {
+                                           int f32, int B, int K, int N,
+                                           int splits, int depth,
+                                           void* stream) {
   return static_cast<int>(
-      macaw::run(x, q, s, ws, out, B, K, N, splits, depth, stream));
+      macaw::run(x, q, s, ws, out, f32, B, K, N, splits, depth, stream));
 }
 
 // Dynamic shared memory of one block for ``rows`` rows (rounded up to 8),

@@ -146,10 +146,9 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
     n, nkv = tpar.local(tp, cfg.num_heads), tpar.local(tp, cfg.kv_heads)
     d = cfg.head_dim
     compute = h.dtype
-    cols = 1 if tp is None else tp.size
     mm = lambda x, w, row=None: qz.matmul(  # noqa: E731
         x, w, compute, activation_quant=activation_quant,
-        decode_rows=decode_rows, tp=row, cols=cols)
+        decode_rows=decode_rows, tp=row)
     if "qkv" in p:  # packed decode layout
         if lora is not None:
             raise ValueError("the packed qkv layout takes no LoRA adapters")
@@ -226,10 +225,9 @@ def _mlp(p: dict, h: torch.Tensor, activation_quant: bool,
     """SwiGLU: down(silu(gate(x)) * up(x)); under ``tp`` (the MLP is cut)
     this rank's FFN columns, the partial output summed over the ranks."""
     c = h.dtype
-    cols = 1 if tp is None else tp.size
     mm = lambda x, w, row=None: qz.matmul(  # noqa: E731
         x, w, c, activation_quant=activation_quant,
-        decode_rows=decode_rows, tp=row, cols=cols)
+        decode_rows=decode_rows, tp=row)
     if "gateup" in p:  # packed decode layout
         gu = mm(h, p["gateup"])
         i = gu.shape[-1] // 2
@@ -380,8 +378,7 @@ def logits_from_hidden(params: dict, h: torch.Tensor,
     first."""
     vtp = tpar.on(tp, "vocab")
     logits = qz.matmul(h, params["lm_head"], h.dtype,
-                       decode_rows=decode_rows,
-                       cols=1 if vtp is None else vtp.size)
+                       decode_rows=decode_rows)
     if vtp is not None:
         logits = tpar.gather(vtp, logits, -1)
     return _mask_padded_vocab(logits.float(), valid)

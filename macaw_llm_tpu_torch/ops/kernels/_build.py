@@ -41,9 +41,9 @@ _SIGNATURES = {
                                      _I, _I, _I, _F, _I, _P],
     "macaw_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                       _I, _I, _I, _I, _F, _I, _P],
-    "macaw_matvec_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "macaw_matvec_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "macaw_matvec_int8_pipelined": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _P],
+                                    _I, _P],
     "macaw_matvec_smem_bytes": [_I, _I, _I],
     "macaw_error_string": [_I],
 }

@@ -10,13 +10,10 @@ launches the kernel; on CPU tensors it computes the plain version
 ``(x @ q) * s`` with the int8 weight converted to x's dtype (exact:
 |q| <= 127).
 
-Two options serve a tensor-parallel rank's blocks of a weight:
-``plan_n`` splits the contraction as for a weight of ``plan_n`` columns
-(a column block then gets the wider weight's K ranges, so its columns are
-that product's bits), and ``out_dtype=torch.float32`` returns the K
-ranges' fp32 partials summed in range order and scaled, unrounded (a
-row block's partial product, summed over the ranks before it is rounded
-once).
+``out_dtype=torch.float32`` has the kernel write the product unrounded
+(its K ranges' partials summed in range order, then scaled): a
+tensor-parallel rank's row block of a weight gives a partial product,
+summed over the ranks before it is rounded once.
 """
 
 from __future__ import annotations
@@ -90,43 +87,27 @@ def _check_operands(name: str, x, q, s, out_dtype) -> None:
                              f"on {x.device}")
 
 
-def _buffers(x: torch.Tensor, q: torch.Tensor, plan_n=None,
-             partials: bool = False):
-    """The grid's K splits (planned for ``plan_n`` columns when given),
-    the fp32 partials [splits, B, N] (empty for one split, which writes the
-    output itself; at least two splits under ``partials``) and the bf16
-    output. A ragged N, or a q not 16-byte aligned, takes the kernel's
-    other path and its k tile."""
+def _buffers(x: torch.Tensor, q: torch.Tensor, out_dtype: torch.dtype):
+    """The grid's K splits, the fp32 partials [splits, B, N] (empty for
+    one split, which writes the output itself) and the output. A ragged N,
+    or a q not 16-byte aligned, takes the kernel's other path and its k
+    tile."""
     b, k = x.shape
     n = q.shape[1]
     vec = n % 16 == 0 and q.data_ptr() % 16 == 0
-    tile = TILE_K if vec else RAGGED_TILE_K
-    splits = matvec_splits(k, plan_n or n, _sm_count(x.device), tile)
-    if partials and splits == 1:
-        if k <= tile:
-            raise ValueError(f"fp32 partials need two K ranges; K = {k}")
-        splits = 2
+    splits = matvec_splits(k, n, _sm_count(x.device),
+                           TILE_K if vec else RAGGED_TILE_K)
     ws = torch.empty((splits, b, n) if splits > 1 else (0,),
                      dtype=torch.float32, device=x.device)
-    return splits, ws, torch.empty((b, n), dtype=torch.bfloat16,
-                                   device=x.device)
-
-
-def _summed(ws: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """The kernel's reduce without its rounding: the partials added in
-    range order, then the scale."""
-    acc = ws[0].clone()
-    for part in ws[1:]:
-        acc += part
-    return acc * s.reshape(1, -1)
+    return splits, ws, torch.empty((b, n), dtype=out_dtype, device=x.device)
 
 
 def matvec_int8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                out_dtype=None, plan_n=None) -> torch.Tensor:
+                out_dtype=None) -> torch.Tensor:
     """x [B, K] @ int8 q [K, N] with per-output fp32 scales s ([N] or
     [1, N]) -> [B, N] in ``out_dtype`` (default x.dtype). CUDA: bf16 x, a
     bf16 or fp32 output, B <= 32, contiguous operands; anything else
-    raises. ``plan_n``: the module docstring."""
+    raises."""
     b, k = x.shape
     k2, n = q.shape
     if k != k2 or s.numel() != n:
@@ -135,22 +116,21 @@ def matvec_int8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         return matvec_reference(x, q, s, out_dtype)
     out_dtype = out_dtype or x.dtype
     _check_operands("matvec_int8", x, q, s, out_dtype)
-    fp32 = out_dtype == torch.float32
-    splits, ws, out = _buffers(x, q, plan_n, fp32)
+    splits, ws, out = _buffers(x, q, out_dtype)
     err = _build.library().macaw_matvec_int8(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), b, k, n, splits, _build.stream_ptr(x))
+        out.data_ptr(), int(out_dtype == torch.float32), b, k, n, splits,
+        _build.stream_ptr(x))
     _build.check(err, "matvec_int8")
     matvec_int8.launches += 1
-    return _summed(ws, s) if fp32 else out
+    return out
 
 
 matvec_int8.launches = 0
 
 
 def matvec_int8_pipelined(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                          depth: int = 4, out_dtype=None,
-                          plan_n=None) -> torch.Tensor:
+                          depth: int = 4, out_dtype=None) -> torch.Tensor:
     """The same function as ``matvec_int8`` with ``depth`` 64-row weight
     tiles in flight in the kernel's TMA ring (depth 1: no overlap of copy
     and math; clamped to 8 and to what fits the shared memory); the output
@@ -166,15 +146,14 @@ def matvec_int8_pipelined(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         return matvec_reference(x, q, s, out_dtype)
     out_dtype = out_dtype or x.dtype
     _check_operands("matvec_int8_pipelined", x, q, s, out_dtype)
-    fp32 = out_dtype == torch.float32
-    splits, ws, out = _buffers(x, q, plan_n, fp32)
+    splits, ws, out = _buffers(x, q, out_dtype)
     err = _build.library().macaw_matvec_int8_pipelined(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), b, k, n, splits, min(depth, PIPE_MAX_DEPTH),
-        _build.stream_ptr(x))
+        out.data_ptr(), int(out_dtype == torch.float32), b, k, n, splits,
+        min(depth, PIPE_MAX_DEPTH), _build.stream_ptr(x))
     _build.check(err, "matvec_int8_pipelined")
     matvec_int8_pipelined.launches += 1
-    return _summed(ws, s) if fp32 else out
+    return out
 
 
 matvec_int8_pipelined.launches = 0

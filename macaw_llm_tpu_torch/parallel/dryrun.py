@@ -311,7 +311,9 @@ def _tp_engine(case, whole, cfg, tp, device):
     starts, the generators seeded with ``case["seed"]``: {"results": each
     request's result on the leader (None on a follower, whose stand-ins
     mirror them), "stats", and the continuous engine's final slot state
-    "toks" and "lengths"}."""
+    "toks" and "lengths"}. Faults on the leader: ``case["stream_fail"]``,
+    requests whose stream callback raises; ``case["fail_plan_at"]``, the
+    call of the continuous engine's ``_tp_plan`` that raises."""
     from macaw_llm_tpu_torch import serve
     serve._seed_from_clock = lambda: case["seed"]
     tree = _tp_tree(whole, cfg, tp, case, device)
@@ -325,6 +327,11 @@ def _tp_engine(case, whole, cfg, tp, device):
         engine = serve.ContinuousEngine(tree, cfg, tok, device=device,
                                         tp=tp, **case["kw"])
     if tp.leader:
+        for i in case.get("stream_fail", ()):
+            reqs[i].stream_cb = _closed_stream
+        if "fail_plan_at" in case:
+            engine._tp_plan = _failing(engine._tp_plan,
+                                       case["fail_plan_at"])
         for r in reqs:
             engine.queue.put(r)
     engine.start()
@@ -339,6 +346,22 @@ def _tp_engine(case, whole, cfg, tp, device):
     if not case.get("static"):
         out.update(toks=engine.toks.cpu(), lengths=engine.lengths.cpu())
     return out
+
+
+def _closed_stream(tok):
+    raise BrokenPipeError("the client went away")
+
+
+def _failing(fn, at: int):
+    """``fn``, whose ``at``-th call raises."""
+    calls = [0]
+
+    def wrapped(*args, **kw):
+        calls[0] += 1
+        if calls[0] == at:
+            raise RuntimeError("the leader's plan failed")
+        return fn(*args, **kw)
+    return wrapped
 
 
 class _WordTokenizer:

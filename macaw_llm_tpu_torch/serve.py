@@ -25,7 +25,10 @@ same prefills and decode steps, so the ranks issue their collectives in
 one order. The leader's and the followers' slot bookkeeping is the same
 code on the same tokens (the all-reduces give every rank the same bits,
 and the generators share one seed). One thread a rank does admission and
-decode in turn, with each step's tokens read back before the next.
+decode in turn, with each step's tokens read back before the next. Every
+rank runs the same payload, so a prefill or batch that raises raises on
+every rank and fails its requests only; a fatal error of the leader's loop
+broadcasts the stop before it ends, so the followers end too.
 
 Where the reference compiles its prefill, admit and step functions and
 donates the cache to them, this module runs eagerly: the cache, ``lengths``
@@ -108,6 +111,31 @@ _REQUEST_FIELDS = ("prompt", "image", "audio", "video", "max_new_tokens",
 def _payload(req) -> dict:
     """What a follower needs of a request: its prompt, media and limits."""
     return {k: getattr(req, k) for k in _REQUEST_FIELDS}
+
+
+def _release_followers(tp: Optional[TensorParallel]) -> None:
+    """On the leader's fatal error: broadcast the stop, so that the
+    followers' loops end instead of waiting for a plan. A broadcast that
+    fails too is logged; the leader's own error is the one raised."""
+    if tp is None or not tp.leader:
+        return
+    try:
+        _share(tp, None)
+    except Exception:  # noqa: BLE001
+        logger.exception("could not release the followers")
+
+
+def _emit(req, tok: int) -> None:
+    """Stream one token to the request's callback. A callback that raises
+    (a client gone) is dropped: the request runs on to its result, and the
+    other requests never see the error."""
+    if req.stream_cb is None or tok == EOS_ID:
+        return
+    try:
+        req.stream_cb(tok)
+    except Exception:  # noqa: BLE001
+        logger.exception("stream callback failed; streaming stopped")
+        req.stream_cb = None
 
 
 class _Follower:
@@ -242,12 +270,12 @@ class InferenceEngine:
                 with torch.inference_mode():
                     self._run_batch(batch)
             except Exception as e:  # noqa: BLE001: fail the batch only
+                # under a tensor group every rank ran the same payload, so
+                # every rank failed it the same way
                 logger.exception("batch failed")
                 for r in batch:
                     r._result = {"error": str(e)}
                     r._done.set()
-                if self.tp is not None:  # the ranks' collectives diverged
-                    raise
 
     def _bucket(self, n: int) -> int:
         for b in PROMPT_BUCKETS:
@@ -874,8 +902,7 @@ class ContinuousEngine:
         self._temps[slot] = req.temperature
         self._slot_gen[slot] += 1
         self.stats["admitted"] += 1
-        if req.stream_cb is not None and tok != EOS_ID:
-            req.stream_cb(tok)
+        _emit(req, tok)
         if tok == EOS_ID or self._budget[slot] <= 0:
             self._finish(slot)
 
@@ -952,8 +979,7 @@ class ContinuousEngine:
             self._generated[slot].append(tok)
             self._budget[slot] -= 1
             req = self._reqs[slot]
-            if req.stream_cb is not None and tok != EOS_ID:
-                req.stream_cb(tok)
+            _emit(req, tok)
             if tok == EOS_ID or self._budget[slot] <= 0:
                 self._finish(slot)
 
@@ -968,6 +994,7 @@ class ContinuousEngine:
         except Exception as e:  # noqa: BLE001: fail the requests in flight
             logger.exception("decode loop failed")
             self._stop.set()
+            _release_followers(self.tp)
             waiting = [r for r in self._reqs if r is not None]
             for q in (self._admit_q, self.queue):
                 while True:
@@ -1049,7 +1076,9 @@ class ContinuousEngine:
         requests (prefill on this thread), run one decode step of the
         active slots and read its tokens back before the next plan. Each
         rank's bookkeeping follows the same tokens, so the slots stay the
-        same on every rank; a rank that finds otherwise raises."""
+        same on every rank; a rank that finds otherwise raises. A prefill
+        that raises fails its request only: every rank prefilled the same
+        payload, so every rank failed it and leaves the slot free."""
         while True:
             plan = _share(self.tp, self._tp_plan() if self.tp.leader
                           else None)
@@ -1063,7 +1092,14 @@ class ContinuousEngine:
             for n, (slot, payload) in enumerate(plan["admit"]):
                 req = self._tp_admitted[n] if self.tp.leader \
                     else Request(**payload)
-                self._place(slot, self._run_prefill(req))
+                try:
+                    item = self._run_prefill(req)
+                except Exception as e:  # noqa: BLE001: fail the request
+                    logger.exception("prefill failed")
+                    req._result = {"error": str(e)}
+                    req._done.set()
+                    continue
+                self._place(slot, item)
             active = [i for i, r in enumerate(self._reqs) if r is not None]
             if active:
                 self._process_readback(self._dispatch(active))

@@ -244,8 +244,7 @@ class _Int8Matmul(torch.autograd.Function):
 def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
            activation_quant: bool = False,
            decode_kernel: bool = True,
-           decode_rows: bool = False, tp=None,
-           cols: int = 1) -> torch.Tensor:
+           decode_rows: bool = False, tp=None) -> torch.Tensor:
     """x [..., K] @ weight (plain tensor or int8 record) -> [..., N] in
     ``compute``. See the module docstring for the three int8 routes;
     ``decode_kernel=False`` keeps single-row calls on the weight-only
@@ -257,9 +256,7 @@ def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
     partial products are summed over the group: W8A8's exactly, as int32
     dots (``w8a8_dot``), the others in fp32 and rounded once to
     ``compute``, as one device rounds its fp32 sum once (the sum's order
-    differs). ``cols``: w is one of ``cols`` column blocks of a weight,
-    and the decode kernels split its contraction as the whole weight's, so
-    its columns are the whole product's bits."""
+    differs)."""
     if not is_record(w):
         return tpar.row_mm(tp, x, w.to(compute))
     q, s = w["q"], w["s"]
@@ -270,7 +267,7 @@ def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
         kernel = matvec_int8 if rows <= MATVEC_MAX_ROWS \
             else matvec_int8_pipelined
         if tp is None:
-            y = kernel(x1, q, s, out_dtype=compute, plan_n=q.shape[1] * cols)
+            y = kernel(x1, q, s, out_dtype=compute)
         else:
             y = tpar.reduce(tp, kernel(x1, q, s, out_dtype=torch.float32)
                             ).to(compute)

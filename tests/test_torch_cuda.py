@@ -254,26 +254,31 @@ def test_matvec_kernels_at_tensor_parallel_shard_shapes(gen, b, k, n):
 @pytest.mark.parametrize("k,n", [(4096, 12288), (11008, 4096)])
 @pytest.mark.parametrize("b", [4, 16])
 def test_matvec_blocks_of_a_tensor_parallel_weight(gen, b, k, n):
-    """A column block planned as the whole weight (``plan_n``) gives the
-    whole product's columns bit for bit; the fp32 output is the kernel's
-    own sum unrounded (its bf16 rounding is the bf16 output), and two row
-    blocks' fp32 outputs add up to the whole product within a bf16 ulp."""
+    """A column block (its own K split) gives the whole product's columns
+    within the plain version's bar; the fp32 output is the kernel's own sum
+    unrounded (its bf16 rounding is the bf16 output), and two row blocks'
+    fp32 outputs add up to the whole product within a bf16 ulp (above the
+    fp32 error of summing the blocks in another association: 2^-16 of the
+    largest output, where an output near 0 is the difference of blocks
+    thousands of times larger)."""
     x, q, s = _matvec_inputs(gen, b, k, n)
     for fn in (mv.matvec_int8, mv.matvec_int8_pipelined):
         whole = fn(x, q, s)
-        cols = fn(x, q[:, :n // 2].contiguous(), s[:, :n // 2].contiguous(),
-                  plan_n=n)
+        cols = fn(x, q[:, :n // 2].contiguous(), s[:, :n // 2].contiguous())
         f32 = fn(x, q, s, out_dtype=torch.float32)
         lo = fn(x[:, :k // 2].contiguous(), q[:k // 2].contiguous(), s,
                 out_dtype=torch.float32)
         hi = fn(x[:, k // 2:].contiguous(), q[k // 2:].contiguous(), s,
                 out_dtype=torch.float32)
         torch.cuda.synchronize()
-        assert torch.equal(cols, whole[:, :n // 2])
+        ref = whole[:, :n // 2].float()
+        err = (cols.float() - ref).abs().max() / ref.abs().max()
+        assert err.item() <= MATVEC_REL
         assert f32.dtype == torch.float32
         assert torch.equal(f32.to(torch.bfloat16), whole)
         err = ((lo + hi).to(torch.bfloat16).float() - whole.float()).abs()
-        assert (err <= whole.float().abs() * 2.0 ** -7 + 1e-30).all()
+        floor = f32.abs().max() * 2.0 ** -16
+        assert (err <= whole.float().abs() * 2.0 ** -7 + floor).all()
 
 
 @pytest.mark.parametrize("n", [16, 8])

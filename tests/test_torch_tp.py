@@ -142,6 +142,15 @@ def _requests(cfg):
             for p, m, n, t in rows]
 
 
+def _requests_with_a_bad_audio(cfg):
+    """Five requests of ``_requests``'s kind; the second's audio is 7
+    samples, which fail its prefill (the mel frames' padding)."""
+    rows = _requests(cfg)
+    bad = dict(rows[0], prompt="a broken recording",
+               audio=np.zeros((7,), np.float32), max_new_tokens=3)
+    return [rows[0], bad, rows[1], rows[6], rows[7]]
+
+
 def _embeds_case(h, seed=0, b=2, s=6):
     rng = np.random.RandomState(seed)
     return torch.from_numpy((rng.randn(b, s, h) * 0.02).astype(np.float32))
@@ -229,7 +238,9 @@ def setup(tmp_path_factory):
                                   "prompt_ids": prompt_ids}),
         batch=_save(root, "batch", tbatch),
         wbatch=_save(root, "wbatch", wbatch),
-        requests=_save(root, "requests", _requests(cfg)))
+        requests=_save(root, "requests", _requests(cfg)),
+        requests_fail=_save(root, "requests_fail",
+                            _requests_with_a_bad_audio(cfg)))
     ckpt = {t: _checkpoint(root, f"ckpt{t}", w, t) for t in (1, 2)}
     return dict(root=root, cfg=cfg, cfg_pad=cfg_pad, w=w, w_pad=w_pad,
                 ids=ids, batch=batch, tbatch=tbatch, wbatch=wbatch, emb=emb,
@@ -297,6 +308,17 @@ def _cases(s: dict, t: int) -> list:
                 "--align-cache", "int8",
                 "--output-dir", os.path.join(s["root"], "eval_tp"),
                 "--device", "cpu"]),
+            # faults: a prefill that raises, a client gone mid-stream, a
+            # batch that raises, and last the leader's fatal error
+            dict(name="engine_fail", kind="engine",
+                 requests=f["requests_fail"], seed=123, int8="whole",
+                 pack=True, kw=ENGINE_KW, stream_fail=[2]),
+            dict(name="static_fail", kind="engine",
+                 requests=f["requests_fail"], seed=321, static=True,
+                 kw=dict(STATIC_KW, max_batch=2)),
+            dict(name="engine_fatal", kind="engine", requests=f["requests"],
+                 seed=123, int8="whole", pack=True, kw=ENGINE_KW,
+                 fail_plan_at=3),
         ]
     return [dict(c, model=c.get("model", model)) for c in cases]
 
@@ -631,11 +653,12 @@ def test_run_inference_over_two_processes_equals_one_device(setup, tp2):
         assert json.load(f) == one
 
 
-def test_continuous_engine_equals_the_one_device_engine(setup, tp2):
-    """The t = 2 engine (leader's schedule, int8 weights, int8 KV, int8
-    alignment cache) against the one-device engine driven through the same
-    schedule by hand: every request queued first, then each iteration
-    admits into the free slots, steps, and reads the tokens back."""
+def _one_device_engine(setup, rows):
+    """The one-device engine (int8 packed weights, ENGINE_KW, seed 123)
+    driven through the leader's schedule by hand: every request queued
+    first, then each iteration admits into the free slots (a prefill that
+    raises fails its request and leaves its slot free), steps, and reads
+    the tokens back. Returns the engine and the results."""
     cfg, w = setup["cfg"], setup["w"]
     w = dict(w, llm=tqz.pack_llama_for_decode(tqz.quantize_llama(w["llm"])))
     mp = pytest.MonkeyPatch()
@@ -645,17 +668,31 @@ def test_continuous_engine_equals_the_one_device_engine(setup, tp2):
                                       device="cpu", **ENGINE_KW)
     finally:
         mp.undo()
-    reqs = [tserve.Request(**r) for r in _requests(cfg)]
+    reqs = [tserve.Request(**r) for r in rows]
     todo = list(reqs)
     with torch.inference_mode():
         while todo or any(r is not None for r in eng._reqs):
             for slot in [i for i, r in enumerate(eng._reqs) if r is None]:
-                if todo:
-                    eng._place(slot, eng._run_prefill(todo.pop(0)))
+                if not todo:
+                    break
+                req = todo.pop(0)
+                try:
+                    item = eng._run_prefill(req)
+                except RuntimeError as e:
+                    req._result = {"error": str(e)}
+                    continue
+                eng._place(slot, item)
             active = [i for i, r in enumerate(eng._reqs) if r is not None]
             if active:
                 eng._process_readback(eng._dispatch(active))
-    ref = [r._result for r in reqs]
+    return eng, [r._result for r in reqs]
+
+
+def test_continuous_engine_equals_the_one_device_engine(setup, tp2):
+    """The t = 2 engine (leader's schedule, int8 weights, int8 KV, int8
+    alignment cache) against the one-device engine driven through the same
+    schedule by hand."""
+    eng, ref = _one_device_engine(setup, _requests(setup["cfg"]))
     lead, follow = tp2[0]["engine"], tp2[1]["engine"]
     assert lead["results"] == ref
     assert sum(r["tokens"] for r in ref) >= 20
@@ -689,6 +726,55 @@ def test_static_engine_equals_the_one_device_engine(setup, tp2):
            for r in tp2[0]["static"]["results"]]
     assert got == ref and all(r["batch_size"] == 8 for r in got)
     assert tp2[1]["static"]["stats"] == tp2[0]["static"]["stats"]
+
+
+def test_a_failed_prefill_or_stream_fails_its_request_only(setup, tp2):
+    """Under the leader's schedule a prefill that raises (the same payload
+    on every rank) fails its request, and a stream callback that raises
+    stops that request's stream; both engines serve the other requests as
+    one device does, and the ranks stay in step."""
+    rows = _requests_with_a_bad_audio(setup["cfg"])
+    eng, ref = _one_device_engine(setup, rows)
+    lead, follow = tp2[0]["engine_fail"], tp2[1]["engine_fail"]
+    assert set(ref[1]) == {"error"} and "Padding size" in ref[1]["error"]
+    assert lead["results"] == ref
+    assert follow["stats"] == lead["stats"]
+    assert torch.equal(follow["toks"], lead["toks"])
+    assert torch.equal(lead["toks"], eng.toks)
+    # InferenceEngine, 2 a batch: the bad request fails its batch only
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tserve, "_seed_from_clock", lambda: 321)
+    try:
+        one = tserve.InferenceEngine(setup["w"], setup["cfg"],
+                                     _WordTokenizer(), device="cpu",
+                                     **dict(STATIC_KW, max_batch=2))
+    finally:
+        mp.undo()
+    reqs = [tserve.Request(**r) for r in rows]
+    with torch.inference_mode():
+        for batch in (reqs[2:4], reqs[4:]):
+            one._run_batch(batch)
+    strip = ("latency_ms",)
+    got = tp2[0]["static_fail"]["results"]
+    assert all(set(r) == {"error"} for r in got[:2])
+    assert [{k: v for k, v in r.items() if k not in strip}
+            for r in got[2:]] == [
+        {k: v for k, v in r._result.items() if k not in strip}
+        for r in reqs[2:]]
+    assert tp2[1]["static_fail"]["stats"] == tp2[0]["static_fail"]["stats"]
+
+
+def test_a_fatal_leader_error_releases_the_followers(tp2):
+    """The leader's loop fails (its third plan raises): every request not
+    finished by then fails, and the follower, sent the stop, ends its loop
+    (its task returns) instead of waiting for a plan."""
+    lead, follow = tp2[0]["engine_fatal"], tp2[1]["engine_fatal"]
+    err = {"error": "decode loop failed: the leader's plan failed"}
+    done = tp2[0]["engine"]["results"]  # the same engine without the fault
+    assert all(r in (err, ok) for r, ok in zip(lead["results"], done))
+    assert sum(r == err for r in lead["results"]) >= 5
+    assert follow["results"] is None
+    assert follow["stats"] == lead["stats"]
 
 
 def test_http_serves_from_rank_0_only(tp2):
