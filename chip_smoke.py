@@ -10,7 +10,8 @@ Phases, in order (any failure raises and the script exits non-zero):
     time kernel, plain version, the library call that computes the same
     function (where one exists) and the bound; also at the shapes of a
     tensor-parallel rank at t = 2 and 4 (phase 13): B1 at 16 and 8 heads,
-    B2 at Whisper's 4 and 2 heads and the alignment fold's 8 and 4;
+    B2 at Whisper's 4 and 2 heads and the alignment fold's 8 and 4; and B1
+    at the 1b train step's rank shape [8, 312, 8, 128] (phase 14a);
  3a. the int8 matvec (B5) against its plain version at the five 7b
     decode shapes and two ragged ones (N no multiple of 16, K no multiple
     of 64) at 4, 16 and 32 rows, bitwise on a rerun; timed at the 7b
@@ -33,7 +34,8 @@ Phases, in order (any failure raises and the script exits non-zero):
     and timing it at the train shape; at the train shape the gradients
     must be the same bits on a rerun, and the whole CUDA backward (delta,
     dq, dk/dv) is timed beside SDPA's backward (phase 1 fails if ptxas
-    reports a spill in a D = 128 backward kernel);
+    reports a spill in a D = 128 backward kernel); the same at a tensor
+    rank's train shape [8, 1080, 32 / t, 128], t = 2 and 4 (phase 14b);
  4. a 2-layer model at 7b widths (batch 2, seq 256) on the card with the
     kernels against the same weights on the CPU with the plain versions:
     the reference prefill, ``video_mode="simple"``, and ``quantize_towers``
@@ -120,9 +122,24 @@ Phases, in order (any failure raises and the script exits non-zero):
     change of 1% of its token table; per-rank ms, collectives and peak
     memory, which say nothing of tensor parallelism's speed across cards
     (the ranks share one card);
+ 14. tensor-parallel training (Megatron over the mesh's tensor axis), t =
+    2 ranks as child processes of this script on this card, joined through
+    gloo (host memory), in phase 10's directory: 14a phase 10a's 1b full
+    fine-tune at full depth through ``run_train.main --backend gloo`` on
+    its imported weights, mesh tensor 2, the vocab padded to 32008
+    (vocab-parallel embed_tokens and lm_head), 2 + 3 steps, then the same
+    with ``shard_sequence``: the ranks' losses the same bits, step 1
+    within 1e-3 of 10a's and steps 2-3 within the bf16 bar, 32 B1 and 6
+    B2 launches a step asserted, per-rank step ms, peak memory and
+    collectives; 14b phase 4b's 2-layer QLoRA step at text 1024 on a
+    rank's block (B2, B3 and B4 on 16 heads), its loss and LoRA gradients
+    against 4b's one-device step on the card by 4b's bars. The ranks share
+    one card and sum through host memory: their times say nothing of
+    tensor parallelism across cards;
  11. one ``{"kernels": [...]}`` line (with a tensor-parallel rank's
-    launches and the shard shapes' times), then the contract line
-    ``{"ok": true, "device": {...}}`` last.
+    launches and the shard shapes' times, and its training launches and
+    train shapes), then the contract line ``{"ok": true, "device":
+    {...}}`` last.
 
 Weights are random, made on the card from a seed. Usage, from the root of
 a checkout:  python3 chip_smoke.py [--profile]
@@ -153,6 +170,7 @@ import threading
 import time
 import zlib
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -327,8 +345,11 @@ FLASH_CALLS = (("whisper", 16, 1500, 1500, 8, 64, 6, 0),
                ("tp2_video_align", 8, 624, 32009, 1, 256, 0, 0),
                ("tp4_video_align", 4, 624, 32009, 1, 256, 0, 0))
 
-# B1's heads: the 7b's 32, and a tensor-parallel rank's at t = 2 and 4
-MH_HEADS = ((32, 32, None), (16, 0, 2), (8, 0, 4))
+# B1's calls: batch, heads, launches per prefill, call: the 7b's 32 heads,
+# a tensor-parallel rank's at t = 2 and 4 (phase 13), and the 1b train
+# step's 16 heads cut over t = 2 (phase 14a: batch 8, fused length 312)
+MH_CALLS = ((16, 32, 32, "llama"), (16, 16, 0, "tp2_llama"),
+            (16, 8, 0, "tp4_llama"), (8, 8, 0, "tp2_train_1b"))
 
 
 def whisper(b):
@@ -369,10 +390,10 @@ def check_attention(torch, mh, fa, gen, sms: int):
             torch.bfloat16)
 
     results = {"mh_attention": []}
-    # B1: [16, 312, n, 128], causal, zero padding bias (all-ones mask), at
+    # B1: [b, 312, n, 128], causal, zero padding bias (all-ones mask), at
     # the 7b's 32 heads and a tensor-parallel rank's
-    for n, per, tp in MH_HEADS:
-        b, s, d = 16, 312, 128
+    for b, n, per, call in MH_CALLS:
+        s, d = 312, 128
         q, k, v = rn(b, s, n, d), rn(b, s, n, d), rn(b, s, n, d)
         bias = torch.zeros(b, s, device="cuda")
         out = mh.mh_attention(q, k, v, bias, causal=True)
@@ -398,8 +419,7 @@ def check_attention(torch, mh, fa, gen, sms: int):
         nbytes = 4 * q.numel() * 2 + bias.numel() * 4
         bms, by = bound(attn_flops(b, s, s, n, d, True), nbytes)
         results["mh_attention"].append(dict(
-            call="llama" if tp is None else f"tp{tp}_llama",
-            shape=[b, s, n, d], causal=True, max_abs_err=err,
+            call=call, shape=[b, s, n, d], causal=True, max_abs_err=err,
             row_rel_err=rel, tail_row_rel_err=tail_rel, kernel_ms=ms,
             plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
             per_prefill=per))
@@ -537,7 +557,9 @@ def check_backward(torch, fa, gen):
     its plain version first in every case, and timed at the train shape;
     at the train shape the three gradients must also be the same bits on a
     second run, and the whole CUDA backward (delta, B3, B4) is timed beside
-    SDPA's backward."""
+    SDPA's backward. The same timing at a tensor rank's train shape, [8,
+    1080, 32 / t, 128] for t = 2 and 4 (phase 14b's QLoRA step; the rows
+    ``tp2_train`` and ``tp4_train``)."""
     import torch.nn.functional as F
 
     def rn(*shape):
@@ -547,6 +569,8 @@ def check_backward(torch, fa, gen):
     neg = torch.finfo(torch.float32).min
     # name, B, Sq, Sk, N, D, causal, bias kind, LSE cotangent
     cases = (("train", 8, 1080, 1080, 32, 128, True, "ones", False),
+             ("tp2_train", 8, 1080, 1080, 16, 128, True, "ones", False),
+             ("tp4_train", 8, 1080, 1080, 8, 128, True, "ones", False),
              ("train_tail", 8, 1080, 1080, 32, 128, True, "tail", False),
              ("masked_row", 8, 1080, 1080, 32, 128, True, "row0", False),
              ("lse_cotangent", 2, 1080, 1080, 8, 128, False, "ones", True),
@@ -554,7 +578,7 @@ def check_backward(torch, fa, gen):
              ("d256", 2, 260, 260, 2, 256, True, "tail", True))
     rows = {"flash_attention_dq": [], "flash_attention_dkv": [],
             "flash_attention_delta": [], "flash_attention": []}
-    timing = None
+    timing, tp_timing = None, {}
     for name, b, sq, sk, n, d, causal, kind, lse_grad in cases:
         q, k, v, g = rn(b, sq, n, d), rn(b, sk, n, d), rn(b, sk, n, d), \
             rn(b, sq, n, d)
@@ -624,7 +648,7 @@ def check_backward(torch, fa, gen):
         fwd = dict(call=f"backward_case_{name}", shape_q=[b, sq, n, d],
                    shape_kv=[b, sk, n, d], causal=causal, max_abs_err=fwd_err,
                    row_rel_err=fwd_rel, lse_err=lse_err, per_prefill=0)
-        if name == "train":
+        if name in ("train", "tp2_train", "tp4_train"):
             pairs = attn_pairs(sq, sk, causal)
             # B2 at the train shape: 64 of its 70 launches per train step
             # (the 32 LLaMA layers' forward and remat recompute)
@@ -638,9 +662,10 @@ def check_backward(torch, fa, gen):
             bms, by = bound(attn_flops(b, sq, sk, n, d, True),
                             4 * q.numel() * 2 + bias.numel() * 4
                             + b * sq * n * 4)
-            fwd.update(call="llama_train", kernel_ms=ms, plain_ms=plain,
-                       library_ms=lib, bound_ms=bms, bound_by=by,
-                       per_step=64)
+            fwd.update(call="llama_train" if name == "train" else
+                       f"{name[:3]}_llama_train", kernel_ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=bms,
+                       bound_by=by, per_step=64)
             del qt, kt, vt
             nbytes_in = 4 * q.numel() * 2 + 2 * b * n * sq * 4
             ms_delta = cuda_ms(torch, lambda: fa.flash_attention_delta(
@@ -675,12 +700,17 @@ def check_backward(torch, fa, gen):
                        nbytes_in + 2 * k.numel() * 2)
             bd = bound(2 * b * n * sq * d, 2 * out.numel() * 2
                        + b * n * sq * 4)
-            timing = {"flash_attention_dq": (ms_dq, b3, plain, lib),
-                      "flash_attention_dkv": (ms_dkv, b4, plain, lib),
-                      "flash_attention_delta": (ms_delta, bd, plain_delta,
-                                                None)}
+            timed = {"flash_attention_dq": (ms_dq, b3, plain, lib),
+                     "flash_attention_dkv": (ms_dkv, b4, plain, lib),
+                     "flash_attention_delta": (ms_delta, bd, plain_delta,
+                                               None)}
+            if name == "train":
+                timing = timed
+            else:  # a tensor rank's shape: its rows carry their times
+                tp_timing[name] = timed
             log(json.dumps({"backward_timing": dict(
-                shape=[b, sq, n, d], causal=True, delta_ms=ms_delta,
+                case=name, shape=[b, sq, n, d], causal=True,
+                delta_ms=ms_delta,
                 dq_ms=ms_dq, dkv_ms=ms_dkv, whole_cuda_backward_ms=ms_whole,
                 sdpa_backward_ms=lib, plain_backward_ms=plain,
                 plain_delta_ms=plain_delta,
@@ -691,9 +721,14 @@ def check_backward(torch, fa, gen):
         torch.cuda.empty_cache()
     results = {"flash_attention": rows.pop("flash_attention")}
     for kname, krows in rows.items():
-        ms, (bms, by), plain, lib = timing[kname]
-        krows[0].update(kernel_ms=ms, plain_ms=plain, library_ms=lib,
-                        bound_ms=bms, bound_by=by, per_step=32)
+        for row in krows:
+            times = timing if row["case"] == "train" else \
+                tp_timing.get(row["case"])
+            if times is None:
+                continue
+            ms, (bms, by), plain, lib = times[kname]
+            row.update(kernel_ms=ms, plain_ms=plain, library_ms=lib,
+                       bound_ms=bms, bound_by=by, per_step=32)
         results[kname] = krows
     return results
 
@@ -1934,6 +1969,10 @@ def small_train_parity(torch, cfg7, kernels):
                                  f"loss {loss_rel}, {worst} "
                                  f"{grad_rel[worst]}")
         results[name] = result
+        if name == "1024":  # phase 14b's reference: the one-device step
+            results["card_1024"] = dict(loss=gpu_loss, grads={
+                k: g.float().cpu() for k, g in gpu_grads.items()
+                if "/lora/" in k})
     return results
 
 
@@ -2389,9 +2428,11 @@ def resume_1b(torch, work: Path):
 
 
 def run_phase10(torch, kernels, card: str, out_dir: Path, expect: dict,
-                do_profile: bool):
-    """Phase 10 (10a, 10b, 10c) in a directory under ``out_dir`` that is
-    deleted when the phase ends, whatever happens."""
+                do_profile: bool, card_4b: dict):
+    """Phase 10 (10a, 10b, 10c), then 12b, 12c and 14 on its imported
+    weights, in a directory under ``out_dir`` that is deleted when the
+    phase ends, whatever happens. ``card_4b``: phase 4b's one-device step
+    at text 1024 (14b's reference)."""
     work = out_dir / "phase10"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -2415,10 +2456,15 @@ def run_phase10(torch, kernels, card: str, out_dir: Path, expect: dict,
         torch.cuda.empty_cache()
         ring = run_ring_child(torch, card, work, llama_dir, train)
         log(json.dumps({"phase12bc_seconds": time.perf_counter() - t0}))
+        # 14: tensor-parallel training, 2 ranks on this card
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        tp_train = run_tp_train(torch, card, work, llama_dir, train, card_4b)
+        log(json.dumps({"phase14_seconds": time.perf_counter() - t0}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return dict(imported=imported, train=train, restore=restore,
-                resume=resume, offload=offload, ring=ring)
+                resume=resume, offload=offload, ring=ring, tp_train=tp_train)
 
 
 # --------------------------------------------------------------------------
@@ -2867,22 +2913,24 @@ def tp_worker(job_path: str, rank: int) -> None:
     dist.destroy_process_group()
 
 
-def spawn_tp(world: int, work: Path) -> list:
-    """Phase 13's ranks as child processes of this script; every one is
-    killed after TP_TIMEOUT_S. A rank that fails fails the phase, with the
-    ranks' output."""
+def spawn_tp(world: int, work: Path, job: Optional[dict] = None,
+             flag: str = "--tp-worker", phase: str = "13") -> list:
+    """Phase 13's (or, with ``flag`` and ``phase``, 14's) ranks as child
+    processes of this script, given ``job`` (default: a FileStore
+    rendezvous); every one is killed after TP_TIMEOUT_S. A rank that fails
+    fails the phase, with the ranks' output."""
     import subprocess as sp
     import tempfile
     store = work / "store"
     if store.exists():
         store.unlink()
-    job = work / "job.json"
-    job.write_text(json.dumps({"world": world, "store": str(store),
-                               "out": str(work)}))
+    path = work / "job.json"
+    path.write_text(json.dumps(job or {"world": world, "store": str(store),
+                                       "out": str(work)}))
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
     logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
     procs = [sp.Popen([sys.executable, str(Path(__file__).resolve()),
-                       "--tp-worker", str(job), "--tp-rank", str(r)],
+                       flag, str(path), "--tp-rank", str(r)],
                       cwd=str(ROOT), env=env, stdout=logs[r],
                       stderr=sp.STDOUT) for r in range(world)]
     deadline = time.monotonic() + TP_TIMEOUT_S
@@ -2903,7 +2951,7 @@ def spawn_tp(world: int, work: Path) -> list:
         f.close()
     if any(p.returncode != 0 for p in procs):
         raise AssertionError(
-            f"phase 13: a rank failed (exit codes "
+            f"phase {phase}: a rank failed (exit codes "
             f"{[p.returncode for p in procs]}):\n" + "\n".join(
                 f"--- rank {r} ---\n{t[-3000:]}" for r, t in enumerate(texts)))
     import torch
@@ -3011,17 +3059,17 @@ def record_prefixes(engine, store: dict) -> None:
     """Make ``engine``'s admission keep each request's fused prefix (the
     embeddings and mask its prefill reads, on the host) in
     ``store[prompt]``."""
-    run, body, now = engine._run_prefill, engine._prefill_body, {}
+    run, body, now = engine._prefill_ready, engine._prefill_body, {}
 
-    def run_prefill(req):
+    def prefill_ready(req, adm):
         now["prompt"] = req.prompt
-        return run(req)
+        return run(req, adm)
 
     def prefill_body(fused, temp):
         store[now["prompt"]] = (fused.inputs_embeds.cpu(),
                                 fused.attention_mask.cpu())
         return body(fused, temp)
-    engine._run_prefill, engine._prefill_body = run_prefill, prefill_body
+    engine._prefill_ready, engine._prefill_body = prefill_ready, prefill_body
 
 
 def replay_prefixes(engine, store: dict) -> None:
@@ -3029,17 +3077,17 @@ def replay_prefixes(engine, store: dict) -> None:
     fused prefix, ``record_prefixes``) instead of its own towers and
     alignment."""
     from macaw_llm_tpu_torch.models.fusion import FusedBatch
-    run, now = engine._run_prefill, {}
+    run, now = engine._prefill_ready, {}
 
-    def run_prefill(req):
+    def prefill_ready(req, adm):
         now["prompt"] = req.prompt
-        return run(req)
+        return run(req, adm)
 
     def prefilled(temp):
         emb, mask = store[now["prompt"]]
         return engine._prefill_body(FusedBatch(
             emb.to(engine.device), mask.to(engine.device), None), temp)
-    engine._run_prefill = run_prefill
+    engine._prefill_ready = prefill_ready
     engine._prefill = lambda *args: prefilled(args[-1])
     engine._prefill_text = lambda ids, mask, temp: prefilled(temp)
 
@@ -3052,11 +3100,11 @@ def logits_recorded(engine, store: dict):
     of its masked steps after its last token). ``serve._sample`` is
     wrapped, so one engine a process runs while it is open."""
     from macaw_llm_tpu_torch import serve
-    sample, run, now = serve._sample, engine._run_prefill, {}
+    sample, run, now = serve._sample, engine._prefill_ready, {}
 
-    def run_prefill(req):
+    def prefill_ready(req, adm):
         now["prompt"] = req.prompt
-        return run(req)
+        return run(req, adm)
 
     def recording(logits, gen, temp):
         rows = logits.float().cpu()
@@ -3067,7 +3115,7 @@ def logits_recorded(engine, store: dict):
         else:  # an admission's first token
             store[now["prompt"]] = [rows[0]]
         return sample(logits, gen, temp)
-    engine._run_prefill = run_prefill
+    engine._prefill_ready = prefill_ready
     serve._sample = recording
     try:
         yield
@@ -3339,6 +3387,254 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
     return result
 
 
+# --------------------------------------------------------------------------
+# phase 14: tensor-parallel training, t = 2 ranks on the one card
+# --------------------------------------------------------------------------
+
+TP_TRAIN_STEPS = 5  # 2 warm-up + 3 timed
+# 14a's first step against 10a's: the same forward but for the association
+# of the row-parallel fp32 sums and the vocab-parallel logits' columns
+TP_TRAIN_STEP1_TOL = 1e-3
+TP_PAD_VOCAB = 32008  # 2 divides it: embed_tokens and lm_head are cut
+TP_TIMES_NOTE = ("the ranks share one card and sum through host memory "
+                 "(gloo): these times say nothing of tensor parallelism "
+                 "across cards")
+
+
+def tp_train_config(work: Path, sequence: bool) -> Path:
+    """14a's run file: the committed 1b run file with mesh tensor 2, fsdp
+    1, the vocab padded to TP_PAD_VOCAB, half the per-device batch (the
+    same global batch of 8 as 10a), no checkpoint, ``shard_sequence`` as
+    asked."""
+    from macaw_llm_tpu_torch.config import Config, MeshConfig
+    cfg = Config.from_json(TRAIN_1B_RUN.read_text())
+    m, t = cfg.model, cfg.train
+    cfg = dataclasses.replace(
+        cfg, mesh=MeshConfig(dcn=1, data=1, fsdp=1, tensor=TP_RANKS),
+        model=dataclasses.replace(
+            m, shard_sequence=sequence,
+            llm=dataclasses.replace(m.llm, vocab_pad_to=TP_PAD_VOCAB)),
+        train=dataclasses.replace(
+            t, per_device_batch_size=t.per_device_batch_size // TP_RANKS,
+            save_steps=0, log_steps=1))
+    path = work / f"train_1b_tp{'_sequence' if sequence else ''}.json"
+    path.write_text(cfg.to_json())
+    return path
+
+
+def tp_qlora_step(torch, kernels) -> dict:
+    """14b on this rank: phase 4b's 2-layer QLoRA model at 7b widths (the
+    same seeds, int8 base and alignment cache, LoRA B nonzero) at text 1024,
+    this rank's block of it (``tp_params``, the cache's columns
+    ``tp_align_cache``), one loss and backward through ``fusion.forward``
+    under the world's tensor group: the loss, the LoRA gradients (B's
+    all-gathered), launches, collectives, ms and peak memory."""
+    from macaw_llm_tpu_torch.config import macaw_7b
+    from macaw_llm_tpu_torch.models import fusion
+    from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
+    from macaw_llm_tpu_torch.parallel.sharding import COLLECTIVES, tree_map
+    from macaw_llm_tpu_torch.train.lora import init_lora
+    from macaw_llm_tpu_torch.train.state import merge_params, split_params
+    from macaw_llm_tpu_torch.utils import quantize as qz
+    cfg = train_cfg(torch, macaw_7b(), layers=2, dropout=0.0)
+    params = fusion.init_params(5, cfg, dtype=torch.bfloat16, device="cuda")
+    cache = fusion.precompute_align_cache(params, cfg, quantize=True)
+    params["llm"] = qz.quantize_llama(params["llm"])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    lora = init_lora(gen, cfg.llm, 8)
+    for key in ("qb", "vb"):
+        lora[key] = torch.randn(lora[key].shape, generator=gen,
+                                device="cuda") * 0.01
+    params["llm"]["layers"]["lora"] = lora
+    tp = tpar.TensorParallel.world(cfg)
+    block = tpar.tp_params(params, tp)
+    cache = tpar.tp_align_cache(cache, tp)
+    del params
+    trainable, frozen = split_params(block, True, lora=True)
+    # every trainable leaf takes a gradient, as in 4b
+    trainable = tree_map(lambda _, x: x.detach().clone().requires_grad_(),
+                         trainable)
+    adapters = trainable["llm"]["layers"]["lora"]
+    batch = {k: v[0] for k, v in
+             train_batch(torch, cfg, 1, 1, 1024, seed=7).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    COLLECTIVES.clear()
+    t0 = time.perf_counter()
+    loss, _ = fusion.forward(
+        merge_params(trainable, frozen), cfg, input_ids=batch["input_ids"],
+        images=batch["images"], audios=batch["audios"],
+        videos=batch["videos"], attention_mask=batch["attention_mask"],
+        labels=batch["labels"], lora_scale=2.0, align_cache=cache, tp=tp)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, collectives = counts(kernels), dict(COLLECTIVES)
+    grads = {}
+    with torch.no_grad():
+        for key, x in adapters.items():
+            g = x.grad if key.endswith("a") else tpar.gather(tp, x.grad, -1)
+            grads[f"/llm/layers/lora/{key}"] = g.float().cpu()
+    return dict(loss=loss.float().item(), grads=grads, launches=launches,
+                collectives=collectives, ms=ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                cuts=sorted(tp.cuts))
+
+
+def tp_train_worker(job_path: str, rank: int) -> None:
+    """One rank of phase 14 (``chip_smoke.py --tp-train-worker JOB
+    --tp-rank R``). 14a: ``run_train.main`` of each run file of the job,
+    joined to the job's group through the reference's environment with
+    ``--backend gloo`` (NCCL takes one rank a card), on phase 10's
+    imported 1b weights: each step's loss, gradient norm, ms, peak memory,
+    launches and collectives. 14b: ``tp_qlora_step``. Its results to the
+    job's directory."""
+    import torch
+    import torch.distributed as dist
+    from macaw_llm_tpu_torch import run_train
+    from macaw_llm_tpu_torch.ops.kernels import flash_attention as fa
+    from macaw_llm_tpu_torch.ops.kernels import matvec as mv
+    from macaw_llm_tpu_torch.ops.kernels import mh_attention as mh
+    from macaw_llm_tpu_torch.parallel.sharding import COLLECTIVES
+    job = json.loads(Path(job_path).read_text())
+    world, work = job["world"], Path(job["out"])
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{job['port']}",
+                      NUM_PROCESSES=str(world), PROCESS_ID=str(rank),
+                      LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = kernel_table(mh, fa, mv)
+    res = {"rank": rank}
+    for tag, path in job["runs"]:
+        steps = []
+        mark = [time.perf_counter()]
+
+        def on_step(step, state, metrics):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            steps.append(dict(
+                step=step, step_ms=(now - mark[0]) * 1e3,
+                loss=float(metrics["loss"]),
+                grad_norm=float(metrics["grad_norm"]),
+                launches=counts(kernels), collectives=dict(COLLECTIVES),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+            reset_counts(kernels)
+            COLLECTIVES.clear()
+            mark[0] = time.perf_counter()
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        COLLECTIVES.clear()
+        state = run_train.main([
+            "--config", path, "--synthetic", "--steps", str(job["steps"]),
+            "--output-dir", str(work / f"run_{tag}"), "--device", "cuda",
+            "--backend", "gloo", "--llama-weights", job["llama_dir"]],
+            on_step=on_step)
+        res[tag] = dict(steps=steps, backend=dist.get_backend(),
+                        world=dist.get_world_size())
+        del state
+        torch.cuda.empty_cache()
+    res["qlora"] = tp_qlora_step(torch, kernels)
+    dist.barrier()
+    torch.save(res, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def run_tp_train(torch, card: str, work: Path, llama_dir, train_10a: dict,
+                 card_4b: dict) -> dict:
+    """Phase 14: 14a, phase 10a's 1b full fine-tune at full depth through
+    ``run_train.main`` over 2 ranks on this card (mesh tensor 2, the vocab
+    padded to TP_PAD_VOCAB: embed_tokens and lm_head vocab-parallel), 2 +
+    3 steps, then the same with ``shard_sequence``: the ranks' losses the
+    same bits, step 1 within TP_TRAIN_STEP1_TOL of 10a's and steps 2-3
+    within the bf16 bar, B1 and B2 launches asserted every step; 14b,
+    ``tp_qlora_step`` against phase 4b's one-device step on the card
+    (4b's bars). Runs in phase 10's directory, on its imported weights."""
+    import socket
+    tp_dir = work / "phase14"
+    tp_dir.mkdir()
+    runs = [("tp", str(tp_train_config(tp_dir, False))),
+            ("tp_sequence", str(tp_train_config(tp_dir, True)))]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    ranks = spawn_tp(TP_RANKS, tp_dir, dict(
+        world=TP_RANKS, port=port, out=str(tp_dir), runs=runs,
+        llama_dir=str(llama_dir), steps=TP_TRAIN_STEPS),
+        "--tp-train-worker", "14")
+    wall = time.perf_counter() - t0
+    # per step on a rank: B1 in the 16 LLaMA layers' forward and remat
+    # recompute (8 heads), B2 in Whisper's 6 layers (4 heads)
+    rank_whisper = (8, 1500, 1500, 8 // TP_RANKS, 64, False)
+    expect_a = {"mh_attention": 32, "flash_attention": 6,
+                "flash_attention_combine": combines(torch,
+                                                    ((rank_whisper, 6),)),
+                "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                "flash_attention_delta": 0, "matvec_int8": 0,
+                "matvec_int8_pipelined": 0}
+    out = {"note": TP_TIMES_NOTE, "wall_s": wall, "card": card}
+    ref = train_10a["losses"]
+    for tag, _ in runs:
+        steps = [r[tag]["steps"] for r in ranks]
+        losses = [[x["loss"] for x in st] for st in steps]
+        norms = [[x["grad_norm"] for x in st] for st in steps]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], ref)]
+        bad = [x["launches"] for st in steps for x in st
+               if x["launches"] != expect_a]
+        line = dict(
+            run=tag, losses=losses[0], grad_norms=norms[0],
+            losses_10a=ref[:TP_TRAIN_STEPS], loss_rel_diff_10a=rel,
+            ranks_same_bits=losses[0] == losses[1] and norms[0] == norms[1],
+            step_ms_median=[statistics.median(
+                x["step_ms"] for x in st[2:]) for st in steps],
+            step_ms_median_10a=train_10a["step_ms_median"],
+            peak_mem_gb=[st[-1]["peak_mem_gb"] for st in steps],
+            peak_mem_gb_10a=train_10a["peak_mem_gb"],
+            launches_per_step=steps[0][-1]["launches"],
+            collectives_per_step=[st[-1]["collectives"] for st in steps],
+            backend=ranks[0][tag]["backend"], world=ranks[0][tag]["world"],
+            note=TP_TIMES_NOTE, card=card)
+        log(json.dumps({f"tp_train_1b_{tag}": line}))
+        if not line["ranks_same_bits"] or bad or rel[0] > TP_TRAIN_STEP1_TOL \
+                or max(rel[1:3]) > TRAIN_LOSS_REL_TOL:
+            raise AssertionError(f"14a {tag}: {line}, launches {bad[:1]} "
+                                 f"!= {expect_a}")
+        out[tag] = line
+    # 14b against 4b's one-device card step
+    qs = [r["qlora"] for r in ranks]
+    rank_llama = (1, 1080, 1080, 32 // TP_RANKS, 128, True)
+    expect_b = {"mh_attention": 0, "flash_attention": 7,
+                "flash_attention_combine": combines(torch, (
+                    ((1, 1500, 1500, 8 // TP_RANKS, 64, False), 2),
+                    (video_long(1), 1), (rank_llama, 4))),
+                "flash_attention_dq": 3, "flash_attention_dkv": 3,
+                "flash_attention_delta": 3, "matvec_int8": 0,
+                "matvec_int8_pipelined": 0}
+    loss_rel = abs(qs[0]["loss"] - card_4b["loss"]) / abs(card_4b["loss"])
+    grad_rel = {k: ((qs[0]["grads"][k] - g).abs().max()
+                    / g.abs().max()).item()
+                for k, g in card_4b["grads"].items()}
+    same = qs[0]["loss"] == qs[1]["loss"] and all(
+        torch.equal(qs[0]["grads"][k], qs[1]["grads"][k])
+        for k in qs[0]["grads"])
+    line = dict(loss=qs[0]["loss"], loss_4b=card_4b["loss"],
+                loss_rel_err=loss_rel, grad_rel_err=grad_rel,
+                ranks_same_bits=same, launches=[q["launches"] for q in qs],
+                collectives=[q["collectives"] for q in qs],
+                ms=[q["ms"] for q in qs],
+                peak_mem_gb=[q["peak_mem_gb"] for q in qs],
+                cuts=qs[0]["cuts"], note=TP_TIMES_NOTE, card=card)
+    log(json.dumps({"tp_train_qlora": line}))
+    if not same or any(q["launches"] != expect_b for q in qs) or \
+            loss_rel > TRAIN_LOSS_REL_TOL or \
+            max(grad_rel.values()) > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"14b: {line} (launches expected {expect_b})")
+    out["qlora"] = line
+    return out
+
+
 def step_totals(rows, b: int, keys) -> dict:
     """One decode step of the timed rows at ``b`` rows: each key summed
     over the 7b shapes times their launches a step (None where a row has
@@ -3466,8 +3762,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print torch.profiler tables of one prefill "
                          "and of decode (written to chiprun_out/)")
-    # phase 13 runs this script again as each of its ranks
+    # phases 13 and 14 run this script again as each of their ranks
     ap.add_argument("--tp-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-train-worker", default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
     out_dir = ROOT / "chiprun_out"
@@ -3478,6 +3776,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if args.tp_worker:
         tp_worker(args.tp_worker, args.tp_rank)
+        return 0
+    if args.tp_train_worker:
+        tp_train_worker(args.tp_train_worker, args.tp_rank)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -3565,7 +3866,7 @@ def main() -> int:
     small_engine_parity(torch, cfg, kernels)
     torch.cuda.empty_cache()
     # 4b. 2-layer QLoRA train step at 7b widths: card vs CPU
-    small_train_parity(torch, cfg, kernels)
+    card_4b = small_train_parity(torch, cfg, kernels)["card_1024"]
     torch.cuda.empty_cache()
 
     # 5. full 7b prefill
@@ -3653,8 +3954,9 @@ def main() -> int:
                  "flash_attention_delta": 0, "matvec_int8": 0,
                  "matvec_int8_pipelined": 0}
     phase10 = run_phase10(torch, kernels, card, out_dir, expect_1b,
-                          args.profile)
+                          args.profile, card_4b)
     train_1b_launches = phase10["train"]["launches_per_step"]
+    tp_train = phase10["tp_train"]
     torch.cuda.empty_cache()
 
     # 12a. the ring's schedule at 7b widths (12b and 12c ran in phase 10's
@@ -3801,6 +4103,20 @@ def main() -> int:
                                   for r in rows]
         if name in tp_checks:
             entry["tp_step_layers"] = tp_step_totals(tp_checks[name])
+        # 14: a tensor rank's training launches (14a per 1b step, 14b per
+        # 2-layer QLoRA step) and phase 3/3b's rank train shapes
+        entry["tp_train_launches"] = {
+            "train_1b_step": tp_train["tp"]["launches_per_step"][name],
+            "train_1b_step_sequence":
+                tp_train["tp_sequence"]["launches_per_step"][name],
+            "qlora_2_layer_step": tp_train["qlora"]["launches"][0][name]}
+        rows = [r for r in checks.get(name, ()) if "train" in str(
+            r.get("call", r.get("case"))) and str(
+            r.get("call", r.get("case"))).startswith("tp")]
+        if rows:
+            entry["tp_train_shapes"] = [
+                {k: r[k] for k in keep + ("case", "per_step") if k in r}
+                for r in rows]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"card": card, "seconds": time.perf_counter() - t_start}))
     LOG_FILE.close()

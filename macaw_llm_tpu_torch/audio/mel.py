@@ -78,6 +78,16 @@ def dft_basis(n_fft: int = N_FFT) -> np.ndarray:
     return (basis * window[:, None]).astype(np.float32)
 
 
+def pad_or_trim(audio: torch.Tensor, length: int = N_SAMPLES) -> torch.Tensor:
+    """whisper.pad_or_trim: zero-pad or clip the last axis to ``length``."""
+    n = audio.shape[-1]
+    if n > length:
+        return audio[..., :length]
+    if n < length:
+        return torch.nn.functional.pad(audio, (0, length - n))
+    return audio
+
+
 def log_mel_spectrogram(audio: torch.Tensor,
                         n_mels: int = N_MELS) -> torch.Tensor:
     """[B, 480000] waveform -> [B, n_mels, 3000] Whisper log-mel (fp32)."""

@@ -4,11 +4,7 @@ one ``Config`` tree with the same fields, defaults and JSON form, so a run
 config written by either package loads in the other. Defaults are the
 reference's (LLaMA-7B + CLIP ViT-B/16 + Whisper-base, Macaw-LLM's
 MM_LLMs_Config; the optimizer of its train.sh and DeepSpeed config).
-
-Some values select paths the port has not ported yet; ``validate`` raises
-``NotImplementedError`` for them, naming the ROADMAP item that ports them,
-instead of ignoring them: sequence sharding, and a tensor axis above 1 for
-generation and serving (ROADMAP A7)."""
+Every value the reference accepts selects a ported path."""
 
 from __future__ import annotations
 
@@ -182,9 +178,11 @@ class ModelConfig:
     remat_policy: str = "nothing"
     use_flash: bool = False   # attention kernels in the LLM prefill
     tower_flash: bool = False  # streaming kernel in the CLIP/Whisper towers
-    # sequence sharding over a device mesh (not ported, ROADMAP A7); ring
-    # attention over the mesh axis ``ring_axis``, "zigzag" or "contiguous"
-    # (training: the fused sequence is cut over that axis)
+    # sequence parallelism of the LLaMA stack over the mesh's tensor axis
+    # (training without a ring: the activations between layers cut on the
+    # sequence; the numbers do not change); ring attention over the mesh
+    # axis ``ring_axis``, "zigzag" or "contiguous" (training: the fused
+    # sequence is cut over that axis)
     shard_sequence: bool = False
     ring_attention: bool = False
     ring_axis: str = "tensor"
@@ -220,9 +218,7 @@ class ModelConfig:
                 + self.audio_prefix_len + 6)
 
     def validate(self) -> None:
-        """The reference's geometry checks, then the values whose paths the
-        port has not ported (``NotImplementedError`` naming the ROADMAP
-        item)."""
+        """The reference's geometry checks."""
         self.llm.validate()
         h = self.fusion.attention_heads
         if self.llm.hidden_size % (h * 2):
@@ -238,10 +234,6 @@ class ModelConfig:
         if self.ring_axis not in ("dcn", "data", "fsdp", "tensor"):
             raise ValueError(f"ring_axis {self.ring_axis!r} is not a mesh "
                              "axis")
-        if self.shard_sequence:
-            raise NotImplementedError(
-                "shard_sequence: sequence sharding of the activations is not "
-                "ported (ROADMAP A7b)")
 
 
 @dataclass(frozen=True)

@@ -14,6 +14,8 @@ whose size does not change is left as it is, as JAX does.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
@@ -81,3 +83,13 @@ def preprocess(images: torch.Tensor, size: int = 224) -> torch.Tensor:
     mean = torch.tensor(CLIP_MEAN, device=x.device)
     std = torch.tensor(CLIP_STD, device=x.device)
     return ((x - mean) / std).permute(0, 3, 1, 2)
+
+
+def preprocess_batch_numpy(images: Sequence[np.ndarray], size: int = 224,
+                           device="cpu") -> np.ndarray:
+    """Host-side convenience for ragged input sizes: each uint8 [H, W, 3]
+    image preprocessed on ``device`` on its own, the results stacked on
+    the host as fp32 [N, 3, size, size]."""
+    return np.stack([preprocess(torch.from_numpy(np.asarray(im)[None])
+                                .to(device), size)[0].cpu().numpy()
+                     for im in images])

@@ -30,11 +30,11 @@ from macaw_llm_tpu_torch.config import (AUDIO_END, AUDIO_START, IGNORE_ID,
                                         IMAGE_END, IMAGE_START, ModelConfig,
                                         VIDEO_END, VIDEO_START)
 from macaw_llm_tpu_torch.models import _tree, clip, llama, whisper
-from macaw_llm_tpu_torch.models._tree import normal, uniform, zeros
+from macaw_llm_tpu_torch.models._tree import normal, uniform
 from macaw_llm_tpu_torch.ops.attention import (
     pack_mha, shared_kv_project, torch_mha_apply,
     torch_mha_apply_shared_kv_dropout, torch_mha_apply_shared_kv_einsum,
-    torch_mha_apply_shared_kv_flash)
+    torch_mha_apply_shared_kv_flash, torch_mha_init)
 from macaw_llm_tpu_torch.ops.linear import dense
 from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
 
@@ -58,22 +58,6 @@ def _frozen(tree) -> contextlib.AbstractContextManager:
     return contextlib.nullcontext() if grads(tree) else torch.no_grad()
 
 
-def _torch_mha_init(gen, e: int, dtype) -> dict:
-    """torch.nn.MultiheadAttention init: xavier-uniform in_proj [3E, E],
-    uniform(1/sqrt(E)) out_proj, xavier-normal bias_k/bias_v, zero
-    biases."""
-    std_kv = math.sqrt(2.0 / (1 + e))
-    return {
-        "in_proj_w": uniform(gen, (3 * e, e), math.sqrt(6.0 / (4 * e)),
-                             dtype),
-        "in_proj_b": zeros(gen, (3 * e,), dtype),
-        "out_proj_w": uniform(gen, (e, e), math.sqrt(3.0 / e), dtype),
-        "out_proj_b": zeros(gen, (e,), dtype),
-        "bias_k": normal(gen, (e,), std_kv, dtype),
-        "bias_v": normal(gen, (e,), std_kv, dtype),
-    }
-
-
 def init_params(seed: int, cfg: ModelConfig, *, dtype=torch.bfloat16,
                 device="cuda") -> dict:
     """Random weights of the whole model from ``seed``, made on
@@ -85,6 +69,10 @@ def init_params(seed: int, cfg: ModelConfig, *, dtype=torch.bfloat16,
     h = cfg.llm.hidden_size
     pd = cfg.vision.projection_dim
     dm = cfg.audio.d_model
+    heads = cfg.fusion.attention_heads
+
+    def mha(e, n):
+        return torch_mha_init(gen, e, n, dtype=dtype)
 
     def linear(din, dout):
         lim = 1.0 / math.sqrt(din)
@@ -102,10 +90,10 @@ def init_params(seed: int, cfg: ModelConfig, *, dtype=torch.bfloat16,
         "audio_encoder": whisper.init_params(gen, cfg.audio, dtype),
         "llm": llama.init_params(gen, cfg.llm, dtype),
         "fusion": {
-            "image_align": _torch_mha_init(gen, h, dtype),
-            "audio_align": _torch_mha_init(gen, h, dtype),
-            "video_align": _torch_mha_init(gen, h, dtype),
-            "video_long_attn": _torch_mha_init(gen, pd, dtype),
+            "image_align": mha(h, heads * 2),
+            "audio_align": mha(h, heads * 2),
+            "video_align": mha(h, heads * 2),
+            "video_long_attn": mha(pd, heads),
             "to_hidden": {"video": linear(pd, h), "audio": linear(dm, h),
                           "image": linear(pd, h)},
             "conv": {"image": conv1d(pd, cfg.fusion.image_conv_kernel),
@@ -116,7 +104,7 @@ def init_params(seed: int, cfg: ModelConfig, *, dtype=torch.bfloat16,
     # encode_video_simple's leaves, drawn after every other leaf so that a
     # seed gives the rest of the tree the same weights as without them
     params["fusion"].update(
-        temporal_attn=_torch_mha_init(gen, pd, dtype),
+        temporal_attn=mha(pd, heads),
         temporal_pos_emb=normal(gen, (cfg.fusion.n_frames, pd), 1.0, dtype))
     return params
 
@@ -246,9 +234,11 @@ def _align(p: dict, heads: int, feats: torch.Tensor,
     flash kernel over the dequantized rows; without one, the flash kernel
     over the memory projected here. With dropout (``rng`` given, rate > 0)
     the chunked dropout attention over the dequantized cache or the memory.
-    ``tp`` (inference): this rank's heads, which also count in the
-    einsum's logits bytes.
+    ``tp``: this rank's heads, which also count in the einsum's logits
+    bytes; in training the features reach the in-projection through
+    Megatron's f.
     """
+    feats = tpar.copy(tp, feats)
     if rng is not None and dropout_rate > 0.0:
         kv = None
         if kv_cache is not None:
@@ -256,7 +246,7 @@ def _align(p: dict, heads: int, feats: torch.Tensor,
                   _dequant_rows(kv_cache["v"], feats.dtype))
         return torch_mha_apply_shared_kv_dropout(
             p, heads, feats, memory, rate=dropout_rate, rng=rng,
-            add_zero_attn=True, kv_cache=kv)
+            add_zero_attn=True, kv_cache=kv, tp=tp)
     if kv_cache is not None:
         b, sq, _ = feats.shape
         m2 = kv_cache["k"][0].shape[0]
@@ -293,14 +283,16 @@ def _dequant_rows(entry, dtype) -> torch.Tensor:
 def _token_memory(params: dict, cfg: ModelConfig, compute,
                   tp: Optional[tpar.TensorParallel]) -> torch.Tensor:
     """The alignments' K/V memory: the whole token-embedding matrix (its
-    first ``align_memory_rows``), all-gathered when the vocab is cut."""
+    first ``align_memory_rows``), all-gathered when the vocab is cut; in
+    training it reaches the cut alignments' K/V projections through
+    Megatron's f."""
     memory = params["llm"]["embed_tokens"].to(compute)
     vtp = tpar.on(tp, "vocab")
     if vtp is not None:
         memory = tpar.gather(vtp, memory, 0)
     if cfg.fusion.align_memory_rows is not None:
         memory = memory[:cfg.fusion.align_memory_rows]
-    return memory
+    return tpar.copy(tpar.on(tp, "align"), memory)
 
 
 def precompute_align_cache(params: dict, cfg: ModelConfig,
@@ -361,6 +353,28 @@ def _boundary(llm_params: dict, token_id: int, batch: int, dtype,
     return emb.expand(batch, 1, emb.shape[-1])
 
 
+def featurize(cfg: ModelConfig, images: Optional[torch.Tensor],
+              audios: Optional[torch.Tensor],
+              videos: Optional[torch.Tensor]):
+    """Raw media as the towers take them: waveforms [B, samples] ->
+    log-mel [B, 80, frames], uint8 frames [.., H, W, 3] -> CLIP pixels
+    [.., 3, H, W]; media already featurized (or None) pass as they are.
+    No collective: a serving rank runs it before a prefill's first."""
+    if audios is not None and audios.dim() == 2:
+        from macaw_llm_tpu_torch.audio.mel import log_mel_spectrogram
+        audios = log_mel_spectrogram(audios, n_mels=cfg.audio.num_mel_bins)
+    if images is not None and images.dim() == 4 and images.shape[-1] == 3:
+        from macaw_llm_tpu_torch.image.preprocess import preprocess
+        images = preprocess(images, size=cfg.vision.image_size)
+    if videos is not None and videos.dim() == 5 and videos.shape[-1] == 3:
+        from macaw_llm_tpu_torch.image.preprocess import preprocess
+        bv, fv = videos.shape[:2]
+        flat = preprocess(videos.reshape((bv * fv,) + tuple(videos.shape[2:])),
+                          size=cfg.vision.image_size)
+        videos = flat.reshape((bv, fv) + tuple(flat.shape[1:]))
+    return images, audios, videos
+
+
 def prepare_inputs(params: dict, cfg: ModelConfig, *,
                    input_ids: torch.Tensor,
                    images: Optional[torch.Tensor],
@@ -383,27 +397,17 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
     a constant, so the in-proj K/V rows and bias_k/bias_v take no gradient.
     ``video_mode``: "long" (``encode_video_long``) or "simple"
     (``encode_video_simple``). ``activation_quant`` sends the towers' int8
-    records (``utils.quantize.quantize_towers``) to W8A8. ``tp``
-    (inference): ``params`` and ``align_cache`` are this rank's blocks of
-    a tensor-parallel tree; the fused batch is every rank's, whole.
+    records (``utils.quantize.quantize_towers``) to W8A8. ``tp``:
+    ``params`` and ``align_cache`` are this rank's blocks of a
+    tensor-parallel tree; the fused batch is every rank's, whole (and so
+    is its gradient).
     """
     if video_mode not in ("long", "simple"):
         raise ValueError(f"video_mode {video_mode!r}: 'long' or 'simple'")
     bids = {"image": (IMAGE_START, IMAGE_END),
             "audio": (AUDIO_START, AUDIO_END),
             "video": (VIDEO_START, VIDEO_END)}
-    if audios is not None and audios.dim() == 2:
-        from macaw_llm_tpu_torch.audio.mel import log_mel_spectrogram
-        audios = log_mel_spectrogram(audios, n_mels=cfg.audio.num_mel_bins)
-    if images is not None and images.dim() == 4 and images.shape[-1] == 3:
-        from macaw_llm_tpu_torch.image.preprocess import preprocess
-        images = preprocess(images, size=cfg.vision.image_size)
-    if videos is not None and videos.dim() == 5 and videos.shape[-1] == 3:
-        from macaw_llm_tpu_torch.image.preprocess import preprocess
-        bv, fv = videos.shape[:2]
-        flat = preprocess(videos.reshape((bv * fv,) + tuple(videos.shape[2:])),
-                          size=cfg.vision.image_size)
-        videos = flat.reshape((bv, fv) + tuple(flat.shape[1:]))
+    images, audios, videos = featurize(cfg, images, audios, videos)
     compute = getattr(torch, cfg.dtype)
     lp = params["llm"]
     fp = params["fusion"]
@@ -471,7 +475,8 @@ def forward(params: dict, cfg: ModelConfig, *,
             video_mode: str = "long",
             lora_scale: float = 1.0,
             align_cache: Optional[dict] = None,
-            ring_mesh=None, reduce_count=None):
+            ring_mesh=None, reduce_count=None,
+            tp: Optional[tpar.TensorParallel] = None):
     """Training forward: fuse, run the LLaMA stack over the fused
     embeddings, return (loss, logits). With ``cfg.loss_chunk`` > 0 and
     labels the loss comes from the hidden states in chunks and logits is
@@ -479,24 +484,29 @@ def forward(params: dict, cfg: ModelConfig, *,
     decoder and tower layer under ``cfg.remat_policy``. ``ring_mesh``
     (with ``cfg.ring_attention``) takes the ring path (``_forward_ring``).
     ``reduce_count`` sums the loss's count of valid targets over the ranks
-    that share the batch (the loss is then the global mean)."""
+    that share the batch (the loss is then the global mean). ``tp``:
+    Megatron tensor parallelism over this rank's block of the tree
+    (``parallel.tensor_parallel``), with sequence parallelism in the
+    LLaMA stack under ``cfg.shard_sequence``; the loss is the whole
+    batch's on every rank."""
     batch = prepare_inputs(params, cfg, input_ids=input_ids, images=images,
                            audios=audios, videos=videos,
                            attention_mask=attention_mask, labels=labels,
                            dropout_rng=dropout_rng, video_mode=video_mode,
-                           align_cache=align_cache)
+                           align_cache=align_cache, tp=tp)
     if ring_mesh is not None and cfg.ring_attention:
         return _forward_ring(params, cfg, batch, lora_scale, ring_mesh,
                              reduce_count)
     kw = dict(attention_mask=batch.attention_mask, use_flash=cfg.use_flash,
-              remat=_remat(cfg), lora_scale=lora_scale)
+              remat=_remat(cfg), lora_scale=lora_scale, tp=tp,
+              shard_sequence=cfg.shard_sequence)
     if cfg.loss_chunk > 0 and batch.labels is not None:
         h = llama.forward_hidden(params["llm"], cfg.llm, batch.inputs_embeds,
                                  **kw)
         loss = llama.clm_loss_chunked(params["llm"], h, batch.labels,
                                       chunk=cfg.loss_chunk,
                                       valid=llama.valid_vocab(cfg.llm),
-                                      reduce_count=reduce_count)
+                                      reduce_count=reduce_count, tp=tp)
         return loss, None
     logits = llama.forward(params["llm"], cfg.llm,
                            inputs_embeds=batch.inputs_embeds, **kw)

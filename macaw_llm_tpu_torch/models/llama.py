@@ -25,7 +25,10 @@ never holds the [B, S, V] fp32 logits, and ``clm_loss_aligned`` for targets
 already shifted (the ring path's permuted sequence). Each loss takes a
 ``reduce_count``: the count of valid targets it divides by, summed over the
 ranks that hold the rest of the batch. The attention kernels and int8
-matmuls are differentiable in their activations.
+matmuls are differentiable in their activations. Under a tensor group
+(``tp``) the stack trains Megatron-style (f before the cut column
+products, g after the row products, ``parallel.tensor_parallel``), and
+with ``shard_sequence`` sequence-parallel between layers.
 """
 
 from __future__ import annotations
@@ -139,9 +142,13 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
                activation_quant: bool, lora: Optional[dict] = None,
                lora_scale: float = 1.0,
                decode_rows: bool = False, ring=None,
-               tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
+               tp: Optional[tpar.TensorParallel] = None,
+               lora_x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention of one layer; under ``tp`` (the attention is cut)
-    this rank's heads, their partial output summed over the ranks."""
+    this rank's heads, their partial output summed over the ranks (or
+    reduce-scattered over the sequence under ``tp.sequence``). ``h`` is
+    the input of the q/k/v products (``_module_input``), ``lora_x`` that
+    of the LoRA branch (default ``h``)."""
     b, s, _ = h.shape
     n, nkv = tpar.local(tp, cfg.num_heads), tpar.local(tp, cfg.kv_heads)
     d = cfg.head_dim
@@ -159,8 +166,9 @@ def _attention(cfg: LlamaConfig, p: dict, h: torch.Tensor,
     else:
         q2, k2, v2 = mm(h, p["wq"]), mm(h, p["wk"]), mm(h, p["wv"])
     if lora is not None:
-        q2 = q2 + lora_delta(h, lora["qa"], lora["qb"], lora_scale)
-        v2 = v2 + lora_delta(h, lora["va"], lora["vb"], lora_scale)
+        lx = h if lora_x is None else lora_x
+        q2 = q2 + lora_delta(lx, lora["qa"], lora["qb"], lora_scale, tp, s)
+        v2 = v2 + lora_delta(lx, lora["va"], lora["vb"], lora_scale, tp, s)
     q = q2.reshape(b, s, n, d)
     k = k2.reshape(b, s, nkv, d)
     v = v2.reshape(b, s, nkv, d)
@@ -235,22 +243,48 @@ def _mlp(p: dict, h: torch.Tensor, activation_quant: bool,
     return mm(silu(mm(h, p["gate"])) * mm(h, p["up"]), p["down"], tp)
 
 
+def _module_input(tp: Optional[tpar.TensorParallel],
+                  mtp: Optional[tpar.TensorParallel], x: torch.Tensor,
+                  s: int) -> torch.Tensor:
+    """The input of a layer's attention or MLP: ``x`` through Megatron's f
+    where the module is cut (``mtp``); under sequence parallelism the whole
+    sequence of ``s`` positions from this rank's block."""
+    if tp is not None and tp.sequence:
+        return tpar.gather_sequence(tp, x, s, cut=mtp is not None)
+    return tpar.copy(mtp, x)
+
+
+def _module_output(tp: Optional[tpar.TensorParallel],
+                   mtp: Optional[tpar.TensorParallel],
+                   y: torch.Tensor) -> torch.Tensor:
+    """Under sequence parallelism a whole module's output becomes this
+    rank's block (a cut module's row product reduce-scattered it)."""
+    if tp is not None and tp.sequence and mtp is None:
+        return tpar.split_sequence(tp, y)
+    return y
+
+
 def _decoder_layer(cfg: LlamaConfig, lp: dict, h: torch.Tensor, mask, cos,
                    sin, kv_cache: Optional[KVCache], write_at, li: int,
                    flash_bias,
                    use_flash: bool, activation_quant: bool,
                    lora_scale: float, decode_rows: bool = False, ring=None,
-                   tp: Optional[tpar.TensorParallel] = None
-                   ) -> torch.Tensor:
-    """Pre-norm attention + residual, pre-norm SwiGLU + residual."""
+                   tp: Optional[tpar.TensorParallel] = None,
+                   seq_len: Optional[int] = None) -> torch.Tensor:
+    """Pre-norm attention + residual, pre-norm SwiGLU + residual. Under a
+    sequence-parallel ``tp`` h is this rank's block of the ``seq_len``
+    positions, and so are the norms' rows."""
+    atp, mtp = tpar.on(tp, "llm_attn"), tpar.on(tp, "llm_mlp")
     x = rms_norm(h, lp["input_norm"], cfg.rms_norm_eps)
-    h = h + _attention(cfg, lp["attn"], x, mask, cos, sin, kv_cache,
-                       write_at, li, flash_bias, use_flash, activation_quant,
-                       lp.get("lora"), lora_scale, decode_rows, ring,
-                       tpar.on(tp, "llm_attn"))
+    xa = _module_input(tp, atp, x, seq_len)
+    h = h + _module_output(tp, atp, _attention(
+        cfg, lp["attn"], xa, mask, cos, sin, kv_cache, write_at, li,
+        flash_bias, use_flash, activation_quant, lp.get("lora"), lora_scale,
+        decode_rows, ring, atp, lora_x=x if atp is not None else xa))
     x = rms_norm(h, lp["post_norm"], cfg.rms_norm_eps)
-    return h + _mlp(lp["mlp"], x, activation_quant, decode_rows,
-                    tpar.on(tp, "llm_mlp"))
+    return h + _module_output(tp, mtp, _mlp(
+        lp["mlp"], _module_input(tp, mtp, x, seq_len), activation_quant,
+        decode_rows, mtp))
 
 
 def embed(params: dict, input_ids: torch.Tensor,
@@ -277,7 +311,8 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
                    decode_rows: bool = False,
                    ring_mesh=None, ring_axis: str = "tensor",
                    ring_layout: str = "zigzag",
-                   tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
+                   tp: Optional[tpar.TensorParallel] = None,
+                   shard_sequence: bool = False) -> torch.Tensor:
     """Decoder stack over ``inputs_embeds`` [B, S, H] -> final-normed hidden
     states [B, S, H].
 
@@ -302,6 +337,10 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
     bias; ``attention_mask`` is refused). ``tp``: this rank's block of a
     tensor-parallel tree (``parallel.tensor_parallel``; the cache holds
     its heads); the hidden states are every rank's, whole.
+    ``shard_sequence`` under a ``tp`` of 2 or more ranks, without a cache
+    or a ring: sequence parallelism, the residual stream between layers
+    this rank's block of the sequence (padded to a multiple of the
+    ranks); the numbers are those without it.
     """
     if remat and kv_cache is not None:
         raise ValueError("remat is for the no-cache (training) path")
@@ -355,17 +394,25 @@ def forward_hidden(params: dict, cfg: LlamaConfig,
 
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
     use_kernel = use_flash and kv_cache is None
+    stp = tpar.sequence_parallel(tp) if shard_sequence and \
+        kv_cache is None and ring is None else None
     h = inputs_embeds
+    if stp is not None:
+        tp = stp
+        h = tpar.split_sequence(tp, h)
     layers = params["layers"]
     for li in range(num_layers(layers)):
         args = (mask, cos, sin, kv_cache, write_at, li, flash_bias,
                 use_kernel, activation_quant, lora_scale, decode_rows, ring,
-                tp)
+                tp, s)
         h = checkpointed(layer_fn(partial(_decoder_layer, cfg), layers, li),
                          remat, h, *args)
     if kv_cache is not None:
         kv_cache.length = kv_cache.length + s
-    return rms_norm(h, params["norm"].to(h.dtype), cfg.rms_norm_eps)
+    h = rms_norm(h, params["norm"].to(h.dtype), cfg.rms_norm_eps)
+    if stp is not None:
+        h = tpar.gather(stp, h, 1)[:, :s]
+    return h
 
 
 def logits_from_hidden(params: dict, h: torch.Tensor,
@@ -377,7 +424,7 @@ def logits_from_hidden(params: dict, h: torch.Tensor,
     a ``tp`` that cuts the vocab, each rank's columns are all-gathered
     first."""
     vtp = tpar.on(tp, "vocab")
-    logits = qz.matmul(h, params["lm_head"], h.dtype,
+    logits = qz.matmul(tpar.copy(vtp, h), params["lm_head"], h.dtype,
                        decode_rows=decode_rows)
     if vtp is not None:
         logits = tpar.gather(vtp, logits, -1)
@@ -411,7 +458,8 @@ def forward(params: dict, cfg: LlamaConfig,
             decode_rows: bool = False,
             ring_mesh=None, ring_axis: str = "tensor",
             ring_layout: str = "zigzag",
-            tp: Optional[tpar.TensorParallel] = None) -> torch.Tensor:
+            tp: Optional[tpar.TensorParallel] = None,
+            shard_sequence: bool = False) -> torch.Tensor:
     """Full CLM forward -> logits [B, S, V] fp32. Takes token ids or
     embeddings, never both."""
     if (input_ids is None) == (inputs_embeds is None):
@@ -421,7 +469,7 @@ def forward(params: dict, cfg: LlamaConfig,
     h = forward_hidden(params, cfg, inputs_embeds, attention_mask, positions,
                        kv_cache, use_flash, activation_quant, remat,
                        lora_scale, decode_rows, ring_mesh, ring_axis,
-                       ring_layout, tp)
+                       ring_layout, tp, shard_sequence)
     return logits_from_hidden(params, h, valid_vocab(cfg), decode_rows, tp)
 
 
@@ -464,29 +512,34 @@ def clm_loss_aligned(logits: torch.Tensor, targets: torch.Tensor,
     return _mean(nll, count, reduce_count)
 
 
-def _chunk_nll(w, valid: Optional[int], h_c: torch.Tensor,
+def _chunk_nll(w, valid: Optional[int], vtp, h_c: torch.Tensor,
                t_c: torch.Tensor):
-    logits = _mask_padded_vocab(qz.matmul(h_c, w, h_c.dtype).float(), valid)
-    return _nll(logits, t_c)
+    logits = qz.matmul(tpar.copy(vtp, h_c), w, h_c.dtype)
+    if vtp is not None:
+        logits = tpar.gather(vtp, logits, -1)
+    return _nll(_mask_padded_vocab(logits.float(), valid), t_c)
 
 
 def clm_loss_chunked(params: dict, h: torch.Tensor, labels: torch.Tensor,
                      chunk: int = 1024, valid: Optional[int] = None,
                      targets_aligned: bool = False,
-                     reduce_count=None) -> torch.Tensor:
+                     reduce_count=None,
+                     tp: Optional[tpar.TensorParallel] = None
+                     ) -> torch.Tensor:
     """``clm_loss(logits_from_hidden(params, h), labels)`` straight from the
     final hidden states, ``chunk`` positions at a time: each chunk's fp32
     logits exist only inside its checkpointed function (recomputed in the
     backward), never the whole [B, S, V]. ``targets_aligned``: the labels
     are already the next-token targets of their positions
-    (``clm_loss_aligned``)."""
+    (``clm_loss_aligned``). Under a ``tp`` that cuts the vocab each
+    chunk's logits are this rank's columns, all-gathered."""
     b = h.shape[0]
     if targets_aligned:
         targets = labels
     else:
         targets = torch.cat([labels[:, 1:],
                              labels.new_full((b, 1), IGNORE_ID)], dim=1)
-    fn = partial(_chunk_nll, params["lm_head"], valid)
+    fn = partial(_chunk_nll, params["lm_head"], valid, tpar.on(tp, "vocab"))
     nll_sum, count = 0.0, 0
     for start in range(0, h.shape[1], chunk):
         nll, cnt = checkpoint(fn, h[:, start:start + chunk],

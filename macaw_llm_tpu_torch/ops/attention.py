@@ -15,22 +15,25 @@
   (training) the attention goes through ``dropout_attention_chunked``.
 
 All apply functions are batch-first: [B, S, E]. Under a tensor group
-that cuts them (``tp``, ``parallel.tensor_parallel``) the inference paths
-(``mha_apply`` and the cached or memory-projecting alignment) run this
-rank's heads: its q/k/v columns (and bias_k/bias_v), its rows of the
-out-projection, whose partials are summed over the ranks before its bias
-is added once.
+that cuts them (``tp``, ``parallel.tensor_parallel``) ``mha_apply`` and
+the alignment's shared-K/V paths (cached, memory-projecting, and the
+dropout one of training) run this rank's heads: its q/k/v columns (and
+bias_k/bias_v), its rows of the out-projection, whose partials are summed
+over the ranks before its bias is added once. ``mha_init`` and
+``torch_mha_init`` draw the two layouts' weights.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from macaw_llm_tpu_torch.models._tree import normal, uniform, zeros
 from macaw_llm_tpu_torch.ops.kernels.flash_attention import flash_attention
 from macaw_llm_tpu_torch.ops.linear import dense
 from macaw_llm_tpu_torch.ops.masks import NEG_INF
@@ -94,6 +97,50 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, s, n, d = x.shape
     return x.reshape(b, s, n * d)
+
+
+def _on(device, x: torch.Tensor) -> torch.Tensor:
+    return x if device is None else x.to(device)
+
+
+def mha_init(gen: torch.Generator, embed_dim: int, num_heads: int, *,
+             bias: bool = True, initializer_range: float = 0.02,
+             dtype=torch.float32, device=None) -> dict:
+    """A CLIP/Whisper attention's weights (``mha_apply``): q/k/v/o [E, E]
+    [in, out] weights drawn from normal(initializer_range) in that order
+    by ``gen`` (on its device), zero [E] biases; on ``device`` (default:
+    the generator's)."""
+    e = embed_dim
+    params = {name: {"w": _on(device, normal(gen, (e, e), initializer_range,
+                                             dtype))}
+              for name in ("q", "k", "v", "o")}
+    if bias:
+        for p in params.values():
+            p["b"] = _on(device, zeros(gen, (e,), dtype))
+    return params
+
+
+def torch_mha_init(gen: torch.Generator, embed_dim: int, num_heads: int, *,
+                   add_bias_kv: bool = True, dtype=torch.float32,
+                   device=None) -> dict:
+    """torch.nn.MultiheadAttention's weights (``torch_mha_apply``):
+    xavier-uniform in_proj [3E, E], uniform(sqrt(3 / E)) out_proj [E, E],
+    zero biases and, with ``add_bias_kv``, xavier-normal bias_k/bias_v
+    [E], drawn in that order by ``gen``; on ``device`` (default: the
+    generator's)."""
+    e = embed_dim
+    params = {
+        "in_proj_w": uniform(gen, (3 * e, e), math.sqrt(6.0 / (4 * e)),
+                             dtype),
+        "in_proj_b": zeros(gen, (3 * e,), dtype),
+        "out_proj_w": uniform(gen, (e, e), math.sqrt(3.0 / e), dtype),
+        "out_proj_b": zeros(gen, (e,), dtype),
+    }
+    if add_bias_kv:
+        std = math.sqrt(2.0 / (1 + e))
+        params["bias_k"] = normal(gen, (e,), std, dtype)
+        params["bias_v"] = normal(gen, (e,), std, dtype)
+    return {k: _on(device, v) for k, v in params.items()}
 
 
 def pack_mha(params: dict) -> dict:
@@ -183,18 +230,20 @@ def _dropout_keep(seed: int, start: int, shape, rate: float,
 
 
 def _dropout_chunk(q, k_c, v_c, scale: float, rate: float, seed: int,
-                   start: int, shared: bool, rows=None):
+                   start: int, shared: bool, rows=None, heads=None):
     acc = torch.promote_types(q.dtype, torch.float32)
     eq = "bqnd,knd->bnqk" if shared else "bqnd,bknd->bnqk"
     logits = torch.einsum(eq, q.to(acc), k_c.to(acc)) * scale
     m = logits.amax(-1)                                    # [B, N, Sq]
     p = torch.exp(logits - m[..., None])
-    if rows is None:
-        keep = _dropout_keep(seed, start, p.shape, rate, p.device)
-    else:  # (first, total): the whole batch's mask, this process's rows
-        first, total = rows
-        keep = _dropout_keep(seed, start, (total,) + tuple(p.shape[1:]),
-                             rate, p.device)[first:first + p.shape[0]]
+    # rows, heads: (first, total) of this process's batch rows and heads:
+    # the whole batch's and heads' mask, this process's block of it
+    b, n = p.shape[:2]
+    first_b, total_b = rows or (0, b)
+    first_n, total_n = heads or (0, n)
+    keep = _dropout_keep(seed, start, (total_b, total_n) + tuple(p.shape[2:]),
+                         rate, p.device)[first_b:first_b + b,
+                                         first_n:first_n + n]
     pd = torch.where(keep, p, 0.0).to(v_c.dtype).to(acc)
     part = torch.einsum("bnqk,knd->bnqd" if shared else "bnqk,bknd->bnqd",
                         pd, v_c.to(acc))
@@ -204,7 +253,8 @@ def _dropout_chunk(q, k_c, v_c, scale: float, rate: float, seed: int,
 def dropout_attention_chunked(qh: torch.Tensor, kh: torch.Tensor,
                               vh: torch.Tensor, *, scale: float, rate: float,
                               rng: torch.Generator,
-                              chunk: int = 0) -> torch.Tensor:
+                              chunk: int = 0,
+                              heads: Optional[tuple] = None) -> torch.Tensor:
     """Attention-probability dropout without the [.., Sq, Sk] probs.
 
     Streams K/V in chunks with an online softmax. ``dropout(softmax(s)) V``
@@ -217,12 +267,15 @@ def dropout_attention_chunked(qh: torch.Tensor, kh: torch.Tensor,
     qh [B, Sq, N, D]; kh/vh [B, Sk, N, D], or [Sk, N, D] for a batch-shared
     memory; ``rng`` a CPU generator that gives the seed. Returns
     [B, Sq, N, D] in qh.dtype. chunk=0 picks ~64 MB logits chunks.
+    ``heads`` (first, total): qh holds heads first..first + N of ``total``
+    (a tensor-parallel rank's), whose masks are those of one device.
     """
     shared = kh.dim() == 3
     b, sq, n, d = qh.shape
     sk = kh.shape[0] if shared else kh.shape[1]
     if chunk <= 0:
-        chunk = max(128, (64 * 2 ** 20) // max(b * n * sq * 4, 1))
+        whole = n if heads is None else heads[1]
+        chunk = max(128, (64 * 2 ** 20) // max(b * whole * sq * 4, 1))
         chunk = min(sk, ((chunk + 127) // 128) * 128)
     seed = dropout_seed(rng)
     rows = _BATCH_ROWS.get()
@@ -236,7 +289,7 @@ def dropout_attention_chunked(qh: torch.Tensor, kh: torch.Tensor,
         else:
             k_c, v_c = kh[:, start:start + chunk], vh[:, start:start + chunk]
         m_c, l_c, part = checkpoint(_dropout_chunk, qh, k_c, v_c, scale,
-                                    rate, seed, start, shared, rows,
+                                    rate, seed, start, shared, rows, heads,
                                     use_reentrant=False)
         m_new = torch.maximum(m_run, m_c)
         corr_run = torch.exp(m_run - m_new)
@@ -322,15 +375,17 @@ def torch_mha_apply_shared_kv_dropout(params: dict, num_heads: int,
                                       memory: Optional[torch.Tensor], *,
                                       rate: float, rng: torch.Generator,
                                       add_zero_attn: bool = True,
-                                      kv_cache: Optional[tuple] = None
+                                      kv_cache: Optional[tuple] = None,
+                                      tp: Optional[tpar.TensorParallel] = None
                                       ) -> torch.Tensor:
     """``torch_mha_apply`` with attention dropout for a batch-shared K = V
     memory [M, E], projected once (``shared_kv_project``) or taken from
     ``kv_cache``, a precomputed (k, v) [M2, E] pair that already holds the
     bias and zero rows (no gradient reaches the K/V weights through it).
     The attention streams the memory in chunks
-    (``dropout_attention_chunked``)."""
-    e = query.shape[-1]
+    (``dropout_attention_chunked``). ``tp``: this rank's heads, with the
+    dropout masks one device draws for them."""
+    n, d, e = _local_heads(query, num_heads, tp)
     w, bias = _in_proj(params, query.dtype)
     q = query @ w[:e].T + bias[:e]
     if kv_cache is not None:
@@ -338,11 +393,11 @@ def torch_mha_apply_shared_kv_dropout(params: dict, num_heads: int,
     else:
         k, v = shared_kv_project(params, memory, add_zero_attn=add_zero_attn)
     bsz, sq, _ = q.shape
-    d = e // num_heads
     out = dropout_attention_chunked(
-        q.reshape(bsz, sq, num_heads, d), k.reshape(-1, num_heads, d),
-        v.reshape(-1, num_heads, d), scale=d ** -0.5, rate=rate, rng=rng)
-    return _out_proj(params, out.reshape(bsz, sq, e))
+        q.reshape(bsz, sq, n, d), k.reshape(-1, n, d), v.reshape(-1, n, d),
+        scale=d ** -0.5, rate=rate, rng=rng,
+        heads=None if tp is None else (tp.rank * n, num_heads))
+    return _out_proj(params, out.reshape(bsz, sq, e), tp)
 
 
 def _local_heads(query: torch.Tensor, num_heads: int,

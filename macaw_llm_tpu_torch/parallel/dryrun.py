@@ -51,8 +51,10 @@ def task_train(p: dict, device, out: str) -> None:
     optionally restore ``run["restore"]``, one train step per whole batch
     of ``run["batches"]`` (each rank takes its rows), optionally save to
     ``run["save"]`` and evaluate ``run["eval"]`` (whole [B, ...] batches);
-    {"runs": results} (losses, shard shapes, collectives, the whole
-    trainable tree and moments after the steps) to ``out``."""
+    {"runs": results} (losses, shard shapes, the shapes of layer 0's
+    leaves as the models read them, collectives, the whole trainable tree
+    and moments after the steps, and with ``run["count_llama"]`` the
+    collectives of one LLaMA forward and backward) to ``out``."""
     from macaw_llm_tpu_torch.parallel.mesh import create_mesh
     mesh = create_mesh(_mesh_cfg(p["mesh"]), device)
     torch.save({"runs": [_train_run(r, mesh, p["mesh"], device)
@@ -77,10 +79,13 @@ def _train_run(run: dict, mesh, shape, device) -> dict:
                            "mu": whole.opt_state.mu,
                            "nu": whole.opt_state.nu, "step": whole.step}
     res.update({"loss": [], "grad_norm": [], "lr": [],
-           "shapes": {"trainable": _shapes(state.trainable),
-                      "frozen": _shapes(state.frozen),
-                      "mu": _shapes(state.opt_state.mu),
-                      "nu": _shapes(state.opt_state.nu)}})
+                "shapes": {"trainable": _shapes(state.trainable),
+                           "frozen": _shapes(state.frozen),
+                           "mu": _shapes(state.opt_state.mu),
+                           "nu": _shapes(state.opt_state.nu)},
+                "gathered": _layer0_shapes(tr, state)})
+    if run.get("count_llama"):
+        res["llama_collectives"] = _llama_collectives(tr, state, cfg.model)
     COLLECTIVES.clear()
     for batch in (torch.load(run["batches"], weights_only=False)
                   if run.get("batches") else []):
@@ -108,6 +113,38 @@ def _train_run(run: dict, mesh, shape, device) -> dict:
         res["mu"], res["nu"] = whole.opt_state.mu, whole.opt_state.nu
     res["step"] = state.step
     return res
+
+
+def _view(tr, state) -> dict:
+    from macaw_llm_tpu_torch.parallel.sharding import gathered_view
+    with torch.no_grad():
+        return gathered_view(tr._entries(state.trainable, state.frozen),
+                             tr.mesh, None)
+
+
+def _layer0_shapes(tr, state) -> dict:
+    """{path: shape} of LLaMA layer 0's leaves as the models read them."""
+    with torch.no_grad():
+        layer = _view(tr, state)["llm"]["layers"].gather_layer(0)
+    return _shapes(layer, "llm/layers")
+
+
+def _llama_collectives(tr, state, mcfg) -> dict:
+    """The collectives of one forward (and then backward) of the LLaMA
+    stack alone over this rank's view, on a seeded [2, 7, D] input that
+    takes a gradient (no remat)."""
+    from macaw_llm_tpu_torch.models import llama
+    from macaw_llm_tpu_torch.parallel.sharding import COLLECTIVES
+    llm = _view(tr, state)["llm"]
+    x = torch.randn((2, 7, mcfg.llm.hidden_size),
+                    generator=torch.Generator().manual_seed(0))
+    x = x.to(tr.device).requires_grad_()
+    COLLECTIVES.clear()
+    h = llama.forward_hidden(llm, mcfg.llm, x, tp=tr.tp,
+                             shard_sequence=mcfg.shard_sequence)
+    fwd = dict(COLLECTIVES)
+    h.square().sum().backward()
+    return {"forward": fwd, "total": dict(COLLECTIVES)}
 
 
 def _leaves(tree):
@@ -310,10 +347,15 @@ def _tp_engine(case, whole, cfg, tp, device):
     ``case["static"]``) over the saved requests, all queued before it
     starts, the generators seeded with ``case["seed"]``: {"results": each
     request's result on the leader (None on a follower, whose stand-ins
-    mirror them), "stats", and the continuous engine's final slot state
-    "toks" and "lengths"}. Faults on the leader: ``case["stream_fail"]``,
-    requests whose stream callback raises; ``case["fail_plan_at"]``, the
-    call of the continuous engine's ``_tp_plan`` that raises."""
+    mirror them), "stats", "seconds" from the start to the loop's end, and
+    the continuous engine's final slot state "toks" and "lengths"}. Faults
+    on the leader: ``case["stream_fail"]``, requests whose stream callback
+    raises; ``case["fail_plan_at"]``, the call of the continuous engine's
+    ``_tp_plan`` that raises. On a follower: ``case["follower_fail"]``,
+    the prompts whose admission raises there (before any collective);
+    ``case["follower_fail_prefill_at"]``, the call of ``_prefill_body``
+    (the static engine's ``_run_batch``) that raises there, inside a
+    prefill's collectives."""
     from macaw_llm_tpu_torch import serve
     serve._seed_from_clock = lambda: case["seed"]
     tree = _tp_tree(whole, cfg, tp, case, device)
@@ -331,9 +373,20 @@ def _tp_engine(case, whole, cfg, tp, device):
             reqs[i].stream_cb = _closed_stream
         if "fail_plan_at" in case:
             engine._tp_plan = _failing(engine._tp_plan,
-                                       case["fail_plan_at"])
+                                       case["fail_plan_at"],
+                                       "the leader's plan failed")
         for r in reqs:
             engine.queue.put(r)
+    else:
+        if case.get("follower_fail"):
+            engine._admission = _failing_on(engine._admission,
+                                            set(case["follower_fail"]))
+        if "follower_fail_prefill_at" in case:
+            name = "_run_batch" if case.get("static") else "_prefill_body"
+            setattr(engine, name, _failing(
+                getattr(engine, name), case["follower_fail_prefill_at"],
+                "the follower's prefill failed"))
+    t0 = time.monotonic()
     engine.start()
     if tp.leader:
         for r in reqs:
@@ -342,7 +395,7 @@ def _tp_engine(case, whole, cfg, tp, device):
         engine.stop()
     engine.join()
     out = {"results": [r._result for r in reqs] if tp.leader else None,
-           "stats": dict(engine.stats)}
+           "stats": dict(engine.stats), "seconds": time.monotonic() - t0}
     if not case.get("static"):
         out.update(toks=engine.toks.cpu(), lengths=engine.lengths.cpu())
     return out
@@ -352,15 +405,25 @@ def _closed_stream(tok):
     raise BrokenPipeError("the client went away")
 
 
-def _failing(fn, at: int):
+def _failing(fn, at: int, message: str):
     """``fn``, whose ``at``-th call raises."""
     calls = [0]
 
     def wrapped(*args, **kw):
         calls[0] += 1
         if calls[0] == at:
-            raise RuntimeError("the leader's plan failed")
+            raise RuntimeError(message)
         return fn(*args, **kw)
+    return wrapped
+
+
+def _failing_on(admission, prompts: set):
+    """An engine's ``_admission`` that raises for the requests of
+    ``prompts``."""
+    def wrapped(req):
+        if req.prompt in prompts:
+            raise RuntimeError("this rank's admission failed")
+        return admission(req)
     return wrapped
 
 

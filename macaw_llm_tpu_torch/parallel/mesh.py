@@ -9,7 +9,9 @@ index. The batch is cut over ``BATCH_AXES``; parameters and Adam moments
 over fsdp and tensor (``parallel.sharding``).
 
 The backend follows the device: ``nccl`` for ``cuda``, ``gloo`` for
-``cpu``; nothing picks the other one. Collectives over any set of mesh
+``cpu``, unless the caller names one (``backend=``: gloo carries CUDA
+tensors through host memory, for several ranks on one card, which NCCL
+refuses); nothing else picks another. Collectives over any set of mesh
 axes go through ``axis_group``: one process group for each way of fixing
 the other axes, created on every rank in the same order when the mesh is
 made (``new_subgroups_by_enumeration`` is collective).
@@ -53,7 +55,8 @@ TIMEOUT = timedelta(minutes=10)
 
 
 def multihost_initialize(device="cuda",
-                         store: Optional[dist.Store] = None) -> bool:
+                         store: Optional[dist.Store] = None,
+                         backend: Optional[str] = None) -> bool:
     """Join the job's process group; returns whether there is one.
 
     The job is read from the reference's environment (COORDINATOR_ADDRESS
@@ -61,7 +64,9 @@ def multihost_initialize(device="cuda",
     MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK); ``store`` (a FileStore, as
     the tests pass) takes the place of the address. With neither, it does
     nothing and the world is one process. On ``cuda`` each process takes
-    the card of its local rank. A failed rendezvous raises."""
+    the card of its local rank (modulo the cards there are). ``backend``:
+    the process group's (default ``backend_for(device)``). A failed
+    rendezvous raises."""
     if dist.is_initialized():
         return True
     env = os.environ
@@ -75,7 +80,8 @@ def multihost_initialize(device="cuda",
     else:
         rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
         local = int(env.get("LOCAL_RANK", rank))
-    kw = dict(backend=backend_for(device), rank=rank, world_size=world,
+    kw = dict(backend=backend or backend_for(device), rank=rank,
+              world_size=world,
               timeout=TIMEOUT)
     if store is not None:
         kw["store"] = store
@@ -90,18 +96,22 @@ def multihost_initialize(device="cuda",
     return True
 
 
-def create_mesh(cfg: MeshConfig = MeshConfig(), device="cuda") -> DeviceMesh:
+def create_mesh(cfg: MeshConfig = MeshConfig(), device="cuda",
+                backend: Optional[str] = None) -> DeviceMesh:
     """The (dcn, data, fsdp, tensor) mesh of ``cfg`` resolved over the
     world's processes (one device each; the process group must exist:
-    ``multihost_initialize``). Its axis groups are created here."""
+    ``multihost_initialize``). Its axis groups are created here. The
+    group's backend must be ``backend`` (default ``backend_for(device)``).
+    """
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a process group: call "
                            "multihost_initialize first")
     kind = torch.device(device).type
-    if dist.get_backend() != backend_for(kind):
+    want = backend or backend_for(kind)
+    if dist.get_backend() != want:
         raise ValueError(f"the process group's backend is "
-                         f"{dist.get_backend()}, device {kind} needs "
-                         f"{backend_for(kind)}")
+                         f"{dist.get_backend()}, the mesh of device {kind} "
+                         f"asks for {want}")
     shape = cfg.resolved(dist.get_world_size())
     mesh = init_device_mesh(kind, shape, mesh_dim_names=AXES)
     _make_groups(mesh)

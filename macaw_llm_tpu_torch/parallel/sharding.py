@@ -17,13 +17,17 @@ leaves each rank its block. ``GatherLayer`` is the pair as one autograd
 function: all-gather in the forward, reduce-scatter of the gradients in
 the backward into the shards' gradient buffers; ``StackedShards`` hands a
 stacked [L, ...] subtree to the models, which gather one layer at a time
-(``models._tree.layer``).
+(``models._tree.layer``). A ``LeafPlan`` names the axes a leaf is gathered
+over (a tensor-parallel rank keeps its tensor block of a leaf whose tensor
+cut is its compute block), the axes whose ranks compute the same gradient
+(not summed), and a tensor-parallel block taken from the gathered leaf.
 """
 
 from __future__ import annotations
 
 import re
 from collections import Counter
+from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -191,12 +195,17 @@ def all_reduce(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     return x
 
 
-def gather(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def _in(axis, axes) -> bool:
+    return axes is None or axis in axes
+
+
+def gather(x: torch.Tensor, spec: Spec, mesh, axes=None) -> torch.Tensor:
     """The whole tensor from the local shards ``x`` (all-gather over the
-    axis of every cut dim, in dim order)."""
+    axis of every cut dim, in dim order); with ``axes``, over those of
+    them only (this rank keeps its block of the others)."""
     sizes = mesh_shape(mesh)
     for d, axis in enumerate(spec):
-        if axis is None:
+        if axis is None or not _in(axis, axes):
             continue
         n = sizes[axis]
         out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
@@ -206,16 +215,23 @@ def gather(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return x
 
 
-def reduce_scatter(g: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def reduce_scatter(g: torch.Tensor, spec: Spec, mesh, axes=None,
+                   same=()) -> torch.Tensor:
     """The local block of the sum of the whole tensors ``g`` over the axes
-    of ``spec`` (reduce-scatter per cut dim, in reverse dim order)."""
+    of ``spec`` (reduce-scatter per cut dim, in reverse dim order); with
+    ``axes``, over those of them only (``gather``'s). A dim whose axis is
+    in ``same`` (its ranks hold the same gradient) is not summed: the rank
+    takes its block."""
     sizes = mesh_shape(mesh)
     for d in reversed(range(len(spec))):
         axis = spec[d]
-        if axis is None:
+        if axis is None or not _in(axis, axes):
             continue
         n = sizes[axis]
         m = g.shape[d] // n
+        if axis in same:
+            g = g.narrow(d, axis_index(mesh, (axis,)) * m, m)
+            continue
         parts = g.reshape(g.shape[:d] + (n, m) + g.shape[d + 1:]) \
             .movedim(d, 0).contiguous()
         out = g.new_empty(parts.shape[1:])
@@ -225,24 +241,45 @@ def reduce_scatter(g: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return g
 
 
+@dataclass(frozen=True)
+class LeafPlan:
+    """How a trainer's view takes one leaf: ``spec``, its shards' cut;
+    ``axes``, the axes it is gathered over (None: every axis of the spec);
+    ``same``, axes whose ranks compute the same gradient (kept, not
+    summed); ``cut``, (how, TensorParallel): this rank's tensor-parallel
+    block of the gathered leaf (``tensor_parallel.cut``; zeros around its
+    gradient in the backward)."""
+
+    spec: Spec
+    axes: Optional[Tuple[str, ...]] = None
+    same: Tuple[str, ...] = ()
+    cut: Optional[tuple] = None
+
+    def layer(self) -> "LeafPlan":
+        """The plan of one layer of a stacked [L, ...] leaf."""
+        return LeafPlan(self.spec[1:], self.axes, self.same, self.cut)
+
+
 # --------------------------------------------------------------------------
 # the gathered forward, the reduce-scattered backward
 
 class GatherLayer(torch.autograd.Function):
     """All-gather of a group of leaves (layer ``index`` of stacked shards,
-    or whole unstacked shards when ``index`` is None); the backward
-    reduce-scatters each gradient and adds it into the leaf's gradient
-    buffer (at ``index``). ``anchor``, a scalar that takes a gradient,
-    puts the function in the graph; the shards themselves take none, so
-    no whole-size gradient ever reaches them."""
+    or whole unstacked shards when ``index`` is None), each as its
+    ``LeafPlan`` says; the backward reduce-scatters each gradient and adds
+    it into the leaf's gradient buffer (at ``index``). ``anchor``, a
+    scalar that takes a gradient, puts the function in the graph; the
+    shards themselves take none, so no whole-size gradient ever reaches
+    them."""
 
     @staticmethod
     def forward(ctx, anchor, mesh, index, leaves):
-        # leaves: [(local shard, spec, gradient buffer)]
+        # leaves: [(local shard, plan, gradient buffer)]
         ctx.mesh, ctx.index, ctx.leaves = mesh, index, leaves
-        out = []
-        for x, spec, _ in leaves:
-            t = _gather_at(x, spec, mesh, index)
+        out, ctx.shapes = [], []
+        for x, plan, _ in leaves:
+            t, shape = _gather_at(x, plan, mesh, index)
+            ctx.shapes.append(shape)
             # an uncut leaf comes back as the shard itself: hand out a view,
             # so that the shard never becomes an output of the graph
             out.append(t.view_as(t))
@@ -250,24 +287,35 @@ class GatherLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        for g, (_, spec, buf) in zip(grads, ctx.leaves):
+        from macaw_llm_tpu_torch.parallel.tensor_parallel import uncut
+        for g, shape, (_, plan, buf) in zip(grads, ctx.shapes, ctx.leaves):
             if ctx.index is not None:
-                spec, buf = spec[1:], buf[ctx.index]
-            buf.add_(reduce_scatter(g.to(buf.dtype), spec, ctx.mesh))
+                plan, buf = plan.layer(), buf[ctx.index]
+            if plan.cut is not None:
+                g = uncut(g, *plan.cut, shape)
+            buf.add_(reduce_scatter(g.to(buf.dtype), plan.spec, ctx.mesh,
+                                    plan.axes, plan.same))
         return None, None, None, None
 
 
-def _gather_at(x, spec, mesh, index: Optional[int]) -> torch.Tensor:
-    """The whole leaf, or its layer ``index`` of a stacked leaf."""
+def _gather_at(x, plan: LeafPlan, mesh, index: Optional[int]):
+    """The leaf as ``plan`` gathers it, or its layer ``index`` of a stacked
+    leaf; and the gathered shape (before a tensor-parallel cut)."""
     if index is not None:
-        x, spec = x[index], spec[1:]
-    return gather(x, spec, mesh)
+        x, plan = x[index], plan.layer()
+    t = gather(x, plan.spec, mesh, plan.axes)
+    shape = tuple(t.shape)
+    if plan.cut is not None:
+        from macaw_llm_tpu_torch.parallel.tensor_parallel import cut
+        t = cut(t, *plan.cut)
+    return t, shape
 
 
 def gather_leaves(leaves, mesh, index: Optional[int], anchor) -> list:
-    """Whole tensors of ``leaves`` [(shard, spec, gradient buffer or
-    None)]: through ``GatherLayer`` for those with a buffer (when autograd
-    is on), plain all-gathers for the others, in the order given."""
+    """The tensors the models read of ``leaves`` [(shard, plan, gradient
+    buffer or None)]: through ``GatherLayer`` for those with a buffer
+    (when autograd is on), plain gathers for the others, in the order
+    given."""
     out: List[Optional[torch.Tensor]] = [None] * len(leaves)
     train = [i for i, (_, _, buf) in enumerate(leaves) if buf is not None]
     if train and torch.is_grad_enabled():
@@ -276,9 +324,9 @@ def gather_leaves(leaves, mesh, index: Optional[int], anchor) -> list:
         for i, t in zip(train, got):
             out[i] = t
     with torch.no_grad():
-        for i, (x, spec, _) in enumerate(leaves):
+        for i, (x, plan, _) in enumerate(leaves):
             if out[i] is None:
-                out[i] = _gather_at(x, spec, mesh, index)
+                out[i] = _gather_at(x, plan, mesh, index)[0]
     return out
 
 
@@ -310,19 +358,19 @@ def _set(tree: dict, path: str, value) -> None:
 
 def gathered_view(entries, mesh, anchor) -> dict:
     """The parameter tree the models read, from ``entries`` [(path, shard,
-    spec, gradient buffer or None)]: stacked subtrees as
+    plan, gradient buffer or None)]: stacked subtrees as
     ``StackedShards``, every other leaf gathered now (one ``GatherLayer``
     for those that train)."""
     view: dict = {}
     stacked: dict = {}
     flat = []
-    for path, x, spec, buf in entries:
+    for path, x, plan, buf in entries:
         root = next((s for s in STACKED if path.startswith(s + "/")), None)
         if root is None:
-            flat.append((path, (x, spec, buf)))
+            flat.append((path, (x, plan, buf)))
         else:
             stacked.setdefault(root, []).append(
-                (path[len(root) + 1:], (x, spec, buf)))
+                (path[len(root) + 1:], (x, plan, buf)))
     for path, t in zip([p for p, _ in flat], gather_leaves(
             [leaf for _, leaf in flat], mesh, None, anchor)):
         _set(view, path, t)

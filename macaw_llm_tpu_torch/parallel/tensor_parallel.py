@@ -33,10 +33,26 @@ The models take a ``TensorParallel`` (``tp``) argument; None, or a size of
 1, is the one-device path with nothing changed. Pack after cutting
 (``utils.quantize.pack_llama_for_decode``, ``fusion.pack_towers``), never
 cut a packed tensor: a rank's packed qkv is [its q | its k | its v].
+
+Training (Megatron's f and g): a column-parallel product whose input
+takes a gradient reads it through ``copy`` (f: the identity forward, the
+all-reduce of the input's gradient backward, since each rank's block
+gives part of it); the row-parallel sum (g: ``reduce``, ``row_mm``) passes
+the whole output's gradient to every rank. ``gather`` (the vocab-parallel
+logits, the token memory) hands each rank its block of the gradient back.
+Every leaf outside a cut module then takes the same gradient on every
+rank. Under sequence parallelism (``sequence_parallel``: a tensor group
+with ``sequence`` set, LLaMA's layers without a cache) the residual stream
+between layers is this rank's block of the sequence, padded to a multiple
+of the size (``split_sequence``); a cut module gathers the whole sequence
+before its column products (``gather_sequence``, whose backward
+reduce-scatters) and reduce-scatters its row-parallel partials
+(``row_mm``, whose backward all-gathers).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -74,6 +90,9 @@ class TensorParallel:
     rank: int
     group: Any = None
     cuts: frozenset = frozenset()
+    # the row-parallel sums reduce-scatter over the sequence (dim 1) instead
+    # of all-reducing (``sequence_parallel``)
+    sequence: bool = False
 
     @classmethod
     def of(cls, cfg, size: int, rank: int, group=None) -> "TensorParallel":
@@ -114,6 +133,54 @@ def local(tp: Optional[TensorParallel], n: int) -> int:
     return n if tp is None else n // tp.size
 
 
+def without(tp: Optional[TensorParallel], *modules: str
+            ) -> Optional[TensorParallel]:
+    """``tp`` with ``modules`` computed whole."""
+    if tp is None:
+        return None
+    return dataclasses.replace(tp, cuts=tp.cuts - set(modules))
+
+
+def sequence_parallel(tp: Optional[TensorParallel]
+                      ) -> Optional[TensorParallel]:
+    """``tp`` whose row-parallel sums reduce-scatter over the sequence:
+    the group of a sequence-parallel stack (None without a group of 2 or
+    more)."""
+    if tp is None or tp.size == 1:
+        return None
+    return dataclasses.replace(tp, sequence=True)
+
+
+def _trains(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's f: the identity forward, the sum of the gradient over the
+    tensor group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        COLLECTIVES["all_reduce"] += 1
+        return g, None
+
+
+def copy(tp: Optional[TensorParallel], x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel product (f): ``x`` itself, whose
+    gradient is summed over the group in the backward; nothing to do under
+    None or where ``x`` takes no gradient (inference)."""
+    if tp is None or not _trains(x):
+        return x
+    return _Copy.apply(x, tp.group)
+
+
 class _AllReduce(torch.autograd.Function):
     """Sum over the tensor group; the backward is the identity (Megatron's
     g: every rank's partial gets the whole output's gradient)."""
@@ -135,22 +202,92 @@ def reduce(tp: Optional[TensorParallel], x: torch.Tensor) -> torch.Tensor:
     return x if tp is None else _AllReduce.apply(x, tp.group)
 
 
+def _rank_block(x: torch.Tensor, dim: int, tp: TensorParallel):
+    m = x.shape[dim] // tp.size
+    return x.narrow(dim, tp.rank * m, m)
+
+
+def _all_gather(tp: TensorParallel, x: torch.Tensor, dim: int):
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x.contiguous(), group=tp.group)
+    COLLECTIVES["all_gather"] += 1
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(tp: TensorParallel, x: torch.Tensor, dim: int):
+    """This rank's block of dim ``dim`` of the sum of ``x`` over the group
+    (the dim a multiple of the size)."""
+    parts = list(x.movedim(dim, 0).contiguous().chunk(tp.size))
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=tp.group)
+    COLLECTIVES["reduce_scatter"] += 1
+    return out.movedim(0, dim)
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` [B, S, ...] padded with zero rows on dim 1 up to a multiple
+    of ``n``."""
+    pad = -x.shape[1] % n
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
+
+
+class _RowMM(torch.autograd.Function):
+    """A row-parallel product: the fp32 partial x @ w of this rank's
+    block, summed over the group (all-reduced, or reduce-scattered over
+    the sequence under ``tp.sequence``) and rounded once to x's dtype. The
+    backward (g) takes the whole output's gradient (all-gathered over the
+    sequence first under ``tp.sequence``): gx = g @ w^T, gw = x^T @ g, in
+    x's dtype, as one device's product."""
+
+    @staticmethod
+    def forward(ctx, x, w, tp):
+        ctx.tp, ctx.shape = tp, x.shape
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              w if ctx.needs_input_grad[0] else None)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            y = x2.float() @ w.float()
+        y = y.reshape(*x.shape[:-1], y.shape[-1])
+        if tp.sequence:
+            y = _reduce_scatter(tp, _pad_rows(y, tp.size), 1)
+        else:
+            # a copy: remat "dots" keeps the product itself for its
+            # recompute, which sums it again
+            y = y.contiguous().clone()
+            dist.all_reduce(y, op=dist.ReduceOp.SUM, group=tp.group)
+            COLLECTIVES["all_reduce"] += 1
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        tp = ctx.tp
+        if tp.sequence:
+            g = _all_gather(tp, g, 1)[:, :ctx.shape[1]]
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gw = None
+        if w is not None:
+            gx = (g2 @ w.T).reshape(ctx.shape)
+        if x is not None:
+            gw = x.reshape(-1, x.shape[-1]).T @ g2
+        return gx, gw, None
+
+
 def row_mm(tp: Optional[TensorParallel], x: torch.Tensor,
            w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, N] of a row-parallel weight's block (x this
     rank's block of the input): each rank's partial product in fp32,
     summed over the group and rounded once to x's dtype, as one device
     rounds its fp32 sum once (the sum's order differs). ``x @ w`` under
-    None."""
+    None. Under ``tp.sequence`` x is [B, S, K] and the result this rank's
+    block of the sequence, padded to a multiple of the size."""
     if tp is None:
         return x @ w
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-        y = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        y = x2.float() @ w.float()
-    y = reduce(tp, y).to(x.dtype)
-    return y.reshape(*x.shape[:-1], y.shape[-1])
+    return _RowMM.apply(x, w, tp)
 
 
 def reduce_max(tp: Optional[TensorParallel], x: torch.Tensor) -> torch.Tensor:
@@ -163,12 +300,72 @@ def reduce_max(tp: Optional[TensorParallel], x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+class _Gather(torch.autograd.Function):
+    """All-gather of dim ``dim`` forward; this rank's block of the gradient
+    backward (every rank computed the same whole result from it)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return _all_gather(tp, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rank_block(g, ctx.dim, ctx.tp).contiguous(), None, None
+
+
 def gather(tp: TensorParallel, x: torch.Tensor, dim: int) -> torch.Tensor:
-    """All-gather of the ranks' blocks of ``dim``, in rank order."""
-    parts = [torch.empty_like(x) for _ in range(tp.size)]
-    dist.all_gather(parts, x.contiguous(), group=tp.group)
-    COLLECTIVES["all_gather"] += 1
-    return torch.cat(parts, dim=dim)
+    """All-gather of the ranks' blocks of ``dim``, in rank order; the
+    backward hands this rank its block of the (whole, the same on every
+    rank) gradient."""
+    return _Gather.apply(x, tp, dim)
+
+
+class _GatherSequence(torch.autograd.Function):
+    """All-gather of the sequence (dim 1) forward, reduce-scatter of the
+    gradient backward (the ranks' column blocks each give part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _all_gather(tp, x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(ctx.tp, g, 1), None
+
+
+class _SplitSequence(torch.autograd.Function):
+    """This rank's block of the (padded) sequence forward, the all-gather
+    of the blocks' gradients backward (the whole input's gradient, the
+    same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp, ctx.s = tp, x.shape[1]
+        return _rank_block(_pad_rows(x, tp.size), 1, tp).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(ctx.tp, g, 1)[:, :ctx.s], None
+
+
+def split_sequence(tp: TensorParallel, x: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the sequence of the whole ``x`` [B, S, ...],
+    S padded with zero rows to a multiple of the size: [B, ceil(S/t),
+    ...]."""
+    return _SplitSequence.apply(x, tp)
+
+
+def gather_sequence(tp: TensorParallel, x: torch.Tensor, s: int,
+                    cut: bool) -> torch.Tensor:
+    """The whole sequence [B, s, ...] from the ranks' blocks ``x`` (the
+    padding dropped): the input of a module that ``cut`` (its column
+    products give each rank part of the gradient, reduce-scattered
+    backward), or of one computed whole on every rank (this rank's block
+    of the same gradient)."""
+    fn = _GatherSequence.apply(x, tp) if cut else gather(tp, x, 1)
+    return fn[:, :s]
 
 
 def embed(tp: Optional[TensorParallel], table: torch.Tensor,
@@ -219,16 +416,16 @@ _CUTS = [
 
 
 def _block(x: torch.Tensor, dim: int, tp: TensorParallel) -> torch.Tensor:
-    m = x.shape[dim] // tp.size
-    return x.narrow(dim, tp.rank * m, m).clone()
+    return _rank_block(x, dim, tp).clone()
 
 
-def _cut_leaf(x, how: str, tp: TensorParallel):
+def cut(x, how: str, tp: TensorParallel):
+    """This rank's block (a copy) of the whole leaf ``x`` (a tensor or an
+    int8 record) under the cut ``how`` of ``_CUTS``."""
     if isinstance(x, dict):  # an int8 record {"q", "s"}
         if how == "row":
             return {"q": _block(x["q"], -2, tp), "s": x["s"]}
-        return {"q": _cut_leaf(x["q"], how, tp),
-                "s": _cut_leaf(x["s"], how, tp)}
+        return {"q": cut(x["q"], how, tp), "s": cut(x["s"], how, tp)}
     if how == "col":
         return _block(x, -1, tp)
     if how == "row":
@@ -259,7 +456,7 @@ def tp_params(params: dict, tp: Optional[TensorParallel]) -> dict:
         for pat, how, module in _CUTS:
             if re.search(pat, path):
                 mtp = on(tp, module)
-                return x if mtp is None else _cut_leaf(x, how, mtp)
+                return x if mtp is None else cut(x, how, mtp)
         return x
 
     def walk(tree, prefix=""):
@@ -270,3 +467,69 @@ def tp_params(params: dict, tp: Optional[TensorParallel]) -> dict:
 
     return walk(params)
 
+
+# --------------------------------------------------------------------------
+# training: the cut of each leaf of the state's paths
+
+# leaves whose gradient is partial on every rank under sequence parallelism,
+# summed over the group: the norms (they run on this rank's block of the
+# sequence) and LoRA's A (its middle is computed on the block, then
+# all-gathered)
+_SEQUENCE_PARTIAL = (r"^llm/layers/(input|post)_norm$", r"^llm/norm$",
+                     r"^llm/layers/lora/[qv]a$")
+
+
+def leaf_cut(path: str, tp: Optional[TensorParallel]) -> Optional[str]:
+    """How ``tp`` cuts the leaf at ``path`` (a state path: an int8
+    record's leaves end in /q and /s): "col", "row", "vocab", "qkv", or
+    None (whole)."""
+    if tp is None:
+        return None
+    base, sub = path, None
+    m = re.match(r"^(.*)/([qs])$", path)
+    if m:
+        base, sub = m.groups()
+    for pat, how, module in _CUTS:
+        if re.search(pat, base):
+            if on(tp, module) is None or (sub == "s" and how == "row"):
+                return None
+            return how
+    return None
+
+
+def cut_dim(how: str, ndim: int) -> Optional[int]:
+    """The dim a cut narrows in a leaf of ``ndim`` dims (None: "qkv", the
+    thirds of dim 0)."""
+    return {"col": ndim - 1, "row": ndim - 2, "vocab": 0}.get(how)
+
+
+def partial_under_sequence(path: str) -> bool:
+    return any(re.search(p, path) for p in _SEQUENCE_PARTIAL)
+
+
+def uncut(g: torch.Tensor, how: str, tp: TensorParallel,
+          shape) -> torch.Tensor:
+    """The whole-shaped gradient of a block: ``g`` in this rank's place,
+    zeros elsewhere (summed over the group, the whole gradient)."""
+    out = g.new_zeros(shape)
+    if how == "qkv":
+        thirds = out.view((3, shape[0] // 3) + tuple(shape[1:]))
+        _rank_block(thirds, 1, tp).copy_(
+            g.reshape((3, -1) + tuple(shape[1:])))
+    else:
+        _rank_block(out, cut_dim(how, len(shape)), tp).copy_(g)
+    return out
+
+
+def tp_align_cache(cache: Optional[dict],
+                   tp: Optional[TensorParallel]) -> Optional[dict]:
+    """This rank's block of a whole alignment K/V cache
+    (``fusion.precompute_align_cache``): its heads' columns, int8 rows
+    keeping the whole rows' scales, as ``precompute_align_cache`` under
+    ``tp`` makes it."""
+    atp = on(tp, "align")
+    if cache is None or atp is None:
+        return cache
+    return {mod: {kv: (_block(q, -1, atp), scale)
+                  for kv, (q, scale) in entry.items()}
+            for mod, entry in cache.items()}

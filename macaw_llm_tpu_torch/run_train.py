@@ -101,6 +101,10 @@ def parse_args(argv=None):
                    help="override cfg.train.eval_steps")
     p.add_argument("--device", default="cuda",
                    help="device to train on (default: the GPU)")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend of a job (default: nccl on "
+                        "the GPU, gloo on the CPU; gloo lets several "
+                        "ranks share one card)")
     return p.parse_args(argv)
 
 
@@ -179,7 +183,7 @@ def main(argv=None, on_step=None):
     args = parse_args(argv)
     setup_logging()
     device = resolve_device(args.device)
-    multi = multihost_initialize(device)
+    multi = multihost_initialize(device, backend=args.backend)
     world = dist.get_world_size() if multi else 1
     rank = dist.get_rank() if multi else 0
 
@@ -209,7 +213,8 @@ def main(argv=None, on_step=None):
             cfg, train=dataclasses.replace(cfg.train,
                                            eval_steps=args.eval_steps))
     cfg.validate(world_size=world)
-    mesh = create_mesh(cfg.mesh, device) if multi else None
+    mesh = create_mesh(cfg.mesh, device, args.backend) if multi \
+        else None
     if mesh is not None:
         device = torch.device(device.type, torch.cuda.current_device()) \
             if device.type == "cuda" else device

@@ -25,10 +25,25 @@ same prefills and decode steps, so the ranks issue their collectives in
 one order. The leader's and the followers' slot bookkeeping is the same
 code on the same tokens (the all-reduces give every rank the same bits,
 and the generators share one seed). One thread a rank does admission and
-decode in turn, with each step's tokens read back before the next. Every
-rank runs the same payload, so a prefill or batch that raises raises on
-every rank and fails its requests only; a fatal error of the leader's loop
-broadcasts the stop before it ends, so the followers end too.
+decode in turn, with each step's tokens read back before the next. The
+engine runs over a process group of its own (the same ranks), which only
+it tears down.
+
+Every rank reaches the same verdict on a failure:
+
+* before any collective (the payload's prompt encoding, its media
+  featurized, its length checks: ``ContinuousEngine._admission``,
+  ``InferenceEngine._batch_inputs``) each rank all-reduces (MAX) a flag
+  per request or batch, and every rank fails the requests that failed on
+  any rank, leaves their slots free and serves the next;
+* inside a sequence of collectives (an error in the middle of a prefill or
+  a decode step, a follower whose slots differ from the leader's) the
+  ranks cannot be brought back in step: the failing rank tears the
+  engine's group down, so that its peers' pending collectives raise at
+  once (gloo closes the connections), every rank's loop ends, and the
+  leader fails every active and queued request and stops;
+* the leader's own failure before it broadcasts a plan broadcasts the
+  stop instead, so the followers end with it.
 
 Where the reference compiles its prefill, admit and step functions and
 donates the cache to them, this module runs eagerly: the cache, ``lengths``
@@ -40,6 +55,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import dataclasses
 import io
 import json
 import logging
@@ -59,7 +75,8 @@ from macaw_llm_tpu_torch.config import EOS_ID, ModelConfig, PAD_ID
 from macaw_llm_tpu_torch.data.templates import format_prompt
 from macaw_llm_tpu_torch.generate import _sample, generate
 from macaw_llm_tpu_torch.models import fusion, llama
-from macaw_llm_tpu_torch.parallel.tensor_parallel import TensorParallel
+from macaw_llm_tpu_torch.parallel.tensor_parallel import (TensorParallel,
+                                                          reduce_max)
 
 logger = logging.getLogger("macaw.serve")
 
@@ -113,6 +130,49 @@ def _payload(req) -> dict:
     return {k: getattr(req, k) for k in _REQUEST_FIELDS}
 
 
+def _own_group(tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
+    """``tp`` over a new process group of the same ranks: the engine's
+    own, which it may tear down without touching the job's groups.
+    Collective: every process of the job builds its engine."""
+    if tp is None:
+        return None
+    import torch.distributed as dist
+    ranks = dist.get_process_group_ranks(tp.group or dist.group.WORLD)
+    return dataclasses.replace(tp, group=dist.new_group(ranks))
+
+
+def _failed_anywhere(tp: Optional[TensorParallel], failed: List[bool],
+                     device) -> List[bool]:
+    """Each flag set where it is set on any rank of the group (an
+    all-reduce MAX; the flags themselves without a group)."""
+    if tp is None or not failed:
+        return failed
+    flags = torch.tensor(failed, dtype=torch.int32, device=device)
+    return [bool(f) for f in reduce_max(tp, flags).tolist()]
+
+
+def _tear_down(engine) -> None:
+    """Destroy the engine's group (``_own_group``) after a failure inside
+    its collectives, and drop the engine's ``tp``: with no reference left,
+    gloo closes the group's connections, and the peers' pending
+    collectives raise at once instead of waiting out the group's timeout.
+    Call it once the failed call's exception (and its frames) is gone."""
+    import gc
+
+    import torch.distributed as dist
+    group = engine.tp.group
+    engine.tp = None
+    try:
+        dist.destroy_process_group(group)
+    except Exception:  # noqa: BLE001
+        logger.exception("could not destroy the engine's group")
+    del group
+    gc.collect()
+
+
+_PEER_FAILED = "failed on another rank of the tensor group"
+
+
 def _release_followers(tp: Optional[TensorParallel]) -> None:
     """On the leader's fatal error: broadcast the stop, so that the
     followers' loops end instead of waiting for a plan. A broadcast that
@@ -123,6 +183,12 @@ def _release_followers(tp: Optional[TensorParallel]) -> None:
         _share(tp, None)
     except Exception:  # noqa: BLE001
         logger.exception("could not release the followers")
+
+
+def _fail(requests, error: str) -> None:
+    for r in requests:
+        r._result = {"error": error}
+        r._done.set()
 
 
 def _emit(req, tok: int) -> None:
@@ -190,7 +256,7 @@ class InferenceEngine:
                  kv_cache_dtype: Optional[str] = None, device="cuda",
                  tp: Optional[TensorParallel] = None):
         self.device = resolve_device(device)
-        self.tp = tp
+        self.tp = tp = _own_group(tp)
         self.params, self.align_cache = _init_align_cache(params, cfg,
                                                           align_cache, tp)
         self.kv_cache_dtype = kv_cache_dtype
@@ -266,16 +332,38 @@ class InferenceEngine:
                 return
             if not batch:
                 continue
+            inputs, error = None, None
             try:
                 with torch.inference_mode():
-                    self._run_batch(batch)
+                    inputs = self._batch_inputs(batch)
             except Exception as e:  # noqa: BLE001: fail the batch only
-                # under a tensor group every rank ran the same payload, so
-                # every rank failed it the same way
                 logger.exception("batch failed")
-                for r in batch:
-                    r._result = {"error": str(e)}
-                    r._done.set()
+                error = str(e)
+            if _failed_anywhere(self.tp, [error is not None],
+                                self.device)[0]:
+                _fail(batch, error or _PEER_FAILED)
+                continue
+            try:
+                with torch.inference_mode():
+                    self._run_batch(batch, inputs)
+                continue
+            except Exception as e:  # noqa: BLE001
+                logger.exception("batch failed")
+                error = str(e)
+            if self.tp is None:  # one device: the batch only
+                _fail(batch, error)
+                continue
+            # inside the batch's collectives: the ranks are out of step
+            self._stop.set()
+            _tear_down(self)
+            waiting = list(batch)
+            while True:
+                try:
+                    waiting.append(self.queue.get_nowait())
+                except queue.Empty:
+                    break
+            _fail(waiting, f"batch failed: {error}")
+            return
 
     def _bucket(self, n: int) -> int:
         for b in PROMPT_BUCKETS:
@@ -283,7 +371,10 @@ class InferenceEngine:
                 return b
         return PROMPT_BUCKETS[-1]
 
-    def _run_batch(self, batch: List[Request]):
+    def _batch_inputs(self, batch: List[Request]) -> dict:
+        """The host side of a batch, before any collective: the prompts
+        tokenized into one bucket, the media featurized on the device, the
+        temperatures and budgets."""
         t0 = time.perf_counter()
         mcfg = self.cfg
         vis = mcfg.vision
@@ -315,13 +406,10 @@ class InferenceEngine:
                 videos[i] = r.video
 
         dev = self.device
-        fused = fusion.prepare_inputs(
-            self.params, mcfg, input_ids=torch.from_numpy(ids).to(dev),
-            images=torch.from_numpy(images).to(dev),
-            audios=torch.from_numpy(audios).to(dev),
-            videos=torch.from_numpy(videos).to(dev),
-            attention_mask=torch.from_numpy(mask).to(dev),
-            align_cache=self.align_cache, tp=self.tp)
+        images, audios, videos = fusion.featurize(
+            mcfg, torch.from_numpy(images).to(dev),
+            torch.from_numpy(audios).to(dev),
+            torch.from_numpy(videos).to(dev))
         # per-request semantics: each row keeps its own temperature
         # (greedy rows stay greedy when batched with sampling rows) and
         # its own token budget
@@ -330,18 +418,37 @@ class InferenceEngine:
         for i, r in enumerate(batch):
             temps[i] = r.temperature
             budgets[i] = max(1, min(r.max_new_tokens, self.max_new_tokens))
+        return dict(t0=t0, ids=torch.from_numpy(ids).to(dev),
+                    mask=torch.from_numpy(mask).to(dev), images=images,
+                    audios=audios, videos=videos, temps=temps,
+                    budgets=budgets)
+
+    def _run_batch(self, batch: List[Request],
+                   inputs: Optional[dict] = None):
+        """Prefill and decode one batch (``inputs``: its
+        ``_batch_inputs``, made here when not given) and answer its
+        requests."""
+        x = self._batch_inputs(batch) if inputs is None else inputs
+        mcfg, dev = self.cfg, self.device
+        n_real = len(batch)
+        fused = fusion.prepare_inputs(
+            self.params, mcfg, input_ids=x["ids"], images=x["images"],
+            audios=x["audios"], videos=x["videos"],
+            attention_mask=x["mask"], align_cache=self.align_cache,
+            tp=self.tp)
+        temps = x["temps"]
         out = generate(self.params["llm"], mcfg.llm,
                        inputs_embeds=fused.inputs_embeds,
                        attention_mask=fused.attention_mask,
                        max_new_tokens=self.max_new_tokens,
                        eos_id=EOS_ID, pad_id=PAD_ID,
                        temperature=torch.from_numpy(temps).to(dev),
-                       budgets=torch.from_numpy(budgets).to(dev),
+                       budgets=torch.from_numpy(x["budgets"]).to(dev),
                        cache_dtype=self.kv_cache_dtype,
                        generator=self._gen if (temps > 0).any() else None,
                        device=dev, tp=self.tp)
         toks = out.tokens.cpu().numpy()
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - x["t0"]
 
         for i, r in enumerate(batch):
             gen = toks[i][: r.max_new_tokens]
@@ -637,7 +744,9 @@ class ContinuousEngine:
                  kv_cache_dtype: Optional[str] = None, device="cuda",
                  tp: Optional[TensorParallel] = None):
         self.device = resolve_device(device)
-        self.tp = tp
+        self.tp = tp = _own_group(tp)
+        self._tp_admitted: List[Request] = []
+        self._tp_in_step = False  # between a plan's broadcast and its end
         self.params, self.align_cache = _init_align_cache(params, cfg,
                                                           align_cache, tp)
         self.cfg = cfg
@@ -844,6 +953,12 @@ class ContinuousEngine:
                 req._done.set()
 
     def _run_prefill(self, req: Request):
+        return self._prefill_ready(req, self._admission(req))
+
+    def _admission(self, req: Request) -> dict:
+        """The host side of an admission, before any collective: the
+        prompt encoded into the smallest bucket that fits, the media (or
+        None for a text-only request) featurized on the device."""
         mcfg, dev = self.cfg, self.device
         vis = mcfg.vision
         t = _prompt_tokens(self.tokenizer, req.prompt)[:self.prompt_bucket]
@@ -853,12 +968,9 @@ class ContinuousEngine:
         mask = np.zeros((1, bucket), np.int64)
         ids[0, :len(t)] = t
         mask[0, :len(t)] = 1
-        ids, mask = torch.from_numpy(ids).to(dev), \
-            torch.from_numpy(mask).to(dev)
-        temp = float(req.temperature)
-        if req.image is None and req.audio is None and req.video is None:
-            new, tok, length = self._prefill_text(ids, mask, temp)
-        else:
+        media = None
+        if not (req.image is None and req.audio is None
+                and req.video is None):
             image = req.image if req.image is not None else np.zeros(
                 (vis.image_size, vis.image_size, 3), np.uint8)
             audio = req.audio if req.audio is not None else np.zeros(
@@ -867,11 +979,22 @@ class ContinuousEngine:
                 (mcfg.fusion.n_frames, vis.image_size, vis.image_size, 3),
                 np.uint8)
             # np.array copies: a decoded frame may be a read-only buffer
-            image, audio, video = (
+            media = fusion.featurize(mcfg, *(
                 torch.from_numpy(np.array(x[None])).to(dev)
-                for x in (image, audio, video))
-            new, tok, length = self._prefill(ids, image, audio, video, mask,
-                                             temp)
+                for x in (image, audio, video)))
+        return dict(ids=torch.from_numpy(ids).to(dev),
+                    mask=torch.from_numpy(mask).to(dev), media=media,
+                    temp=float(req.temperature))
+
+    def _prefill_ready(self, req: Request, adm: dict):
+        """The prefill of an admission (``_admission``): the collectives
+        of a tensor group. Returns (req, cache slices, first token, valid
+        length, event or None)."""
+        ids, mask, temp = adm["ids"], adm["mask"], adm["temp"]
+        if adm["media"] is None:
+            new, tok, length = self._prefill_text(ids, mask, temp)
+        else:
+            new, tok, length = self._prefill(ids, *adm["media"], mask, temp)
         event = None
         if self._admit_stream is not None:
             event = torch.cuda.Event()
@@ -991,23 +1114,28 @@ class ContinuousEngine:
                     self._decode_loop()
                 else:
                     self._tp_loop()
+            return
         except Exception as e:  # noqa: BLE001: fail the requests in flight
             logger.exception("decode loop failed")
-            self._stop.set()
+            error = f"decode loop failed: {e}"
+        # the failed call's frames are gone: the group can be torn down
+        self._stop.set()
+        if self.tp is not None and self._tp_in_step:
+            _tear_down(self)
+        else:
             _release_followers(self.tp)
-            waiting = [r for r in self._reqs if r is not None]
-            for q in (self._admit_q, self.queue):
-                while True:
-                    try:
-                        item = q.get_nowait()
-                    except queue.Empty:
-                        break
-                    waiting.append(item[0] if isinstance(item, tuple)
-                                   else item)
-            for r in waiting:
-                r._result = {"error": f"decode loop failed: {e}"}
-                r._done.set()
-            raise
+        waiting = [r for r in self._reqs if r is not None]
+        placed = {id(r) for r in waiting}
+        waiting += [r for r in self._tp_admitted if not r._done.is_set()
+                    and id(r) not in placed]
+        for q in (self._admit_q, self.queue):
+            while True:
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    break
+                waiting.append(item[0] if isinstance(item, tuple) else item)
+        _fail(waiting, error)
 
     def _decode_loop(self):
         # Decode/readback pipeline, depth 2: dispatch step N, then process
@@ -1076,30 +1204,45 @@ class ContinuousEngine:
         requests (prefill on this thread), run one decode step of the
         active slots and read its tokens back before the next plan. Each
         rank's bookkeeping follows the same tokens, so the slots stay the
-        same on every rank; a rank that finds otherwise raises. A prefill
-        that raises fails its request only: every rank prefilled the same
-        payload, so every rank failed it and leaves the slot free."""
+        same on every rank; a rank that finds otherwise raises. An
+        admission that fails before the prefill's collectives
+        (``_admission``) on any rank fails its request on every rank and
+        leaves the slot free; an error after the plan's broadcast ends the
+        loop (``_loop`` tears the group down: the module docstring)."""
         while True:
+            self._tp_in_step = False
             plan = _share(self.tp, self._tp_plan() if self.tp.leader
                           else None)
             if plan is None:
                 return
+            self._tp_in_step = True
             active = [i for i, r in enumerate(self._reqs) if r is not None]
             if active != plan["active"]:
                 raise RuntimeError(f"rank {self.tp.rank}: active slots "
                                    f"{active}, the leader's "
                                    f"{plan['active']}")
-            for n, (slot, payload) in enumerate(plan["admit"]):
-                req = self._tp_admitted[n] if self.tp.leader \
-                    else Request(**payload)
+            if not self.tp.leader:
+                self._tp_admitted = [Request(**payload)
+                                     for _, payload in plan["admit"]]
+            admissions, errors = [], []
+            for req in self._tp_admitted:
                 try:
-                    item = self._run_prefill(req)
+                    admissions.append(self._admission(req))
+                    errors.append(None)
                 except Exception as e:  # noqa: BLE001: fail the request
-                    logger.exception("prefill failed")
-                    req._result = {"error": str(e)}
-                    req._done.set()
+                    logger.exception("admission failed")
+                    admissions.append(None)
+                    errors.append(str(e))
+            failed = _failed_anywhere(self.tp, [e is not None
+                                                for e in errors],
+                                      self.device)
+            for (slot, _), req, adm, error, bad in zip(
+                    plan["admit"], self._tp_admitted, admissions, errors,
+                    failed):
+                if bad:
+                    _fail([req], error or _PEER_FAILED)
                     continue
-                self._place(slot, item)
+                self._place(slot, self._prefill_ready(req, adm))
             active = [i for i, r in enumerate(self._reqs) if r is not None]
             if active:
                 self._process_readback(self._dispatch(active))

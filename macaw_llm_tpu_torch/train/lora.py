@@ -9,11 +9,13 @@ up. ``merge_lora`` folds the adapters into the base weights."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from macaw_llm_tpu_torch.config import LlamaConfig
 from macaw_llm_tpu_torch.models._tree import uniform
+from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
 
 
 def init_lora(gen: torch.Generator, cfg: LlamaConfig, rank: int,
@@ -33,10 +35,20 @@ def init_lora(gen: torch.Generator, cfg: LlamaConfig, rank: int,
 
 
 def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-               scale: float) -> torch.Tensor:
-    """(x @ A) @ B * scale in x's dtype, without the merged weight."""
+               scale: float, tp=None, s: Optional[int] = None
+               ) -> torch.Tensor:
+    """(x @ A) @ B * scale in x's dtype, without the merged weight.
+
+    ``tp`` (``parallel.tensor_parallel``; B this rank's column block, A
+    whole): the rank-r middle x @ A passes Megatron's f before B, so that
+    its gradient (and A's, and x's through it) sums the ranks' blocks.
+    Under ``tp.sequence`` x is this rank's block of ``s`` positions and
+    the middle is all-gathered over the sequence first."""
     c = x.dtype
-    return ((x @ a.to(c)) @ b.to(c)) * torch.tensor(scale, dtype=c)
+    mid = x @ a.to(c)
+    if tp is not None and tp.sequence:
+        mid = tpar.gather_sequence(tp, mid, s, cut=False)
+    return (tpar.copy(tp, mid) @ b.to(c)) * torch.tensor(scale, dtype=c)
 
 
 def merge_lora(llm_params: dict, rank: int, alpha: float) -> dict:

@@ -32,11 +32,30 @@ one layer at a time inside the layer's (remat) function
 gradients into the shards' buffers, and the mesh axes that cut neither the
 leaf nor the work (replicas) are summed after it. The loss is the global
 mean over valid targets: each rank divides its NLL sum by the count summed
-over the batch (and ring) axes, and ranks that compute the same rows (the
-tensor axis without the ring: it cuts storage only) each carry 1/t of it.
-The gradient norm sums each leaf's squares once over the axes that cut it.
-Dropout masks are drawn for the whole batch on every rank, which keeps its
-rows: the masks of one device whatever the mesh.
+over the batch (and ring) axes. The gradient norm sums each leaf's squares
+once over the axes that cut it. Dropout masks are drawn for the whole
+batch (and every head) on every rank, which keeps its rows (and heads):
+the masks of one device whatever the mesh.
+
+A ``tensor`` axis of 2 or more without ring attention computes
+Megatron-style (``parallel.tensor_parallel``, ``self.tp``): the modules
+whose heads, FFN width or padded vocab the axis divides are cut, and a
+rank gathers the leaves of a cut module over fsdp only, to its tensor
+block (``sharding.LeafPlan``), or, where the partition rules' tensor cut
+is not its compute block (LoRA's B, the alignment's in- and
+out-projections, an int8 column scale), gathers the whole leaf and takes
+its block. Every tensor rank backpropagates the whole loss; a leaf that
+every rank computes whole (norms, LoRA's A, ``to_hidden``, ``conv``, the
+modules the axis does not divide) carries the same gradient on every
+tensor rank and is not summed over it, while the blocks of a leaf whose
+storage is not cut like its compute are. ``shard_sequence`` adds
+sequence parallelism to the LLaMA stack, whose norms (and LoRA's A) then
+take partial gradients, summed over the axis. Towers that train, or
+whose frozen layers are packed (``pack_frozen_towers``), compute whole.
+Under ring attention the tensor axis keeps its other meaning: the ring's
+axis, or storage only (the reference's ring keeps whole heads on every
+device), and its ranks, computing the same rows, each carry 1/t of the
+loss.
 
 The state is updated in place (the reference's is a new pytree per step).
 """
@@ -295,13 +314,17 @@ class Trainer:
         self.lora_scale = tcfg.lora_alpha / max(tcfg.lora_rank, 1)
         self.align_cache = None
         self.specs = None  # {"trainable": specs, "frozen": specs} on a mesh
+        self.plans = None  # the same trees' LeafPlans
+        self.tp = None     # the tensor group that computes Megatron-style
         if mesh is not None:
             self._mesh_axes(mesh)
 
     # -------------------- the mesh's axes --------------------
 
     def _mesh_axes(self, mesh) -> None:
-        from macaw_llm_tpu_torch.parallel.mesh import axis_size
+        from macaw_llm_tpu_torch.parallel.mesh import TENSOR_AXIS, axis_size
+        from macaw_llm_tpu_torch.parallel.tensor_parallel import (
+            TensorParallel, without)
         ring = self.mcfg.ring_attention
         # axes that cut the batch rows, and the ranks that hold them
         self.batch_axes = _batch_axes(self.mcfg)
@@ -309,9 +332,47 @@ class Trainer:
         # axes whose ranks compute different parts of the loss
         self.loss_axes = self.batch_axes + (
             (self.mcfg.ring_axis,) if ring else ())
-        # the others hold replicas of the same work
+        if not ring and axis_size(mesh, (TENSOR_AXIS,)) > 1:
+            self.tp = TensorParallel.from_mesh(mesh, self.mcfg)
+            if not self.tcfg.freeze_encoders or \
+                    self.tcfg.pack_frozen_towers:
+                self.tp = without(self.tp, "clip_attn", "clip_mlp",
+                                  "whisper_attn", "whisper_mlp")
+        # the others hold replicas of the same work (the tensor ranks of a
+        # Megatron group each compute the whole loss)
         self.replicas = axis_size(mesh, tuple(
-            a for a in mesh.mesh_dim_names if a not in self.loss_axes))
+            a for a in mesh.mesh_dim_names if a not in self.loss_axes
+            and not (self.tp is not None and a == TENSOR_AXIS)))
+
+    def _plan(self, path: str, x, spec):
+        """The ``LeafPlan`` of a leaf (see the module docstring)."""
+        from macaw_llm_tpu_torch.parallel.mesh import TENSOR_AXIS as T
+        from macaw_llm_tpu_torch.parallel.sharding import LeafPlan
+        from macaw_llm_tpu_torch.parallel.tensor_parallel import (cut_dim,
+                                                                  leaf_cut)
+        if self.tp is None:
+            return LeafPlan(spec)
+        how = leaf_cut(path, self.tp)
+        if how is None:  # every rank computes the whole leaf
+            return LeafPlan(spec, same=(T,))
+        if T in spec and how != "qkv" and \
+                spec.index(T) == cut_dim(how, x.dim()):
+            return LeafPlan(spec, axes=tuple(a for a in spec
+                                             if a is not None and a != T))
+        return LeafPlan(spec, cut=(how, self.tp))
+
+    def _sums_tensor(self, path: str) -> bool:
+        """Whether a leaf stored whole over the tensor axis has its
+        gradient summed over it: always without Megatron compute (its
+        ranks carry 1/t of the loss each), else for the blocks of a cut
+        leaf and, under sequence parallelism, for the norms and LoRA's
+        A."""
+        from macaw_llm_tpu_torch.parallel.tensor_parallel import (
+            leaf_cut, partial_under_sequence)
+        if self.tp is None:
+            return True
+        return leaf_cut(path, self.tp) is not None or (
+            self.mcfg.shard_sequence and partial_under_sequence(path))
 
     def shard_batch(self, batch: Dict[str, torch.Tensor]) -> dict:
         """This rank's rows of a whole batch [A, B, ...]: block
@@ -367,14 +428,22 @@ class Trainer:
             # precomputed once and constant: the align in-proj K/V rows
             # and bias_k/bias_v take zero gradients and never move, so the
             # cache never goes stale; the Q rows and out-proj still train
-            self.align_cache = fusion.precompute_align_cache(
+            from macaw_llm_tpu_torch.parallel.tensor_parallel import \
+                tp_align_cache
+            self.align_cache = tp_align_cache(fusion.precompute_align_cache(
                 merge_params(trainable, frozen), self.mcfg,
-                quantize=t.align_cache == "int8")
+                quantize=t.align_cache == "int8"), self.tp)
         if self.mesh is not None:
-            from macaw_llm_tpu_torch.parallel.sharding import shard_params
+            from macaw_llm_tpu_torch.parallel.sharding import (
+                at_path, shard_params, tree_map)
             trainable, t_specs = shard_params(trainable, self.mesh)
             frozen, f_specs = shard_params(frozen, self.mesh)
             self.specs = {"trainable": t_specs, "frozen": f_specs}
+            self.plans = {kind: tree_map(
+                lambda p, x, specs=specs: self._plan(p, x, at_path(specs, p)),
+                tree) for kind, tree, specs in (
+                    ("trainable", trainable, t_specs),
+                    ("frozen", frozen, f_specs))}
         opt_state = self.tx.init(trainable)
         if t.offload_optimizer:
             opt_state.mu = _offload(opt_state.mu)
@@ -398,12 +467,12 @@ class Trainer:
         return self._sharded_step(state, batch)
 
     def _entries(self, trainable: dict, frozen: dict, grads=None) -> list:
-        """(path, shard, spec, gradient buffer or None) of every leaf."""
+        """(path, shard, plan, gradient buffer or None) of every leaf."""
         from macaw_llm_tpu_torch.parallel.sharding import at_path, tree_paths
-        out = [(p, x, at_path(self.specs["trainable"], p),
+        out = [(p, x, at_path(self.plans["trainable"], p),
                 None if grads is None else at_path(grads, p))
                for p, x in tree_paths(trainable)]
-        out += [(p, x, at_path(self.specs["frozen"], p), None)
+        out += [(p, x, at_path(self.plans["frozen"], p), None)
                 for p, x in tree_paths(frozen)]
         return out
 
@@ -435,19 +504,23 @@ class Trainer:
                     labels=mb["labels"], dropout_rng=state.rng,
                     lora_scale=self.lora_scale,
                     align_cache=self.align_cache, ring_mesh=ring,
-                    reduce_count=count)
+                    reduce_count=count, tp=self.tp)
                 (loss / self.replicas).backward()
                 loss_sum = loss_sum + loss.detach()
         del diff, entries
         loss_sum = all_reduce(loss_sum, mesh, self.loss_axes)
         # the axes that cut neither a leaf nor the work: sum their ranks'
-        # shards; then each leaf's squares once over the axes that cut it
+        # shards (the tensor axis as ``_sums_tensor`` says); then each
+        # leaf's squares once over the axes that cut it
+        from macaw_llm_tpu_torch.parallel.mesh import TENSOR_AXIS
         squares: dict = {}
         with torch.no_grad():
             for path, g in tree_paths(grads):
                 spec = _spec_axes(at_path(self.specs["trainable"], path))
-                all_reduce(g, mesh, tuple(a for a in mesh.mesh_dim_names
-                                          if a not in spec))
+                sum_t = self._sums_tensor(path)
+                all_reduce(g, mesh, tuple(
+                    a for a in mesh.mesh_dim_names if a not in spec
+                    and (sum_t or a != TENSOR_AXIS)))
                 if accum > 1:
                     g.copy_((g / accum).to(g.dtype))
                 squares[spec] = squares.get(spec, 0.0) + \
@@ -489,7 +562,7 @@ class Trainer:
                 audios=batch.get("audios"), videos=batch.get("videos"),
                 attention_mask=batch.get("attention_mask"),
                 labels=batch["labels"], lora_scale=self.lora_scale,
-                reduce_count=count)
+                reduce_count=count, tp=self.tp)
             lab = batch["labels"]
             prefix = logits.shape[1] - lab.shape[1]
             ext = torch.cat([lab.new_full((lab.shape[0], prefix), IGNORE_ID),

@@ -85,6 +85,14 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale).to(dtype)
 
 
+def maybe_dequant(w, dtype) -> torch.Tensor:
+    """A weight as a plain tensor of ``dtype``: an int8 record dequantized,
+    a plain tensor cast."""
+    if is_record(w):
+        return dequantize(w["q"], w["s"], dtype)
+    return w.to(dtype)
+
+
 def quantize_llama(params: dict, tp=None) -> dict:
     """LLaMA params -> the same tree with the attention/MLP weights and
     lm_head replaced by int8 records. Norms and embeddings stay as they

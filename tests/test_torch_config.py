@@ -117,24 +117,26 @@ def test_geometry_errors_raise_in_both(llm, fusion):
         make(tconfig).validate()
 
 
-def _unported():
+def _sequence_sharded():
     m = tconfig.tiny_model_config()
     sharded = dataclasses.replace(m, shard_sequence=True)
     return {
-        "shard_sequence": (tconfig.Config(model=sharded), {}, "A7b"),
-        # tensor-parallel serving is ported; the sequence sharding is not,
-        # on a serving tensor group either
+        # training (sequence parallelism over the tensor axis) and a
+        # serving tensor group both accept it, as the reference does
+        "shard_sequence": (tconfig.Config(model=sharded), {}),
         "serving tensor=2": (tconfig.Config(
             model=sharded, mesh=tconfig.MeshConfig(fsdp=1, tensor=2)),
-            {"serving": True, "world_size": 2}, "A7b"),
+            {"serving": True, "world_size": 2}),
     }
 
 
-@pytest.mark.parametrize("name", sorted(_unported()))
-def test_unported_values_are_refused_naming_the_roadmap_item(name):
-    cfg, kw, item = _unported()[name]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cfg.validate(**kw)
+@pytest.mark.parametrize("name", sorted(_sequence_sharded()))
+def test_shard_sequence_validates_in_both(name):
+    cfg, kw = _sequence_sharded()[name]
+    cfg.validate(**kw)
+    jcfg = jconfig.Config.from_json(cfg.to_json())
+    assert jcfg.model.shard_sequence
+    jcfg.model.validate()
 
 
 def _parallel():

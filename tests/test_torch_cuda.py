@@ -518,6 +518,31 @@ def test_flash_backward_kernels(gen, b, sq, sk, n, d, causal, pad, lse_grad):
             assert not got[0].any()
 
 
+@pytest.mark.parametrize("n", [16, 8])
+def test_flash_kernels_at_tensor_parallel_training_heads(gen, n):
+    """B2, delta, B3 and B4 at a tensor rank's 7b QLoRA train shape,
+    [8, 1080, 32 / t, 128] causal (t = 2 and 4), against the plain
+    forward and backward."""
+    b, s, d = 8, 1080, 128
+    q, k, v = (_rn(gen, b, s, n, d).requires_grad_() for _ in range(3))
+    g = _rn(gen, b, s, n, d)
+    out, lse = fa.flash_attention_with_lse(q, k, v, None, causal=True)
+    ref, ref_lse = fa.attention_reference(q.detach(), k.detach(), v.detach(),
+                                          None, causal=True)
+    assert _row_rel_err(out.detach(), ref) <= ATTN_ROW_REL
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    before = _bwd_launches()
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert _bwd_launches() == tuple(x + 1 for x in before)
+    delta = fa.backward_delta(out.detach(), g, None)
+    grads = fa.attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), None, lse.detach(), g, delta,
+        causal=True, scale=d ** -0.5)
+    for got, r in zip((dq, dk, dv), grads):
+        assert _grad_row_err(got, r) <= BWD_ROW_REL
+
+
 def _bwd_launches():
     return (fa.flash_attention_delta.launches, fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches)

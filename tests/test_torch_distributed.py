@@ -41,6 +41,7 @@ from macaw_llm_tpu_torch.parallel.sharding import tree_paths
 from macaw_llm_tpu_torch.train import lora as tlora
 from macaw_llm_tpu_torch.train import trainer as ttrainer
 from macaw_llm_tpu_torch.train.checkpoint import CheckpointManager
+from macaw_llm_tpu_torch.utils.hf_import import pad_vocab
 from macaw_llm_tpu_torch.utils.jax_bridge import params_from_numpy
 
 REL = 1e-3
@@ -49,9 +50,11 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs the 8 simulated JAX devices")
 
 
-def _model(mod, **kw):
+def _model(mod, vocab_pad_to=None, **kw):
     m = mod.tiny_model_config()
     return dataclasses.replace(m, use_flash=True, tower_flash=True,
+                               llm=dataclasses.replace(
+                                   m.llm, vocab_pad_to=vocab_pad_to),
                                fusion=dataclasses.replace(
                                    m.fusion, align_dropout=0.0), **kw)
 
@@ -80,11 +83,16 @@ def weights():
     return tp
 
 
-def _params(weights, lora: bool) -> dict:
-    if lora:
-        return weights
-    return dict(weights, llm=dict(weights["llm"], layers={
-        k: v for k, v in weights["llm"]["layers"].items() if k != "lora"}))
+def _params(weights, lora: bool, pad=None) -> dict:
+    """The weights of a full or LoRA run, the vocab padded with zero rows
+    to ``pad`` (``vocab_pad_to``)."""
+    llm = weights["llm"]
+    if pad is not None:
+        llm = pad_vocab(llm, pad)
+    if not lora:
+        llm = dict(llm, layers={k: v for k, v in llm["layers"].items()
+                                if k != "lora"})
+    return dict(weights, llm=llm)
 
 
 def _batch(seed: int, a: int = 1, b: int = 4, s: int = 12,
@@ -108,17 +116,17 @@ def _batch(seed: int, a: int = 1, b: int = 4, s: int = 12,
     return out
 
 
-def _jax_run(weights, lora, accum, batches, evals=()):
+def _jax_run(weights, lora, accum, batches, evals=(), pad=None):
     """The JAX Trainer (one-device mesh) over ``batches``: per step loss
     and gradient norm, the trainable leaves before and after, eval."""
     jcfg = jconfig.Config(
-        model=_model(jconfig), train=jconfig.TrainConfig(
+        model=_model(jconfig, pad), train=jconfig.TrainConfig(
             **_train_kw(lora, accum)),
         mesh=jconfig.MeshConfig(data=1, fsdp=1, tensor=1))
     tr = jtrainer.Trainer(jcfg, jcreate_mesh(jcfg.mesh, jax.devices()[:1]),
                           total_steps=10)
     st = tr.init_state(jax.tree.map(lambda t: jnp.asarray(t.numpy()),
-                                    _params(weights, lora)))
+                                    _params(weights, lora, pad)))
     p0 = {k: np.array(v) for k, v in tree_paths(st.trainable)}
     losses, norms = [], []
     for b in batches:
@@ -161,22 +169,26 @@ def _tensors(batch: dict) -> dict:
 
 
 def _run(tmp, weights, lora, accum, batches, model=None, evals=(), **kw):
-    return dict(model=dataclasses.asdict(model or _model(tconfig)),
+    model = model or _model(tconfig)
+    pad = model.llm.vocab_pad_to
+    return dict(model=dataclasses.asdict(model),
                 train=dataclasses.asdict(tconfig.TrainConfig(
                     **_train_kw(lora, accum, **kw))),
-                params=_save(tmp, f"params_{lora}", _params(weights, lora)),
+                params=_save(tmp, f"params_{lora}_{pad}",
+                             _params(weights, lora, pad)),
                 batches=_save(tmp, f"batches_{lora}_{accum}_{id(batches)}",
                               [_tensors(b) for b in batches]),
                 eval=_save(tmp, "eval", [_tensors(b) for b in evals])
                 if evals else None)
 
 
-def _shard_shapes_match_jax(res: list, shape, weights, lora) -> None:
+def _shard_shapes_match_jax(res: list, shape, weights, lora,
+                            pad=None) -> None:
     """Each rank's shard shapes against JAX's ``shard_shape`` of the whole
     leaf (taken from a one-device state of the same run)."""
-    tr = ttrainer.Trainer(_model(tconfig), tconfig.TrainConfig(
+    tr = ttrainer.Trainer(_model(tconfig, pad), tconfig.TrainConfig(
         **_train_kw(lora, 1)), 10, device="cpu")
-    whole = tr.init_state(_params(weights, lora))
+    whole = tr.init_state(_params(weights, lora, pad))
     c, d, f, t = shape
     jmesh = jcreate_mesh(jconfig.MeshConfig(dcn=c, data=d, fsdp=f, tensor=t),
                          jax.devices()[:c * d * f * t])
@@ -191,30 +203,46 @@ def _shard_shapes_match_jax(res: list, shape, weights, lora) -> None:
                 assert rank["shapes"][kind][path] == want, (kind, path, r)
 
 
-MODEL_KW = ("remat",)  # extra keys that are ModelConfig fields
+# extra keys that are ModelConfig fields (vocab_pad_to: LlamaConfig's)
+MODEL_KW = ("remat", "remat_policy", "shard_sequence", "vocab_pad_to")
+PAD_TO = 32008  # a vocab that 2 divides: vocab-parallel under tensor 2
 MESH_RUNS = {
     # mesh: (lora, accum, text only with the ring, extra TrainConfig or
     # ModelConfig fields)
     (1, 2, 2, 1): [(False, 1, False, {}), (True, 2, False, {}),
                    (False, 1, False, {"remat": True})],
+    # tensor 2 computes Megatron-style (fsdp 2 cuts its storage further)
     (1, 1, 2, 2): [(True, 1, False, {}),
                    (False, 1, False, {"offload_optimizer": True})],
+    (1, 1, 1, 2): [(False, 1, False, {"vocab_pad_to": PAD_TO}),
+                   (True, 1, False, {}),
+                   (False, 2, False, {"vocab_pad_to": PAD_TO,
+                                      "shard_sequence": True,
+                                      "remat": True}),
+                   (False, 1, False, {"vocab_pad_to": PAD_TO, "remat": True,
+                                      "remat_policy": "dots"})],
     (1, 1, 2, 2, "ring"): [(False, 1, True, {}), (True, 2, True, {})],
 }
 
 
+def _ref_key(lora, accum, text, extra):
+    return lora, accum, text, extra.get("vocab_pad_to")
+
+
 @pytest.fixture(scope="module")
 def jax_refs(weights):
-    """JAX's runs: 2 steps each, full and LoRA, media and text-only."""
+    """JAX's runs: 2 steps each, full and LoRA, media and text-only, the
+    vocab whole or padded (sequence parallelism and remat change no
+    number: their runs are held against the same reference)."""
     refs = {}
-    for lora, accum, text in {(lo, a, t) for runs in MESH_RUNS.values()
-                              for lo, a, t, _ in runs}:
+    for lora, accum, text, pad in {_ref_key(*run) for runs in
+                                   MESH_RUNS.values() for run in runs}:
         batches = [_batch(10 + i, a=accum, media=not text) for i in range(2)]
         evals = [{k: v[0] for k, v in _batch(30).items()}]
-        refs[lora, accum, text] = dict(
+        refs[lora, accum, text, pad] = dict(
             batches=batches, evals=evals,
             **_jax_run(weights, lora, accum, batches,
-                       evals if not (lora or text) else ()))
+                       evals if not (lora or text) else (), pad))
     return refs
 
 
@@ -229,13 +257,15 @@ def test_mesh_trainer_matches_jax(key, weights, jax_refs, tmp_path):
     shape, ring = key[:4], key[4:] == ("ring",)
     runs, refs = [], []
     for lora, accum, text, extra in MESH_RUNS[key]:
-        ref = jax_refs[lora, accum, text]
+        ref = jax_refs[_ref_key(lora, accum, text, extra)]
         model_kw = {k: v for k, v in extra.items() if k in MODEL_KW}
         train_kw = {k: v for k, v in extra.items() if k not in MODEL_KW}
         model = _model(tconfig, ring_attention=ring, **model_kw)
-        evals = ref["eval"] is not None and not model_kw and ref["evals"]
+        evals = ref["eval"] is not None and not (
+            set(model_kw) - {"vocab_pad_to"}) and ref["evals"]
         runs.append(_run(tmp_path, weights, lora, accum, ref["batches"],
                          model=model, evals=evals or (), **train_kw))
+        runs[-1]["count_llama"] = shape == (1, 1, 1, 2)
         refs.append(ref)
     res = [r["runs"] for r in spawn(int(np.prod(shape)), "train",
                                     {"mesh": shape, "runs": runs},
@@ -248,7 +278,8 @@ def test_mesh_trainer_matches_jax(key, weights, jax_refs, tmp_path):
         for rank in res[1:]:  # every rank reports the same global numbers
             assert rank[i]["loss"] == rank0["loss"], what
             assert rank[i]["grad_norm"] == rank0["grad_norm"], what
-        _shard_shapes_match_jax([r[i] for r in res], shape, weights, lora)
+        _shard_shapes_match_jax([r[i] for r in res], shape, weights, lora,
+                                extra.get("vocab_pad_to"))
         issued = rank0["collectives"]
         assert issued["all_reduce"] > 0, what
         assert issued.get("send_recv", 0) > 0 if ring else \
@@ -256,9 +287,47 @@ def test_mesh_trainer_matches_jax(key, weights, jax_refs, tmp_path):
         if "eval" in rank0:
             for name in ("eval_loss", "eval_token_accuracy"):
                 _close(rank0["eval"][name], ref["eval"][name], name)
-        if extra.get("remat"):  # the recompute gathers each layer again
+        if extra.get("remat") and shape[2] > 1:
+            # the recompute gathers each layer's fsdp shards again
             plain = res[0][0]["collectives"]["all_gather"]
             assert issued["all_gather"] > plain, (issued, plain)
+        if shape[3] > 1 and not ring:
+            _megatron_blocks_and_collectives([r[i] for r in res], shape,
+                                             lora, extra)
+
+
+def _megatron_blocks_and_collectives(res: list, shape, lora: bool,
+                                     extra: dict) -> None:
+    """Under a tensor axis of t without the ring every rank reads its
+    column block of wq ([D, D / t], never the whole leaf), of LoRA's B
+    and A whole; over a tensor-only mesh one LLaMA forward and backward
+    make, per layer, Megatron's collectives: g's all-reduce after the
+    attention and the MLP, f's in the backward (and LoRA's middles'), or
+    under sequence parallelism an all-gather before and a reduce-scatter
+    after each module (and the reverse in the backward), plus the
+    sequence's split and final gather."""
+    m = tconfig.tiny_model_config().llm
+    d, n_layers, t = m.hidden_size, m.num_layers, shape[3]
+    for rank in res:
+        got = rank["gathered"]
+        wq = got["llm/layers/attn/wq/q" if lora else "llm/layers/attn/wq"]
+        assert wq == [d, d // t], got
+        if lora:
+            assert got["llm/layers/lora/qb"] == [4, d // t], got
+            assert got["llm/layers/lora/qa"] == [d, 4], got
+        if shape != (1, 1, 1, 2):
+            continue
+        counts = rank["llama_collectives"]
+        per = 2 * n_layers
+        if extra.get("shard_sequence"):
+            assert counts["forward"] == {"all_gather": per + 1,
+                                         "reduce_scatter": per}, counts
+            assert counts["total"] == {"all_gather": 2 * per + 2,
+                                       "reduce_scatter": 2 * per}, counts
+        else:
+            assert counts["forward"] == {"all_reduce": per}, counts
+            assert counts["total"] == {
+                "all_reduce": (3 if lora else 2) * per}, counts
 
 
 def test_checkpoints_move_between_two_ranks_and_one_device(weights,

@@ -46,6 +46,7 @@ from macaw_llm_tpu_torch.prefill import prefill as tprefill
 from macaw_llm_tpu_torch.train.checkpoint import CheckpointManager
 from macaw_llm_tpu_torch.train.trainer import Trainer
 from macaw_llm_tpu_torch.utils import quantize as tqz
+from macaw_llm_tpu_torch.utils.jax_bridge import params_from_numpy
 
 REL = 1e-3
 PAD_TO = 32008  # divisible by 2, 4 and 8: a vocab-parallel embedding
@@ -242,13 +243,24 @@ def setup(tmp_path_factory):
         requests_fail=_save(root, "requests_fail",
                             _requests_with_a_bad_audio(cfg)))
     ckpt = {t: _checkpoint(root, f"ckpt{t}", w, t) for t in (1, 2)}
+    # the reference's sequence-sharding test: its weights and ids
+    jseq = jfusion.init_params(jax.random.PRNGKey(3),
+                               jconfig.tiny_model_config())
+    files["seq_params"] = _save(root, "seq_params", params_from_numpy(
+        jax.tree.map(np.asarray, jseq)))
+    seq_ids = np.random.RandomState(0).randint(16, 32000, (2, 16))
+    for n in SEQ_LENS:
+        files[f"seq{n}"] = _save(root, f"seq{n}", {
+            "input_ids": torch.from_numpy(seq_ids[:, :n]),
+            "shard_sequence": True})
     return dict(root=root, cfg=cfg, cfg_pad=cfg_pad, w=w, w_pad=w_pad,
                 ids=ids, batch=batch, tbatch=tbatch, wbatch=wbatch, emb=emb,
                 prompt_ids=prompt_ids, spec_emb=spec_emb,
                 spec_mask=spec_mask, files=files, tok_dir=tok_dir,
-                val_path=val_path, ckpt=ckpt)
+                val_path=val_path, ckpt=ckpt, jseq=jseq, seq_ids=seq_ids)
 
 
+SEQ_LENS = (16, 15)  # 15: a length that neither 2 nor 4 divides
 GEN_KW = dict(max_new_tokens=8, eos_id=2, pad_id=0)
 ENGINE_KW = dict(slots=4, prompt_bucket=32, max_new_tokens=5,
                  kv_cache_dtype="int8", align_cache="int8")
@@ -273,6 +285,10 @@ def _cases(s: dict, t: int) -> list:
                model=dataclasses.asdict(s["cfg_pad"]))
     cases = [
         dict(name="forward", kind="forward", inputs=f["ids"]),
+        *[dict(name=f"shard_sequence{n}", kind="forward", inputs=f[f"seq{n}"],
+               params=f["seq_params"],
+               model=dataclasses.asdict(tconfig.tiny_model_config()))
+          for n in SEQ_LENS],
         dict(name="forward_pad", kind="forward", inputs=f["ids"], **pad),
         dict(name="forward_int8_whole", kind="forward", inputs=f["ids"],
              int8="whole"),
@@ -316,9 +332,22 @@ def _cases(s: dict, t: int) -> list:
             dict(name="static_fail", kind="engine",
                  requests=f["requests_fail"], seed=321, static=True,
                  kw=dict(STATIC_KW, max_batch=2)),
+            # a follower's faults: an admission that fails there before
+            # any collective, then (last: it tears the engines' group
+            # down) a prefill that fails there inside its collectives
+            dict(name="engine_follower_admission", kind="engine",
+                 requests=f["requests"], seed=123, int8="whole", pack=True,
+                 kw=ENGINE_KW, follower_fail=[FOLLOWER_FAILS]),
             dict(name="engine_fatal", kind="engine", requests=f["requests"],
                  seed=123, int8="whole", pack=True, kw=ENGINE_KW,
                  fail_plan_at=3),
+            dict(name="engine_follower_prefill", kind="engine",
+                 requests=f["requests"], seed=123, int8="whole", pack=True,
+                 kw=ENGINE_KW, follower_fail_prefill_at=3),
+            dict(name="static_follower_prefill", kind="engine",
+                 requests=f["requests"], seed=321, static=True,
+                 kw=dict(STATIC_KW, max_batch=2),
+                 follower_fail_prefill_at=2),
         ]
     return [dict(c, model=c.get("model", model)) for c in cases]
 
@@ -462,6 +491,21 @@ def test_row_parallel_biases_stay_whole(setup):
 
 # ---------------------------------------------------------------------------
 # 2. LLaMA logits against JAX's sharded forward
+
+
+@pytest.mark.parametrize("n", SEQ_LENS)
+def test_shard_sequence_same_output_as_jax(setup, run, n):
+    """The reference's ``test_shard_sequence_same_output``: the LLaMA over
+    the sequence cut between layers over the tensor group (Megatron
+    sequence parallelism; 15 positions pad to a multiple of t) against
+    JAX's unsharded forward of the same weights, rtol 2e-4."""
+    _, res = run
+    ref, _ = jax.jit(lambda p, i: jllama.forward(
+        p, jconfig.tiny_model_config().llm, input_ids=i))(
+        setup["jseq"]["llm"], jnp.asarray(setup["seq_ids"][:, :n]))
+    for rank in res:
+        np.testing.assert_allclose(rank[f"shard_sequence{n}"].numpy(),
+                                   np.asarray(ref), rtol=2e-4, atol=1e-5)
 
 
 def test_llama_logits_match_jax_sharded(setup, run):
@@ -653,12 +697,13 @@ def test_run_inference_over_two_processes_equals_one_device(setup, tp2):
         assert json.load(f) == one
 
 
-def _one_device_engine(setup, rows):
+def _one_device_engine(setup, rows, fail=()):
     """The one-device engine (int8 packed weights, ENGINE_KW, seed 123)
     driven through the leader's schedule by hand: every request queued
     first, then each iteration admits into the free slots (a prefill that
-    raises fails its request and leaves its slot free), steps, and reads
-    the tokens back. Returns the engine and the results."""
+    raises, or one of a prompt in ``fail``, fails its request and leaves
+    its slot free), steps, and reads the tokens back. Returns the engine
+    and the results."""
     cfg, w = setup["cfg"], setup["w"]
     w = dict(w, llm=tqz.pack_llama_for_decode(tqz.quantize_llama(w["llm"])))
     mp = pytest.MonkeyPatch()
@@ -677,6 +722,8 @@ def _one_device_engine(setup, rows):
                     break
                 req = todo.pop(0)
                 try:
+                    if req.prompt in fail:
+                        raise RuntimeError("failed")
                     item = eng._run_prefill(req)
                 except RuntimeError as e:
                     req._result = {"error": str(e)}
@@ -777,6 +824,76 @@ def test_a_fatal_leader_error_releases_the_followers(tp2):
     assert follow["stats"] == lead["stats"]
 
 
+FOLLOWER_FAILS = "third thing entirely"  # the prompt of request 2
+
+
+def test_a_followers_failed_admission_fails_it_on_every_rank(setup, tp2):
+    """An admission that fails on the follower alone, before any
+    collective: the ranks' flags agree that it failed, the leader returns
+    an error for it, leaves its slot free, and serves every other request
+    as the one-device engine does when that request fails; the ranks stay
+    in step."""
+    rows = _requests(setup["cfg"])
+    eng, ref = _one_device_engine(setup, rows, fail={FOLLOWER_FAILS})
+    lead, follow = (r["engine_follower_admission"] for r in tp2)
+    bad = [r["prompt"] for r in rows].index(FOLLOWER_FAILS)
+    assert lead["results"][bad] == {
+        "error": "failed on another rank of the tensor group"}
+    assert [r for i, r in enumerate(lead["results"]) if i != bad] == \
+        [r for i, r in enumerate(ref) if i != bad]
+    assert follow["stats"] == lead["stats"]
+    assert torch.equal(follow["toks"], lead["toks"])
+    assert torch.equal(lead["toks"], eng.toks)
+
+
+def test_a_followers_failure_inside_a_prefill_stops_the_group(tp2):
+    """The follower's third prefill raises after the prefill's first
+    collectives: it tears the engines' group down, so the leader's pending
+    all-reduce raises at once; both loops end well inside the group's
+    timeout, and the leader answers every request: the ones placed, the
+    one failing, the rest of its plan and the queue, each with an
+    error."""
+    from macaw_llm_tpu_torch.parallel.mesh import TIMEOUT
+    lead, follow = (r["engine_follower_prefill"] for r in tp2)
+    done = tp2[0]["engine"]["results"]  # the same engine without the fault
+    errors = [r for r in lead["results"] if "error" in r]
+    assert all(r in ([ok] + errors) for r, ok in zip(lead["results"], done))
+    assert len(errors) >= 6, lead["results"]
+    assert all(r["error"].startswith("decode loop failed") for r in errors)
+    for rank in (lead, follow):
+        assert rank["seconds"] < TIMEOUT.total_seconds() / 10, rank
+
+
+def test_a_followers_failure_inside_a_batch_stops_the_static_group(setup,
+                                                                  tp2):
+    """``InferenceEngine``, 2 a batch: the follower's second batch raises
+    inside the batch's collectives; the leader's first batch is the
+    one-device engine's, every later request fails, and both loops end
+    well inside the group's timeout."""
+    from macaw_llm_tpu_torch.parallel.mesh import TIMEOUT
+    lead, follow = (r["static_follower_prefill"] for r in tp2)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tserve, "_seed_from_clock", lambda: 321)
+    try:
+        one = tserve.InferenceEngine(setup["w"], setup["cfg"],
+                                     _WordTokenizer(), device="cpu",
+                                     **dict(STATIC_KW, max_batch=2))
+    finally:
+        mp.undo()
+    reqs = [tserve.Request(**r) for r in _requests(setup["cfg"])[:2]]
+    with torch.inference_mode():
+        one._run_batch(reqs)
+    strip = ("latency_ms",)
+    assert [{k: v for k, v in r.items() if k not in strip}
+            for r in lead["results"][:2]] == [
+        {k: v for k, v in r._result.items() if k not in strip}
+        for r in reqs]
+    assert all(r["error"].startswith("batch failed")
+               for r in lead["results"][2:]), lead["results"]
+    for rank in (lead, follow):
+        assert rank["seconds"] < TIMEOUT.total_seconds() / 10, rank
+
+
 def test_http_serves_from_rank_0_only(tp2):
     out = tp2[0]["http"]
     assert out["tokens"] == 3 and len(out["text"].split()) == 3
@@ -793,7 +910,8 @@ def test_serving_validates_a_tensor_group_of_the_worlds_size():
     cfg.validate(world_size=2, serving=True)
     with pytest.raises(ValueError, match="2 processes"):
         cfg.validate(world_size=1, serving=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, shard_sequence=True)).validate(world_size=2,
-                                                      serving=True)
+    # sequence sharding is a layout of the cache-free forward: a serving
+    # tensor group accepts it
+    dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, shard_sequence=True)).validate(world_size=2,
+                                                  serving=True)
