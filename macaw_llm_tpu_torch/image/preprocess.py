@@ -19,6 +19,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from macaw_llm_tpu_torch import resolve_device
+
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
@@ -86,10 +88,12 @@ def preprocess(images: torch.Tensor, size: int = 224) -> torch.Tensor:
 
 
 def preprocess_batch_numpy(images: Sequence[np.ndarray], size: int = 224,
-                           device="cpu") -> np.ndarray:
+                           device="cuda") -> np.ndarray:
     """Host-side convenience for ragged input sizes: each uint8 [H, W, 3]
-    image preprocessed on ``device`` on its own, the results stacked on
-    the host as fp32 [N, 3, size, size]."""
+    image preprocessed on ``device`` (the card unless the CPU is asked
+    for) on its own, the results stacked on the host as fp32
+    [N, 3, size, size]."""
+    device = resolve_device(device)
     return np.stack([preprocess(torch.from_numpy(np.asarray(im)[None])
                                 .to(device), size)[0].cpu().numpy()
                      for im in images])

@@ -64,9 +64,11 @@ def multihost_initialize(device="cuda",
     MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK); ``store`` (a FileStore, as
     the tests pass) takes the place of the address. With neither, it does
     nothing and the world is one process. On ``cuda`` each process takes
-    the card of its local rank (modulo the cards there are). ``backend``:
-    the process group's (default ``backend_for(device)``). A failed
-    rendezvous raises."""
+    the card of its local rank; only an explicit ``backend="gloo"`` lets
+    several ranks share a card (the local rank modulo the cards there
+    are), since NCCL takes one rank a card. ``backend``: the process
+    group's (default ``backend_for(device)``). A failed rendezvous
+    raises."""
     if dist.is_initialized():
         return True
     env = os.environ
@@ -80,7 +82,8 @@ def multihost_initialize(device="cuda",
     else:
         rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
         local = int(env.get("LOCAL_RANK", rank))
-    kw = dict(backend=backend or backend_for(device), rank=rank,
+    backend = backend or backend_for(device)
+    kw = dict(backend=backend, rank=rank,
               world_size=world,
               timeout=TIMEOUT)
     if store is not None:
@@ -91,7 +94,9 @@ def multihost_initialize(device="cuda",
         kw["init_method"] = (f"tcp://{env['MASTER_ADDR']}:"
                              f"{env.get('MASTER_PORT', '29500')}")
     if torch.device(device).type == "cuda":
-        torch.cuda.set_device(local % torch.cuda.device_count())
+        if backend == "gloo":
+            local %= torch.cuda.device_count()
+        torch.cuda.set_device(local)
     dist.init_process_group(**kw)
     return True
 

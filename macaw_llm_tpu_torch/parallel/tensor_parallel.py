@@ -239,7 +239,9 @@ class _RowMM(torch.autograd.Function):
     the sequence under ``tp.sequence``) and rounded once to x's dtype. The
     backward (g) takes the whole output's gradient (all-gathered over the
     sequence first under ``tp.sequence``): gx = g @ w^T, gw = x^T @ g, in
-    x's dtype, as one device's product."""
+    x's dtype, as one device's product. An int8 ``w`` (a record's q) is
+    converted to x's dtype for each product and saved as it is, as
+    ``quantize._Int8Matmul`` saves it."""
 
     @staticmethod
     def forward(ctx, x, w, tp):
@@ -248,7 +250,7 @@ class _RowMM(torch.autograd.Function):
                               w if ctx.needs_input_grad[0] else None)
         x2 = x.reshape(-1, x.shape[-1])
         if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-            y = torch.mm(x2, w, out_dtype=torch.float32)
+            y = torch.mm(x2, w.to(x.dtype), out_dtype=torch.float32)
         else:
             y = x2.float() @ w.float()
         y = y.reshape(*x.shape[:-1], y.shape[-1])
@@ -271,7 +273,7 @@ class _RowMM(torch.autograd.Function):
         g2 = g.reshape(-1, g.shape[-1])
         gx = gw = None
         if w is not None:
-            gx = (g2 @ w.T).reshape(ctx.shape)
+            gx = (g2 @ w.to(g2.dtype).T).reshape(ctx.shape)
         if x is not None:
             gw = x.reshape(-1, x.shape[-1]).T @ g2
         return gx, gw, None
@@ -284,9 +286,11 @@ def row_mm(tp: Optional[TensorParallel], x: torch.Tensor,
     summed over the group and rounded once to x's dtype, as one device
     rounds its fp32 sum once (the sum's order differs). ``x @ w`` under
     None. Under ``tp.sequence`` x is [B, S, K] and the result this rank's
-    block of the sequence, padded to a multiple of the size."""
+    block of the sequence, padded to a multiple of the size. ``w`` may be
+    int8 (a record's q, scaled by the caller), converted for each
+    product and kept as int8 for the backward."""
     if tp is None:
-        return x @ w
+        return x @ w.to(x.dtype)
     return _RowMM.apply(x, w, tp)
 
 

@@ -39,9 +39,16 @@ Every rank reaches the same verdict on a failure:
 * inside a sequence of collectives (an error in the middle of a prefill or
   a decode step, a follower whose slots differ from the leader's) the
   ranks cannot be brought back in step: the failing rank tears the
-  engine's group down, so that its peers' pending collectives raise at
-  once (gloo closes the connections), every rank's loop ends, and the
-  leader fails every active and queued request and stops;
+  engine's group down (``_tear_down``), so that its peers' pending
+  collectives end at once, every rank's loop ends, and the leader fails
+  every active and queued request and stops. The failing rank marks the
+  teardown in the job's store and destroys its end of the group: on gloo
+  that closes the connections its peers wait on. An NCCL communicator
+  learns nothing from a peer's abort, so each rank's watcher
+  (``_watch_group``) polls the store and aborts its own end
+  (``ncclCommAbort``): the collectives in flight end, the next one
+  raises, and a value read back after the abort is dropped
+  (``_check_group``) rather than served;
 * the leader's own failure before it broadcasts a plan broadcasts the
   stop instead, so the followers end with it.
 
@@ -151,23 +158,83 @@ def _failed_anywhere(tp: Optional[TensorParallel], failed: List[bool],
     return [bool(f) for f in reduce_max(tp, flags).tolist()]
 
 
+_WATCH_S = 0.1  # how often a rank's watcher reads the teardown mark
+_TORN = "the tensor group was torn down on another rank"
+
+
+def _torn_key(tp: TensorParallel) -> str:
+    """The job store's key that marks the engine's group torn down."""
+    return f"macaw_serve/{tp.group.group_name}/torn_down"
+
+
+def _store():
+    import torch.distributed as dist
+    return dist.distributed_c10d._get_default_store()
+
+
+def _abort(group) -> None:
+    """Abort this rank's end of an NCCL group: its collectives in flight
+    end, and its next one raises. gloo needs nothing here: its peers see
+    the failing rank's connections close."""
+    import torch.distributed as dist
+    if dist.get_backend(group) == "nccl":
+        group.abort()
+
+
+def _watch_group(engine, tp: TensorParallel) -> None:
+    """A rank's watcher, while its engine may issue collectives: once
+    another rank has marked the group torn down (``_tear_down``), flag the
+    engine (``_check_group``) and abort this rank's end of the group."""
+    store, key = _store(), _torn_key(tp)
+    while not engine._group_done.wait(_WATCH_S):
+        if store.check([key]):
+            engine._torn.set()
+            try:
+                _abort(tp.group)
+            except Exception:  # noqa: BLE001
+                logger.exception("could not abort the engine's group")
+            return
+
+
+def _check_group(engine) -> None:
+    """Raise once the engine's group was torn down on another rank: a value
+    read back after an NCCL abort is not the collective's result."""
+    if engine._torn.is_set():
+        raise RuntimeError(_TORN)
+
+
 def _tear_down(engine) -> None:
-    """Destroy the engine's group (``_own_group``) after a failure inside
-    its collectives, and drop the engine's ``tp``: with no reference left,
-    gloo closes the group's connections, and the peers' pending
-    collectives raise at once instead of waiting out the group's timeout.
-    Call it once the failed call's exception (and its frames) is gone."""
+    """After a failure inside the group's collectives: mark the engine's
+    group (``_own_group``) torn down in the job's store, for the peers'
+    watchers, abort and destroy this rank's end, and drop the engine's
+    ``tp``: with no reference left, gloo closes the group's connections,
+    and the peers' pending collectives raise at once instead of waiting
+    out the group's timeout. Call it once the failed call's exception (and
+    its frames) is gone."""
     import gc
 
     import torch.distributed as dist
-    group = engine.tp.group
-    engine.tp = None
+    tp, engine.tp = engine.tp, None
+    engine._group_done.set()  # this rank's watcher stops
     try:
-        dist.destroy_process_group(group)
+        _store().set(_torn_key(tp), "1")
+        if not engine._torn.is_set():  # else the watcher aborted it
+            _abort(tp.group)
+        dist.destroy_process_group(tp.group)
     except Exception:  # noqa: BLE001
-        logger.exception("could not destroy the engine's group")
-    del group
+        logger.exception("could not tear the engine's group down")
+    del tp
     gc.collect()
+
+
+def _drain(q: "queue.Queue") -> list:
+    """What is left in a queue, taken without waiting."""
+    out = []
+    while True:
+        try:
+            out.append(q.get_nowait())
+        except queue.Empty:
+            return out
 
 
 _PEER_FAILED = "failed on another rank of the tensor group"
@@ -267,6 +334,8 @@ class InferenceEngine:
         self.max_new_tokens = max_new_tokens
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._stop = threading.Event()
+        self._torn = threading.Event()  # the group torn down elsewhere
+        self._group_done = threading.Event()  # no collective follows
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(_shared_seed(tp))
@@ -275,6 +344,9 @@ class InferenceEngine:
     # -------------------- lifecycle --------------------
 
     def start(self):
+        if self.tp is not None:
+            threading.Thread(target=_watch_group, args=(self, self.tp),
+                             daemon=True).start()
         self._thread.start()
 
     def stop(self):
@@ -318,6 +390,7 @@ class InferenceEngine:
         under a tensor group the leader's, on every rank."""
         if self.tp is not None and not self.tp.leader:
             plan = _share(self.tp, None)
+            _check_group(self)
             return None if plan is None else [Request(**p) for p in plan]
         batch = None if self._stop.is_set() else self._collect()
         if self.tp is not None:
@@ -326,6 +399,12 @@ class InferenceEngine:
         return batch
 
     def _loop(self):
+        try:
+            self._batches()
+        finally:
+            self._group_done.set()
+
+    def _batches(self):
         while True:
             batch = self._next_batch()
             if batch is None:
@@ -339,8 +418,11 @@ class InferenceEngine:
             except Exception as e:  # noqa: BLE001: fail the batch only
                 logger.exception("batch failed")
                 error = str(e)
-            if _failed_anywhere(self.tp, [error is not None],
-                                self.device)[0]:
+            failed = _failed_anywhere(self.tp, [error is not None],
+                                      self.device)[0]
+            if self.tp is not None:
+                _check_group(self)
+            if failed:
                 _fail(batch, error or _PEER_FAILED)
                 continue
             try:
@@ -356,13 +438,7 @@ class InferenceEngine:
             # inside the batch's collectives: the ranks are out of step
             self._stop.set()
             _tear_down(self)
-            waiting = list(batch)
-            while True:
-                try:
-                    waiting.append(self.queue.get_nowait())
-                except queue.Empty:
-                    break
-            _fail(waiting, f"batch failed: {error}")
+            _fail(list(batch) + _drain(self.queue), f"batch failed: {error}")
             return
 
     def _bucket(self, n: int) -> int:
@@ -423,12 +499,9 @@ class InferenceEngine:
                     audios=audios, videos=videos, temps=temps,
                     budgets=budgets)
 
-    def _run_batch(self, batch: List[Request],
-                   inputs: Optional[dict] = None):
-        """Prefill and decode one batch (``inputs``: its
-        ``_batch_inputs``, made here when not given) and answer its
-        requests."""
-        x = self._batch_inputs(batch) if inputs is None else inputs
+    def _run_batch(self, batch: List[Request], x: dict):
+        """Prefill and decode one batch (``x``: its ``_batch_inputs``) and
+        answer its requests."""
         mcfg, dev = self.cfg, self.device
         n_real = len(batch)
         fused = fusion.prepare_inputs(
@@ -448,6 +521,8 @@ class InferenceEngine:
                        generator=self._gen if (temps > 0).any() else None,
                        device=dev, tp=self.tp)
         toks = out.tokens.cpu().numpy()
+        if self.tp is not None:
+            _check_group(self)
         dt = time.perf_counter() - x["t0"]
 
         for i, r in enumerate(batch):
@@ -793,6 +868,8 @@ class ContinuousEngine:
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._admit_q: "queue.Queue[tuple]" = queue.Queue(maxsize=slots)
         self._stop = threading.Event()
+        self._torn = threading.Event()  # the group torn down elsewhere
+        self._group_done = threading.Event()  # no collective follows
         # one generator per thread that samples
         seed = _shared_seed(tp)
         self._gen_admit = torch.Generator(device=self.device)
@@ -828,6 +905,9 @@ class ContinuousEngine:
             torch.cuda.synchronize(self.device)
         if self.tp is None:
             self._prefill_thread.start()
+        else:
+            threading.Thread(target=_watch_group, args=(self, self.tp),
+                             daemon=True).start()
         self._thread.start()
 
     def stop(self):
@@ -1094,6 +1174,8 @@ class ContinuousEngine:
         host, event, items = pending
         if event is not None:
             event.synchronize()
+        if self.tp is not None:
+            _check_group(self)
         toks = host.numpy()
         for slot, gen_id in items:
             if self._slot_gen[slot] != gen_id or self._reqs[slot] is None:
@@ -1108,6 +1190,12 @@ class ContinuousEngine:
 
     def _loop(self):
         try:
+            self._run_loop()
+        finally:
+            self._group_done.set()
+
+    def _run_loop(self):
+        try:
             with torch.inference_mode(), \
                     self._on_stream(self._decode_stream):
                 if self.tp is None:
@@ -1120,7 +1208,7 @@ class ContinuousEngine:
             error = f"decode loop failed: {e}"
         # the failed call's frames are gone: the group can be torn down
         self._stop.set()
-        if self.tp is not None and self._tp_in_step:
+        if self.tp is not None and (self._tp_in_step or self._torn.is_set()):
             _tear_down(self)
         else:
             _release_followers(self.tp)
@@ -1128,14 +1216,8 @@ class ContinuousEngine:
         placed = {id(r) for r in waiting}
         waiting += [r for r in self._tp_admitted if not r._done.is_set()
                     and id(r) not in placed]
-        for q in (self._admit_q, self.queue):
-            while True:
-                try:
-                    item = q.get_nowait()
-                except queue.Empty:
-                    break
-                waiting.append(item[0] if isinstance(item, tuple) else item)
-        _fail(waiting, error)
+        waiting += [item[0] for item in _drain(self._admit_q)]
+        _fail(waiting + _drain(self.queue), error)
 
     def _decode_loop(self):
         # Decode/readback pipeline, depth 2: dispatch step N, then process
@@ -1213,6 +1295,7 @@ class ContinuousEngine:
             self._tp_in_step = False
             plan = _share(self.tp, self._tp_plan() if self.tp.leader
                           else None)
+            _check_group(self)
             if plan is None:
                 return
             self._tp_in_step = True
@@ -1236,13 +1319,16 @@ class ContinuousEngine:
             failed = _failed_anywhere(self.tp, [e is not None
                                                 for e in errors],
                                       self.device)
+            _check_group(self)
             for (slot, _), req, adm, error, bad in zip(
                     plan["admit"], self._tp_admitted, admissions, errors,
                     failed):
                 if bad:
                     _fail([req], error or _PEER_FAILED)
                     continue
-                self._place(slot, self._prefill_ready(req, adm))
+                item = self._prefill_ready(req, adm)
+                _check_group(self)
+                self._place(slot, item)
             active = [i for i, r in enumerate(self._reqs) if r is not None]
             if active:
                 self._process_readback(self._dispatch(active))

@@ -283,6 +283,6 @@ def matmul(x: torch.Tensor, w, compute: torch.dtype, *,
     if activation_quant and rows >= ACT_QUANT_MIN_ROWS and q.dim() == 2:
         return w8a8_dot(x, q, s, tp).to(compute)
     if tp is not None:  # rounded once, then scaled, as _Int8Matmul does
-        y = tpar.row_mm(tp, x, q.to(compute))
+        y = tpar.row_mm(tp, x, q)
         return (y * s.reshape(-1)).to(compute)
     return _Int8Matmul.apply(x, q, s, compute)

@@ -757,3 +757,58 @@ def test_offloaded_moments_pinned_and_the_same_bits(gen):
                  (s0.mu["a"], s1.mu["a"]), (s0.nu["b"]["c"],
                                              s1.nu["b"]["c"])):
         assert torch.equal(x.cpu(), y.cpu())
+
+
+NCCL_PROMPTS = ("first question here", "third thing entirely",
+                "a longer question about many different things",
+                "another one with more words", "short", "last one")
+
+
+def test_tp_engine_faults_over_nccl_end_every_rank(tmp_path):
+    """The TP server's fault rule over NCCL, two ranks on two cards (the
+    tiny model in fp32, no kernels: plain products between NCCL
+    collectives). A follower's failed admission fails that request on
+    both ranks, which serve the rest; a follower's failure inside a
+    prefill (the continuous engine) or a batch (the static one) tears the
+    group down: the leader, waiting in a collective, learns it from the
+    store, aborts its communicator, and both loops end well inside the
+    group's timeout with an error for every request not answered."""
+    import dataclasses
+
+    from macaw_llm_tpu_torch import config as tconfig
+    from macaw_llm_tpu_torch.models import fusion
+    from macaw_llm_tpu_torch.parallel.dryrun import spawn
+    from macaw_llm_tpu_torch.parallel.mesh import TIMEOUT
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (NCCL takes one rank a card)")
+    cfg = tconfig.tiny_model_config()
+    params, reqs = str(tmp_path / "params.pt"), str(tmp_path / "reqs.pt")
+    torch.save(fusion.init_params(0, cfg, dtype=torch.float32,
+                                  device="cpu"), params)
+    torch.save([dict(prompt=p, max_new_tokens=4) for p in NCCL_PROMPTS],
+               reqs)
+    engine = dict(kind="engine", requests=reqs, seed=5,
+                  kw=dict(slots=2, prompt_bucket=32, max_new_tokens=4))
+    static = dict(kind="engine", requests=reqs, seed=5, static=True,
+                  kw=dict(max_batch=2, max_new_tokens=4))
+    cases = [dict(engine, name="engine"),
+             dict(engine, name="admission", follower_fail=[NCCL_PROMPTS[1]]),
+             dict(engine, name="prefill", follower_fail_prefill_at=3),
+             dict(static, name="static", follower_fail_prefill_at=2)]
+    lead, follow = spawn(2, "tp", {"model": dataclasses.asdict(cfg),
+                                   "params": params, "cases": cases},
+                         str(tmp_path / "job"), device="cuda")
+    ok = lead["engine"]["results"]
+    assert all("error" not in r for r in ok), ok
+    got = lead["admission"]["results"]
+    assert got[1] == {"error": "failed on another rank of the tensor group"}
+    assert got[:1] + got[2:] == ok[:1] + ok[2:]
+    assert follow["admission"]["stats"] == lead["admission"]["stats"]
+    for name, prefix, served in (("prefill", "decode loop failed", 2),
+                                 ("static", "batch failed", 2)):
+        res = lead[name]["results"]
+        errors = [r for r in res if "error" in r]
+        assert all(r["error"].startswith(prefix) for r in errors), res
+        assert len(errors) >= len(res) - served, res
+        for rank in (lead, follow):
+            assert rank[name]["seconds"] < TIMEOUT.total_seconds() / 10

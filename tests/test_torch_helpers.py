@@ -56,7 +56,7 @@ def test_preprocess_batch_numpy_matches_jax():
     rng = np.random.RandomState(13)
     images = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
               for h, w in ((40, 48), (64, 50), (20, 28))]
-    got = tprep.preprocess_batch_numpy(images, size=32)
+    got = tprep.preprocess_batch_numpy(images, size=32, device="cpu")
     ref = jprep.preprocess_batch_numpy(images, size=32)
     assert isinstance(got, np.ndarray) and got.dtype == np.float32
     _close(got, ref)
@@ -123,3 +123,12 @@ def test_torch_mha_init_shapes_and_forward_match_jax(add_bias_kv):
                                 torch.from_numpy(kv), torch.from_numpy(kv))
     _close(out, want)
 
+
+
+def test_preprocess_batch_numpy_defaults_to_the_card(monkeypatch):
+    """Like the command lines, the helper runs on the card unless the CPU
+    is asked for: with no GPU its default device refuses."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    image = np.zeros((8, 8, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tprep.preprocess_batch_numpy([image], size=8)

@@ -216,3 +216,31 @@ def test_gloo_ring_gives_the_local_rings_bits(world, tmp_path):
                 err = (a - b).abs().max().item()
                 assert err <= 1e-5 * b.abs().max().item(), (layout, r, name,
                                                             err)
+
+
+@pytest.mark.parametrize("backend,card", [(None, 3), ("nccl", 3),
+                                          ("gloo", 1)])
+def test_multihost_initialize_takes_the_local_ranks_card(monkeypatch,
+                                                         backend, card):
+    """On cuda a rank takes the card of its local rank. Only an explicit
+    gloo backend folds the local rank onto the cards there are (several
+    ranks on one card); NCCL's default keeps the rank's own index, so a job
+    with more local ranks than cards fails at ``set_device``."""
+    import torch.distributed as dist
+
+    from macaw_llm_tpu_torch.parallel import mesh as tmesh
+    took, joined = [], {}
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda **kw: joined.update(kw))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", took.append)
+    for k in ("MASTER_ADDR", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1")
+    monkeypatch.setenv("NUM_PROCESSES", "4")
+    monkeypatch.setenv("PROCESS_ID", "3")
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert tmesh.multihost_initialize("cuda", backend=backend)
+    assert took == [card]
+    assert joined["backend"] == (backend or "nccl") and joined["rank"] == 3

@@ -765,7 +765,7 @@ def test_static_engine_equals_the_one_device_engine(setup, tp2):
         mp.undo()
     reqs = [tserve.Request(**r) for r in _requests(cfg)]
     with torch.inference_mode():
-        eng._run_batch(reqs)
+        eng._run_batch(reqs, eng._batch_inputs(reqs))
     strip = ("latency_ms",)
     ref = [{k: v for k, v in r._result.items() if k not in strip}
            for r in reqs]
@@ -800,7 +800,7 @@ def test_a_failed_prefill_or_stream_fails_its_request_only(setup, tp2):
     reqs = [tserve.Request(**r) for r in rows]
     with torch.inference_mode():
         for batch in (reqs[2:4], reqs[4:]):
-            one._run_batch(batch)
+            one._run_batch(batch, one._batch_inputs(batch))
     strip = ("latency_ms",)
     got = tp2[0]["static_fail"]["results"]
     assert all(set(r) == {"error"} for r in got[:2])
@@ -882,7 +882,7 @@ def test_a_followers_failure_inside_a_batch_stops_the_static_group(setup,
         mp.undo()
     reqs = [tserve.Request(**r) for r in _requests(setup["cfg"])[:2]]
     with torch.inference_mode():
-        one._run_batch(reqs)
+        one._run_batch(reqs, one._batch_inputs(reqs))
     strip = ("latency_ms",)
     assert [{k: v for k, v in r.items() if k not in strip}
             for r in lead["results"][:2]] == [
@@ -915,3 +915,69 @@ def test_serving_validates_a_tensor_group_of_the_worlds_size():
     dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, shard_sequence=True)).validate(world_size=2,
                                                   serving=True)
+
+
+def test_row_parallel_int8_keeps_the_int8_block_for_its_backward(tmp_path):
+    """Under a tensor group the QLoRA base's row-parallel products (wo,
+    down) save the int8 block for their backward, not a dequantized copy,
+    as the one-device ``_Int8Matmul`` does, and give its gradient."""
+    import torch.distributed as dist
+    rng = np.random.RandomState(5)
+    w = torch.from_numpy(rng.randn(16, 8).astype(np.float32))
+    q, s = tqz.quantize_tensor(w)
+    x = torch.from_numpy(rng.randn(2, 3, 16).astype(np.float32))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        saved, grads = [], []
+        for tp in (None, TensorParallel(1, 0)):
+            xg = x.clone().requires_grad_()
+            with torch.autograd.graph.saved_tensors_hooks(
+                    lambda t: saved.append((tp, t)) or t, lambda t: t):
+                y = tqz.matmul(xg, {"q": q, "s": s}, torch.float32, tp=tp)
+            y.square().sum().backward()
+            grads.append(xg.grad)
+    finally:
+        dist.destroy_process_group()
+    kept = [t for tp, t in saved if tp is not None and t.shape == q.shape]
+    assert kept and all(t.dtype == torch.int8 for t in kept), kept
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-6, atol=1e-6)
+
+
+def test_a_rank_learns_of_a_teardown_from_the_store(tmp_path):
+    """The teardown mark: ``_tear_down`` sets it in the job's store and
+    destroys its end of the group; another engine's watcher on the same
+    group reads it within its poll, flags its engine, whose next
+    ``_check_group`` raises (on NCCL it also aborts its end), and a
+    watcher whose engine issues no more collectives ends."""
+    import threading
+    import types
+
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        tp = TensorParallel(1, 0, dist.new_group([0]))
+
+        def engine():
+            return types.SimpleNamespace(tp=tp, _torn=threading.Event(),
+                                         _group_done=threading.Event())
+        peer, failing, idle = engine(), engine(), engine()
+        watchers = [threading.Thread(target=tserve._watch_group,
+                                     args=(e, tp)) for e in (peer, idle)]
+        for w in watchers:
+            w.start()
+        tserve._check_group(peer)  # nothing torn down yet
+        idle._group_done.set()
+        watchers[1].join(5.0)
+        assert not watchers[1].is_alive() and not idle._torn.is_set()
+        tserve._tear_down(failing)
+        assert failing.tp is None and failing._group_done.is_set()
+        assert peer._torn.wait(5.0)
+        watchers[0].join(5.0)
+        assert not watchers[0].is_alive()
+        with pytest.raises(RuntimeError, match="torn down on another rank"):
+            tserve._check_group(peer)
+        assert tp.group not in dist.distributed_c10d._world.pg_map
+    finally:
+        dist.destroy_process_group()
