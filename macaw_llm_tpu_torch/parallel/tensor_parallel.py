@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
+import weakref
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -151,6 +152,24 @@ def sequence_parallel(tp: Optional[TensorParallel]
     return dataclasses.replace(tp, sequence=True)
 
 
+# process groups torn down after a failure on one of their ranks (the
+# server's teardown): a collective over one raises instead of being issued
+# on a communicator that was aborted
+TORN_GROUPS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def check_live(group) -> None:
+    """Raise if ``group`` was torn down (``TORN_GROUPS``)."""
+    if group is not None and group in TORN_GROUPS:
+        raise RuntimeError("the tensor group was torn down on another rank")
+
+
+def _issue(kind: str, group) -> None:
+    """Before each collective: refuse a torn-down group, count the call."""
+    check_live(group)
+    COLLECTIVES[kind] += 1
+
+
 def _trains(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -167,8 +186,8 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
+        _issue("all_reduce", ctx.group)
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        COLLECTIVES["all_reduce"] += 1
         return g, None
 
 
@@ -188,8 +207,8 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         x = x.contiguous().clone()
+        _issue("all_reduce", group)
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-        COLLECTIVES["all_reduce"] += 1
         return x
 
     @staticmethod
@@ -209,8 +228,8 @@ def _rank_block(x: torch.Tensor, dim: int, tp: TensorParallel):
 
 def _all_gather(tp: TensorParallel, x: torch.Tensor, dim: int):
     parts = [torch.empty_like(x) for _ in range(tp.size)]
+    _issue("all_gather", tp.group)
     dist.all_gather(parts, x.contiguous(), group=tp.group)
-    COLLECTIVES["all_gather"] += 1
     return torch.cat(parts, dim=dim)
 
 
@@ -219,8 +238,8 @@ def _reduce_scatter(tp: TensorParallel, x: torch.Tensor, dim: int):
     (the dim a multiple of the size)."""
     parts = list(x.movedim(dim, 0).contiguous().chunk(tp.size))
     out = torch.empty_like(parts[0])
+    _issue("reduce_scatter", tp.group)
     dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=tp.group)
-    COLLECTIVES["reduce_scatter"] += 1
     return out.movedim(0, dim)
 
 
@@ -260,8 +279,8 @@ class _RowMM(torch.autograd.Function):
             # a copy: remat "dots" keeps the product itself for its
             # recompute, which sums it again
             y = y.contiguous().clone()
+            _issue("all_reduce", tp.group)
             dist.all_reduce(y, op=dist.ReduceOp.SUM, group=tp.group)
-            COLLECTIVES["all_reduce"] += 1
         return y.to(x.dtype)
 
     @staticmethod
@@ -299,8 +318,8 @@ def reduce_max(tp: Optional[TensorParallel], x: torch.Tensor) -> torch.Tensor:
     if tp is None:
         return x
     x = x.contiguous().clone()
+    _issue("all_reduce", tp.group)
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=tp.group)
-    COLLECTIVES["all_reduce"] += 1
     return x
 
 

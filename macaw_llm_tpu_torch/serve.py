@@ -45,9 +45,10 @@ Every rank reaches the same verdict on a failure:
   teardown in the job's store and destroys its end of the group: on gloo
   that closes the connections its peers wait on. An NCCL communicator
   learns nothing from a peer's abort, so each rank's watcher
-  (``_watch_group``) polls the store and aborts its own end
-  (``ncclCommAbort``): the collectives in flight end, the next one
-  raises, and a value read back after the abort is dropped
+  (``_watch_group``) polls the store, marks the group torn down
+  (``tensor_parallel.TORN_GROUPS``: no collective is issued over it
+  again) and aborts its own end (``ncclCommAbort``): the collectives in
+  flight end, and a value read back after the abort is dropped
   (``_check_group``) rather than served;
 * the leader's own failure before it broadcasts a plan broadcasts the
   stop instead, so the followers end with it.
@@ -82,6 +83,7 @@ from macaw_llm_tpu_torch.config import EOS_ID, ModelConfig, PAD_ID
 from macaw_llm_tpu_torch.data.templates import format_prompt
 from macaw_llm_tpu_torch.generate import _sample, generate
 from macaw_llm_tpu_torch.models import fusion, llama
+from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
 from macaw_llm_tpu_torch.parallel.tensor_parallel import (TensorParallel,
                                                           reduce_max)
 
@@ -118,6 +120,7 @@ def _share(tp: Optional[TensorParallel], obj):
         return obj
     import torch.distributed as dist
     box = [obj]
+    tpar.check_live(tp.group)
     src = 0 if tp.group is None else dist.get_global_rank(tp.group, 0)
     dist.broadcast_object_list(box, src=src, group=tp.group)
     return box[0]
@@ -159,7 +162,6 @@ def _failed_anywhere(tp: Optional[TensorParallel], failed: List[bool],
 
 
 _WATCH_S = 0.1  # how often a rank's watcher reads the teardown mark
-_TORN = "the tensor group was torn down on another rank"
 
 
 def _torn_key(tp: TensorParallel) -> str:
@@ -174,8 +176,8 @@ def _store():
 
 def _abort(group) -> None:
     """Abort this rank's end of an NCCL group: its collectives in flight
-    end, and its next one raises. gloo needs nothing here: its peers see
-    the failing rank's connections close."""
+    end. gloo needs nothing here: its peers see the failing rank's
+    connections close."""
     import torch.distributed as dist
     if dist.get_backend(group) == "nccl":
         group.abort()
@@ -183,12 +185,13 @@ def _abort(group) -> None:
 
 def _watch_group(engine, tp: TensorParallel) -> None:
     """A rank's watcher, while its engine may issue collectives: once
-    another rank has marked the group torn down (``_tear_down``), flag the
-    engine (``_check_group``) and abort this rank's end of the group."""
+    another rank has marked the group torn down (``_tear_down``), mark it
+    here (``_check_group``; no further collective over it) and abort this
+    rank's end of the group."""
     store, key = _store(), _torn_key(tp)
     while not engine._group_done.wait(_WATCH_S):
         if store.check([key]):
-            engine._torn.set()
+            tpar.TORN_GROUPS.add(tp.group)
             try:
                 _abort(tp.group)
             except Exception:  # noqa: BLE001
@@ -199,8 +202,7 @@ def _watch_group(engine, tp: TensorParallel) -> None:
 def _check_group(engine) -> None:
     """Raise once the engine's group was torn down on another rank: a value
     read back after an NCCL abort is not the collective's result."""
-    if engine._torn.is_set():
-        raise RuntimeError(_TORN)
+    tpar.check_live(engine.tp.group)
 
 
 def _tear_down(engine) -> None:
@@ -216,9 +218,11 @@ def _tear_down(engine) -> None:
     import torch.distributed as dist
     tp, engine.tp = engine.tp, None
     engine._group_done.set()  # this rank's watcher stops
+    if engine._watcher is not None:  # after an abort it may be running
+        engine._watcher.join()
     try:
         _store().set(_torn_key(tp), "1")
-        if not engine._torn.is_set():  # else the watcher aborted it
+        if tp.group not in tpar.TORN_GROUPS:  # else the watcher aborted it
             _abort(tp.group)
         dist.destroy_process_group(tp.group)
     except Exception:  # noqa: BLE001
@@ -334,8 +338,9 @@ class InferenceEngine:
         self.max_new_tokens = max_new_tokens
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._stop = threading.Event()
-        self._torn = threading.Event()  # the group torn down elsewhere
         self._group_done = threading.Event()  # no collective follows
+        self._watcher = None if tp is None else threading.Thread(
+            target=_watch_group, args=(self, tp), daemon=True)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(_shared_seed(tp))
@@ -344,9 +349,8 @@ class InferenceEngine:
     # -------------------- lifecycle --------------------
 
     def start(self):
-        if self.tp is not None:
-            threading.Thread(target=_watch_group, args=(self, self.tp),
-                             daemon=True).start()
+        if self._watcher is not None:
+            self._watcher.start()
         self._thread.start()
 
     def stop(self):
@@ -868,8 +872,9 @@ class ContinuousEngine:
         self.queue: "queue.Queue[Request]" = queue.Queue()
         self._admit_q: "queue.Queue[tuple]" = queue.Queue(maxsize=slots)
         self._stop = threading.Event()
-        self._torn = threading.Event()  # the group torn down elsewhere
         self._group_done = threading.Event()  # no collective follows
+        self._watcher = None if tp is None else threading.Thread(
+            target=_watch_group, args=(self, tp), daemon=True)
         # one generator per thread that samples
         seed = _shared_seed(tp)
         self._gen_admit = torch.Generator(device=self.device)
@@ -906,8 +911,7 @@ class ContinuousEngine:
         if self.tp is None:
             self._prefill_thread.start()
         else:
-            threading.Thread(target=_watch_group, args=(self, self.tp),
-                             daemon=True).start()
+            self._watcher.start()
         self._thread.start()
 
     def stop(self):
@@ -1208,7 +1212,8 @@ class ContinuousEngine:
             error = f"decode loop failed: {e}"
         # the failed call's frames are gone: the group can be torn down
         self._stop.set()
-        if self.tp is not None and (self._tp_in_step or self._torn.is_set()):
+        if self.tp is not None and (self._tp_in_step
+                                    or self.tp.group in tpar.TORN_GROUPS):
             _tear_down(self)
         else:
             _release_followers(self.tp)

@@ -947,20 +947,24 @@ def test_row_parallel_int8_keeps_the_int8_block_for_its_backward(tmp_path):
 def test_a_rank_learns_of_a_teardown_from_the_store(tmp_path):
     """The teardown mark: ``_tear_down`` sets it in the job's store and
     destroys its end of the group; another engine's watcher on the same
-    group reads it within its poll, flags its engine, whose next
-    ``_check_group`` raises (on NCCL it also aborts its end), and a
-    watcher whose engine issues no more collectives ends."""
+    group reads it within its poll and marks the group torn down (on NCCL
+    it also aborts its end), after which ``_check_group`` and every
+    collective over the group raise instead of issuing; a watcher whose
+    engine issues no more collectives ends."""
     import threading
+    import time
     import types
 
     import torch.distributed as dist
+
+    from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
     dist.init_process_group("gloo", store=dist.FileStore(
         str(tmp_path / "store"), 1), rank=0, world_size=1)
     try:
         tp = TensorParallel(1, 0, dist.new_group([0]))
 
         def engine():
-            return types.SimpleNamespace(tp=tp, _torn=threading.Event(),
+            return types.SimpleNamespace(tp=tp, _watcher=None,
                                          _group_done=threading.Event())
         peer, failing, idle = engine(), engine(), engine()
         watchers = [threading.Thread(target=tserve._watch_group,
@@ -968,16 +972,24 @@ def test_a_rank_learns_of_a_teardown_from_the_store(tmp_path):
         for w in watchers:
             w.start()
         tserve._check_group(peer)  # nothing torn down yet
+        assert tpar.reduce_max(tp, torch.ones(2)).tolist() == [1.0, 1.0]
         idle._group_done.set()
         watchers[1].join(5.0)
-        assert not watchers[1].is_alive() and not idle._torn.is_set()
+        assert not watchers[1].is_alive()
+        assert tp.group not in tpar.TORN_GROUPS
         tserve._tear_down(failing)
         assert failing.tp is None and failing._group_done.is_set()
-        assert peer._torn.wait(5.0)
+        deadline = time.monotonic() + 5.0
+        while tp.group not in tpar.TORN_GROUPS \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
         watchers[0].join(5.0)
         assert not watchers[0].is_alive()
-        with pytest.raises(RuntimeError, match="torn down on another rank"):
-            tserve._check_group(peer)
+        for call in (lambda: tserve._check_group(peer),
+                     lambda: tpar.reduce_max(tp, torch.ones(2)),
+                     lambda: tserve._share(tp, {"plan": 1})):
+            with pytest.raises(RuntimeError, match="torn down on another"):
+                call()
         assert tp.group not in dist.distributed_c10d._world.pg_map
     finally:
         dist.destroy_process_group()
