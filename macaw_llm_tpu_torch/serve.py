@@ -109,6 +109,22 @@ def _init_align_cache(params: dict, mcfg: ModelConfig, mode: str,
     return fusion.pack_towers(fusion.strip_align_kv(params)), cache
 
 
+def _this_card(device: torch.device) -> torch.device:
+    """``cuda`` as the card this process took (``torch.cuda.set_device``
+    is the main thread's: an engine's threads start on card 0)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _on_card(device: torch.device):
+    """Run a thread's work on ``device``'s card (nothing on the CPU):
+    ``broadcast_object_list`` and an NCCL abort act on the thread's
+    current card."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
 def _seed_from_clock() -> int:
     return int(time.time() * 1e3) % 2**31
 
@@ -193,7 +209,8 @@ def _watch_group(engine, tp: TensorParallel) -> None:
         if store.check([key]):
             tpar.TORN_GROUPS.add(tp.group)
             try:
-                _abort(tp.group)
+                with _on_card(engine.device):
+                    _abort(tp.group)
             except Exception:  # noqa: BLE001
                 logger.exception("could not abort the engine's group")
             return
@@ -326,7 +343,7 @@ class InferenceEngine:
                  max_new_tokens: int = 128, align_cache: str = "bf16",
                  kv_cache_dtype: Optional[str] = None, device="cuda",
                  tp: Optional[TensorParallel] = None):
-        self.device = resolve_device(device)
+        self.device = _this_card(resolve_device(device))
         self.tp = tp = _own_group(tp)
         self.params, self.align_cache = _init_align_cache(params, cfg,
                                                           align_cache, tp)
@@ -404,7 +421,8 @@ class InferenceEngine:
 
     def _loop(self):
         try:
-            self._batches()
+            with _on_card(self.device):
+                self._batches()
         finally:
             self._group_done.set()
 
@@ -822,7 +840,7 @@ class ContinuousEngine:
                  max_new_tokens: int = 128, align_cache: str = "bf16",
                  kv_cache_dtype: Optional[str] = None, device="cuda",
                  tp: Optional[TensorParallel] = None):
-        self.device = resolve_device(device)
+        self.device = _this_card(resolve_device(device))
         self.tp = tp = _own_group(tp)
         self._tp_admitted: List[Request] = []
         self._tp_in_step = False  # between a plan's broadcast and its end
@@ -1194,7 +1212,8 @@ class ContinuousEngine:
 
     def _loop(self):
         try:
-            self._run_loop()
+            with _on_card(self.device):
+                self._run_loop()
         finally:
             self._group_done.set()
 

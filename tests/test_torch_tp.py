@@ -965,6 +965,7 @@ def test_a_rank_learns_of_a_teardown_from_the_store(tmp_path):
 
         def engine():
             return types.SimpleNamespace(tp=tp, _watcher=None,
+                                         device=torch.device("cpu"),
                                          _group_done=threading.Event())
         peer, failing, idle = engine(), engine(), engine()
         watchers = [threading.Thread(target=tserve._watch_group,
@@ -993,3 +994,14 @@ def test_a_rank_learns_of_a_teardown_from_the_store(tmp_path):
         assert tp.group not in dist.distributed_c10d._world.pg_map
     finally:
         dist.destroy_process_group()
+
+
+def test_engines_pin_their_threads_to_the_processs_card(monkeypatch):
+    """``cuda`` names the card this process took: the engines' threads
+    (their loops, the teardown watcher) run there, not on card 0, which
+    every new thread starts on."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert tserve._this_card(torch.device("cuda")) == torch.device("cuda", 1)
+    assert tserve._this_card(torch.device("cuda", 0)) == torch.device(
+        "cuda", 0)
+    assert tserve._this_card(torch.device("cpu")) == torch.device("cpu")
