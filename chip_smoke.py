@@ -10,8 +10,10 @@ Phases, in order (any failure raises and the script exits non-zero):
     time kernel, plain version, the library call that computes the same
     function (where one exists) and the bound; also at the shapes of a
     tensor-parallel rank at t = 2 and 4 (phase 13): B1 at 16 and 8 heads,
-    B2 at Whisper's 4 and 2 heads and the alignment fold's 8 and 4; and B1
-    at the 1b train step's rank shape [8, 312, 8, 128] (phase 14a);
+    B2 at Whisper's 4 and 2 heads and the alignment fold's 8 and 4; B1
+    at the 1b train step's rank shape [8, 312, 8, 128] (phase 14a); and a
+    ZeRO-3 rank's 2 rows (phase 15): B1 [2, 312, 16 / 32, 128] (1b / 7b),
+    B2 Whisper [2, 1500, 8, 64];
  3a. the int8 matvec (B5) against its plain version at the five 7b
     decode shapes and two ragged ones (N no multiple of 16, K no multiple
     of 64) at 4, 16 and 32 rows, bitwise on a rerun; timed at the 7b
@@ -136,13 +138,42 @@ Phases, in order (any failure raises and the script exits non-zero):
     against 4b's one-device step on the card by 4b's bars. The ranks share
     one card and sum through host memory: their times say nothing of
     tensor parallelism across cards;
+ 15. the parallel layer across cards, one rank a card over NCCL (the
+    ranks are this script's and ``parallel.dryrun``'s children, each
+    taking the card of its local rank through ``multihost_initialize``),
+    where the process sees two cards or more, at t = 4 where it sees four
+    (on one card one line says it did not run): the cards' names, power
+    limits and ``nvidia-smi topo -m``; one-card references first (phase
+    10's imported 1b weights and its run file at 10a's global batch of 8).
+    15a the 1b run file under ZeRO-3 (mesh fsdp t, 8 / t rows a rank),
+    2 + 3 steps and the final gathered save: step 1 within 1e-3 of the
+    one-card run, steps 2-3 within 3e-2, the ranks the same bits, B1/B2
+    launches asserted; the checkpoint restored over the mesh and on one
+    card bit for bit; 15b the 7b full fine-tune through ``run_train
+    --profile 7b`` at full width and depth under ZeRO-3 (random weights
+    from the seed; its state, about 81 GB, fits no one card): finite
+    losses, the same bits on every rank, the gathered save (rank 0's host
+    peak) and a resume of it bit for bit; the same at 2 layers a stack
+    against one card's run by 15a's bars; 15c phase 13 at t = 2 and 4
+    against phases 5 and 6 run again here (3 timed prefills) and the
+    one-device engine on the same requests (13a's and 13b's stage checks;
+    served tokens/s, TTFT and ITL beside one device's); 15d phase 14a at
+    t = 2 and 4; 15e ``ring_attention`` at [1, 8192, 32, 128] over t
+    ranks, both layouts, forward and backward, against one B2 + B3/B4 call
+    by 12a's bars, its launches asserted and its ms beside the single
+    call's, then the 1b run file with the ring (zig-zag) over mesh tensor
+    t against the one-card run by 15a's bars. Per-rank step ms, peak and
+    collectives throughout. Its scratch (15b's checkpoint is 67 GB) is
+    ``build/phase15``, deleted when the phase ends;
  11. one ``{"kernels": [...]}`` line (with a tensor-parallel rank's
-    launches and the shard shapes' times, and its training launches and
-    train shapes), then the contract line ``{"ok": true, "device":
-    {...}}`` last.
+    launches and the shard shapes' times, its training launches and
+    train shapes, and phase 15's launches and ZeRO-3 shapes), then the
+    contract line ``{"ok": true, "device": {...}}`` last.
 
 Weights are random, made on the card from a seed. Usage, from the root of
-a checkout:  python3 chip_smoke.py [--profile]
+a checkout:  python3 chip_smoke.py [--profile] [--phase 15]
+(--phase 15 runs the build, the card's line and phase 15 alone, and exits
+1 where the process sees fewer than two cards.)
 (--profile adds torch.profiler tables, and Chrome traces under
 build/traces/, of one prefill, of greedy decode
 with 1 and 4 new tokens, of 20 engine decode steps at 16 slots (with the
@@ -163,6 +194,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -343,13 +375,17 @@ FLASH_CALLS = (("whisper", 16, 1500, 1500, 8, 64, 6, 0),
                ("tp2_whisper", 16, 1500, 1500, 4, 64, 0, 0),
                ("tp4_whisper", 16, 1500, 1500, 2, 64, 0, 0),
                ("tp2_video_align", 8, 624, 32009, 1, 256, 0, 0),
-               ("tp4_video_align", 4, 624, 32009, 1, 256, 0, 0))
+               ("tp4_video_align", 4, 624, 32009, 1, 256, 0, 0),
+               # a ZeRO-3 rank's Whisper at 2 rows (phase 15a, 15b)
+               ("zero3_whisper", 2, 1500, 1500, 8, 64, 0, 0))
 
 # B1's calls: batch, heads, launches per prefill, call: the 7b's 32 heads,
 # a tensor-parallel rank's at t = 2 and 4 (phase 13), and the 1b train
 # step's 16 heads cut over t = 2 (phase 14a: batch 8, fused length 312)
 MH_CALLS = ((16, 32, 32, "llama"), (16, 16, 0, "tp2_llama"),
-            (16, 8, 0, "tp4_llama"), (8, 8, 0, "tp2_train_1b"))
+            (16, 8, 0, "tp4_llama"), (8, 8, 0, "tp2_train_1b"),
+            # a ZeRO-3 rank's at 2 rows (phase 15a and 15b: 8 over 4 cards)
+            (2, 16, 0, "zero3_1b"), (2, 32, 0, "zero3_7b"))
 
 
 def whisper(b):
@@ -1207,7 +1243,8 @@ def run_prefill_quantized_towers(torch, params, cfg, cache, kernels, batch,
     return result
 
 
-def run_generate(torch, params, cfg, cache, batch, kernels, new=16, b=4):
+def run_generate(torch, params, cfg, cache, batch, kernels, new=16, b=4,
+                 name="decode"):
     from macaw_llm_tpu_torch.generate import generate
     from macaw_llm_tpu_torch.models import fusion
     from macaw_llm_tpu_torch.utils import quantize as qz
@@ -1258,7 +1295,7 @@ def run_generate(torch, params, cfg, cache, batch, kernels, new=16, b=4):
                   decode_step_ms=(seconds - first_s) / (new - 1) * 1e3,
                   matvec_per_step=per_step, launches=launched,
                   tokens=toks.tolist())
-    log(json.dumps({"decode": result}))
+    log(json.dumps({name: result}))
     return result, params, fused
 
 
@@ -1317,6 +1354,22 @@ def serve_all(engine, requests, timeout: float = 900.0):
 
 def result_tokens(result) -> list:
     return [int(t) for t in result["text"].split()]
+
+
+def stream_metrics(stamps, seconds: float, tokens) -> dict:
+    """Served tokens/s, TTFT and ITL p50/p95 (ms) of requests whose
+    ``stamps`` are their submit time followed by each streamed token's
+    arrival (``serve_all``'s), over a run of ``seconds``."""
+    ttfts = [ts[1] - ts[0] for ts in stamps if len(ts) >= 2]
+    itls = [b - a for ts in stamps if len(ts) >= 3
+            for a, b in zip(ts[1:-1], ts[2:])]
+    total = sum(len(t) for t in tokens)
+    return dict(requests=len(stamps), tokens=total, seconds=seconds,
+                served_tokens_per_s=total / seconds,
+                ttft_p50_ms=statistics.median(ttfts) * 1e3,
+                ttft_p95_ms=percentile(ttfts, 0.95) * 1e3,
+                itl_p50_ms=statistics.median(itls) * 1e3,
+                itl_p95_ms=percentile(itls, 0.95) * 1e3)
 
 
 def small_engine_parity(torch, cfg7, kernels):
@@ -1743,10 +1796,6 @@ def run_engine(torch, params, cfg, kernels, card: str, slots: int, new: int,
     finally:
         engine.stop()
 
-    total = sum(len(t) for t in tokens)
-    ttfts = [ts[1] - ts[0] for ts in stamps if len(ts) >= 2]
-    itls = [b - a for ts in stamps if len(ts) >= 3
-            for a, b in zip(ts[1:-1], ts[2:])]
     # steady state: the stretches between two polls that both found every
     # slot holding a request
     dt = dsteps = 0
@@ -1757,14 +1806,9 @@ def run_engine(torch, params, cfg, kernels, card: str, slots: int, new: int,
     if dsteps:
         steady, step_ms = dsteps * slots / dt, dt / dsteps * 1e3
     result = dict(
-        slots=slots, requests=n_req, media_requests=n_media,
-        sampled_requests=n_sampled, new_tokens=new, seconds=elapsed,
-        tokens=total, served_tokens_per_s=total / elapsed,
+        slots=slots, media_requests=n_media, sampled_requests=n_sampled,
+        new_tokens=new, **stream_metrics(stamps, elapsed, tokens),
         steady_tokens_per_s=steady, steady_step_ms=step_ms, steps=steps,
-        ttft_p50_ms=statistics.median(ttfts) * 1e3,
-        ttft_p95_ms=percentile(ttfts, 0.95) * 1e3,
-        itl_p50_ms=statistics.median(itls) * 1e3,
-        itl_p95_ms=percentile(itls, 0.95) * 1e3,
         solo_ttft_ms=solo_ttft_ms, solo_itl_ms=solo_itl_ms,
         peak_mem_gb=peak_gb,
         launches=launched, stats=dict(engine.stats), card=card)
@@ -2108,19 +2152,37 @@ def states_equal(torch, a, b) -> list:
 TRAIN_1B_RUN = ROOT / "bench_artifacts" / "train_1b_chip.json"
 
 
-def phase10_config(out: Path, layers=None, **train):
-    """A copy of the committed 1b run file with the phase's cadence (and,
-    for the resume, the depth of every stack cut to ``layers``)."""
+def phase10_config(out: Path, layers=None, mesh=None, model=None,
+                   model_fields=None, vocab_pad_to=None, **train):
+    """A copy of the committed 1b run file, written to ``out``, with the
+    train fields in ``train``; ``model`` (a ModelConfig, e.g. macaw_7b())
+    gives the LLaMA and the towers in place of the file's, ``vocab_pad_to``
+    pads the LLaMA's vocab, ``layers`` cuts the depth of every stack and
+    ``model_fields`` sets other model fields (``shard_sequence``, the
+    ring). ``mesh`` (axis sizes, the file's mesh being all 1s) spreads the
+    run: the per-device batch is cut so that the global batch stays 10a's
+    8, the tensor axis, which does not cut the batch, included
+    (run_train's global batch is per-device x processes)."""
     from macaw_llm_tpu_torch.config import Config
     cfg = Config.from_json(TRAIN_1B_RUN.read_text())
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
-                                                             **train))
+    m = cfg.model
+    llm, vision, audio = (model or m).llm, (model or m).vision, \
+        (model or m).audio
+    if vocab_pad_to is not None:
+        llm = dataclasses.replace(llm, vocab_pad_to=vocab_pad_to)
     if layers is not None:
-        m = cfg.model
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            m, llm=dataclasses.replace(m.llm, num_layers=layers),
-            vision=dataclasses.replace(m.vision, num_layers=layers),
-            audio=dataclasses.replace(m.audio, encoder_layers=layers)))
+        llm = dataclasses.replace(llm, num_layers=layers)
+        vision = dataclasses.replace(vision, num_layers=layers)
+        audio = dataclasses.replace(audio, encoder_layers=layers)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh,
+                                                                **mesh))
+        train = dict(per_device_batch_size=cfg.train.per_device_batch_size
+                     // math.prod(mesh.values()), **train)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(m, llm=llm, vision=vision,
+                                       audio=audio, **(model_fields or {})),
+        train=dataclasses.replace(cfg.train, **train))
     out.write_text(cfg.to_json())
     return cfg
 
@@ -2189,6 +2251,33 @@ def import_1b(torch, work: Path) -> tuple:
     return hf_dir, result
 
 
+def step_hook(torch, kernels, rows: list, each=None):
+    """``run_train.main``'s ``on_step``: each step synchronized, its ms (since
+    the last step, the first since the hook was made), loss, gradient norm,
+    loader wait, launches, collectives and peak memory appended to
+    ``rows``; ``each(step, state, row)`` runs before the counts are reset
+    and the clock restarts."""
+    from macaw_llm_tpu_torch.parallel.sharding import COLLECTIVES
+    mark = [time.perf_counter()]
+
+    def on_step(step, state, metrics):
+        torch.cuda.synchronize()
+        row = dict(step=step, step_ms=(time.perf_counter() - mark[0]) * 1e3,
+                   loss=float(metrics["loss"]),
+                   grad_norm=float(metrics["grad_norm"]),
+                   loader_wait_s=metrics["loader_wait_s"],
+                   launches=counts(kernels), collectives=dict(COLLECTIVES),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rows.append(row)
+        if each is not None:
+            each(step, state, row)
+        reset_counts(kernels)
+        COLLECTIVES.clear()
+        mark[0] = time.perf_counter()
+
+    return on_step
+
+
 def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
                  out_dir=None, llama_dir=None, offload: bool = False):
     """10a: ``run_train.main`` on the 1b run file (synthetic zero-media
@@ -2210,18 +2299,9 @@ def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
     warm, timed = 2, 5
     n_steps = warm + timed + (out_dir is not None)
     steps = []
-    mark = [time.perf_counter()]
     prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-    def on_step(step, state, metrics):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        row = dict(step=step, step_ms=(now - mark[0]) * 1e3,
-                   loss=float(metrics["loss"]),
-                   grad_norm=float(metrics["grad_norm"]),
-                   loader_wait_s=metrics["loader_wait_s"],
-                   launches=counts(kernels),
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    def each(step, state, row):
         if offload:
             moments = (_tensors(state.opt_state.mu)
                        + _tensors(state.opt_state.nu))
@@ -2229,7 +2309,6 @@ def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
                 t.device.type == "cpu" and t.is_pinned() for t in moments)
             row["moments_host_bytes"] = sum(t.numel() * t.element_size()
                                             for t in moments)
-        steps.append(row)
         log(json.dumps({f"{tag}_step": row}))
         if out_dir is not None and step == n_steps:  # one loop iteration
             prof.__exit__(None, None, None)
@@ -2239,13 +2318,12 @@ def run_train_1b(torch, kernels, card: str, work: Path, expect: dict,
             log(f"== profile train1b\n{table}")
             log(json.dumps({"profile": "train1b", "wall_ms": row["step_ms"],
                             "device_busy_ms": device_busy_ms(prof)}))
-        reset_counts(kernels)
         if out_dir is not None and step == n_steps - 1:
             prof.__enter__()
-        mark[0] = time.perf_counter()
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
+    on_step = step_hook(torch, kernels, steps, each)
     t0 = time.perf_counter()
     weights = [] if llama_dir is None else ["--llama-weights",
                                             str(llama_dir)]
@@ -2639,14 +2717,10 @@ def run_ring_child(torch, card: str, work: Path, llama_dir,
     NUM_PROCESSES, PROCESS_ID), the run file's mesh (all 1s), ring
     attention (zig-zag, n = 1), 2 + 3 steps, no checkpoint."""
     import socket
-    from macaw_llm_tpu_torch.config import Config
-    cfg = Config.from_json(TRAIN_1B_RUN.read_text())
-    cfg = dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, ring_attention=True,
-                                       ring_layout="zigzag"),
-        train=dataclasses.replace(cfg.train, save_steps=0, log_steps=1))
     path = work / "train_1b_ring.json"
-    path.write_text(cfg.to_json())
+    phase10_config(path, model_fields=dict(ring_attention=True,
+                                           ring_layout="zigzag"),
+                   save_steps=0, log_steps=1)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -2728,11 +2802,30 @@ TP_ENGINE_KW = dict(slots=16, prompt_bucket=64, max_new_tokens=TP_NEW,
 TP_KV_BF16 = dict(TP_ENGINE_KW, kv_cache_dtype=None)
 
 
+def join_job(torch, job: dict, rank: int) -> None:
+    """Join the job's process group (its FileStore): with ``job["across"]``
+    one rank a card over NCCL (``multihost_initialize`` takes the card of
+    the local rank); else gloo, every rank on card 0 (NCCL takes one rank
+    a card)."""
+    import torch.distributed as dist
+    from macaw_llm_tpu_torch.parallel.mesh import multihost_initialize
+    store = dist.FileStore(job["store"], job["world"])
+    if job.get("across"):
+        os.environ.update(PROCESS_ID=str(rank), LOCAL_RANK=str(rank),
+                          NUM_PROCESSES=str(job["world"]))
+        multihost_initialize("cuda", store=store)
+        return
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=job["world"])
+
+
 def tp_worker(job_path: str, rank: int) -> None:
-    """One rank of phase 13 (``chip_smoke.py --tp-worker JOB --tp-rank R``):
-    joins a gloo group of the job's ranks (a FileStore; NCCL takes one rank
-    a card), draws the whole 7b from phase 5's seed on the card, one rank
-    at a time, quantizes its LLaMA, keeps this rank's block and packs it.
+    """One rank of phase 13 or 15c (``chip_smoke.py --tp-worker JOB
+    --tp-rank R``): joins the job's group (``join_job``: gloo on one card,
+    or one rank a card over NCCL), draws the whole 7b from phase 5's seed
+    on its card (one rank at a time where they share it), quantizes its
+    LLaMA, keeps this rank's block and packs it.
     13a: phase 5's b16 prefill through ``prefill`` (its fused prefix saved
     by rank 0), the LLaMA alone on phase 5's own prefix (saved by the
     parent), phase 6's 4 x 16 greedy ``generate`` on phase 6's prefix;
@@ -2758,9 +2851,8 @@ def tp_worker(job_path: str, rank: int) -> None:
     world, work = job["world"], Path(job["out"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(job["store"], world),
-                            rank=rank, world_size=world)
+    join_job(torch, job, rank)
+    across = bool(job.get("across"))
     cfg = macaw_7b()
     tp = TensorParallel.world(cfg)
     kernels = kernel_table(mh, fa, mv)
@@ -2781,10 +2873,10 @@ def tp_worker(job_path: str, rank: int) -> None:
         res[f"{name}_launches"] = counts(kernels)
         res[f"{name}_collectives"] = dict(COLLECTIVES)
 
-    # the whole tree on the card one rank at a time
+    # the whole tree on the card, one rank at a time on a shared card
     t0 = time.perf_counter()
     block = None
-    for r in range(world):
+    for r in [rank] if across else range(world):
         if r == rank:
             whole = fusion.init_params(0, cfg, dtype=torch.bfloat16,
                                        device="cuda")
@@ -2860,24 +2952,29 @@ def tp_worker(job_path: str, rank: int) -> None:
     # then the same with a bf16 KV cache
     serve._seed_from_clock = lambda: 1234
 
-    def run_engine_tp(kw, prefixes=None, logits=None):
+    def run_engine_tp(kw, prefixes=None, logits=None, key="engine_serve"):
         """The engine over ``tp_requests``: the leader's token lists (None
         on the follower), the seconds and the engine; the leader keeps
         each request's fused prefix in ``prefixes`` and its logits in
-        ``logits``."""
+        ``logits``; its served tokens/s, TTFT and ITL go to ``res[key]``
+        on the leader."""
         engine = serve.ContinuousEngine(block, cfg, BenchTok(), tp=tp, **kw)
         if tp.leader and prefixes is not None:
             record_prefixes(engine, prefixes)
         with (logits_recorded(engine, logits)
               if tp.leader and logits is not None
               else contextlib.nullcontext()):
-            return drive(engine)
+            return drive(engine, key)
 
-    def drive(engine):
+    def drive(engine, key):
         reqs = tp_requests(cfg)
+        stamps = [[] for _ in reqs]  # the leader's: each token's arrival
         t1 = time.perf_counter()
         if tp.leader:
-            for r in reqs:
+            for i, r in enumerate(reqs):
+                stamps[i].append(t1)
+                r.stream_cb = lambda tok, i=i: stamps[i].append(
+                    time.perf_counter())
                 engine.queue.put(r)
         engine.start()
         if tp.leader:
@@ -2892,7 +2989,9 @@ def tp_worker(job_path: str, rank: int) -> None:
             return None, seconds, engine
         if any(r._result is None or "text" not in r._result for r in reqs):
             raise AssertionError("13b: a request failed")
-        return [result_tokens(r._result) for r in reqs], seconds, engine
+        tokens = [result_tokens(r._result) for r in reqs]
+        res[key] = stream_metrics(stamps, seconds, tokens)
+        return tokens, seconds, engine
 
     start()
     res["engine_prefixes"], res["engine_logits"] = {}, {}
@@ -2906,7 +3005,7 @@ def tp_worker(job_path: str, rank: int) -> None:
     torch.cuda.empty_cache()
     sync()
     res["engine_bf16_tokens"], res["engine_bf16_s"], engine = \
-        run_engine_tp(TP_KV_BF16)
+        run_engine_tp(TP_KV_BF16, key="engine_bf16_serve")
     del engine
     dist.barrier()
     torch.save(res, work / f"rank{rank}.pt")
@@ -2914,46 +3013,30 @@ def tp_worker(job_path: str, rank: int) -> None:
 
 
 def spawn_tp(world: int, work: Path, job: Optional[dict] = None,
-             flag: str = "--tp-worker", phase: str = "13") -> list:
-    """Phase 13's (or, with ``flag`` and ``phase``, 14's) ranks as child
-    processes of this script, given ``job`` (default: a FileStore
-    rendezvous); every one is killed after TP_TIMEOUT_S. A rank that fails
-    fails the phase, with the ranks' output."""
-    import subprocess as sp
-    import tempfile
+             flag: str = "--tp-worker", phase: str = "13",
+             timeout: float = TP_TIMEOUT_S) -> list:
+    """Phase 13's (or, with ``flag`` and ``phase``, 14's and 15's) ranks as
+    child processes of this script, given ``job`` (its "store" and "out"
+    default to the FileStore and ``work``); every one is killed after
+    ``timeout`` seconds, once it has written its threads' stacks to its
+    output (SIGUSR1). A rank that fails fails the phase, with the ranks'
+    output."""
+    from macaw_llm_tpu_torch.parallel.dryrun import run_ranks
     store = work / "store"
     if store.exists():
         store.unlink()
     path = work / "job.json"
-    path.write_text(json.dumps(job or {"world": world, "store": str(store),
-                                       "out": str(work)}))
-    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
-    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
-    procs = [sp.Popen([sys.executable, str(Path(__file__).resolve()),
-                       flag, str(path), "--tp-rank", str(r)],
-                      cwd=str(ROOT), env=env, stdout=logs[r],
-                      stderr=sp.STDOUT) for r in range(world)]
-    deadline = time.monotonic() + TP_TIMEOUT_S
-    try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-    except sp.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    texts = []
-    for f in logs:
-        f.seek(0)
-        texts.append(f.read())
-        f.close()
-    if any(p.returncode != 0 for p in procs):
+    path.write_text(json.dumps(dict({"world": world, "store": str(store),
+                                     "out": str(work)}, **(job or {}))))
+    codes, texts = run_ranks(
+        [[sys.executable, str(Path(__file__).resolve()), flag, str(path),
+          "--tp-rank", str(r)] for r in range(world)],
+        dict(os.environ, GLOO_SOCKET_IFNAME="lo"), timeout, cwd=str(ROOT))
+    if any(c != 0 for c in codes):
         raise AssertionError(
-            f"phase {phase}: a rank failed (exit codes "
-            f"{[p.returncode for p in procs]}):\n" + "\n".join(
-                f"--- rank {r} ---\n{t[-3000:]}" for r, t in enumerate(texts)))
+            f"phase {phase}: a rank failed (exit codes {codes}):\n"
+            + "\n".join(f"--- rank {r} ---\n{t[-6000:]}"
+                        for r, t in enumerate(texts)))
     import torch
     return [torch.load(work / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
@@ -3152,10 +3235,15 @@ def one_device_engine(torch, params, cfg, kw, record=None, replay=None,
 
 
 def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
-           engine_params, logits_5, fused_6, greedy, work: Path) -> dict:
+           engine_params, logits_5, fused_6, greedy, work: Path,
+           ranks: int = TP_RANKS, across: bool = False,
+           refs: Optional[dict] = None, name: str = "tp_inference") -> dict:
     """Phase 13: the port's tensor-parallel path at ``macaw_7b()`` full width
     and depth, int8 weights, t = 2 ranks (``tp_worker``) on this card,
-    against the one-device phases on the same weights.
+    against the one-device phases on the same weights. Phase 15c: the same
+    at t = ``ranks``, one rank a card over NCCL (``across``), its one-device
+    engine runs kept in ``refs`` for the next t; the result line is
+    ``name``.
 
     13a prefill, held stage by stage: the ranks' LLaMA on phase 5's own
     fused prefix gives phase 5's logits bit for bit (W8A8: the int32 dots
@@ -3214,23 +3302,35 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
                                   fused_6.attention_mask)],
                work / "prefix6.pt")
     reqs = tp_requests(cfg)
+    refs = {} if refs is None else refs
+    if not refs:  # the one-device engine runs, the same for every t
+        engine = ContinuousEngine(engine_params, cfg, BenchTok(),
+                                  **TP_ENGINE_KW)
+        refs["prefixes"] = {}
+        record_prefixes(engine, refs["prefixes"])
+        engine.start()
+        try:
+            t0 = time.perf_counter()
+            out, stamps = serve_all(engine, tp_requests(cfg))
+            seconds = time.perf_counter() - t0
+        finally:
+            engine.stop()
+        refs["tokens"] = [result_tokens(r) for r in out]
+        refs["serve"] = stream_metrics(stamps, seconds, refs["tokens"])
+        refs["bf16"] = one_device_engine(torch, engine_params, cfg,
+                                         TP_KV_BF16)
+        llm = engine_params["llm"]
+        refs["nudged"] = one_device_engine(
+            torch, dict(engine_params, llm=dict(llm, embed_tokens=nudge(
+                torch, llm["embed_tokens"], 14))), cfg, TP_ENGINE_KW)
+    one_prefixes, ref = refs["prefixes"], refs["tokens"]
+    ref_bf16, ref_nudged = refs["bf16"], refs["nudged"]
     engine = ContinuousEngine(engine_params, cfg, BenchTok(), **TP_ENGINE_KW)
-    one_prefixes = {}
-    record_prefixes(engine, one_prefixes)
-    engine.start()
-    try:
-        ref, _ = serve_all(engine, reqs)
-    finally:
-        engine.stop()
-    ref = [result_tokens(r) for r in ref]
-    ref_bf16 = one_device_engine(torch, engine_params, cfg, TP_KV_BF16)
-    llm = engine_params["llm"]
-    ref_nudged = one_device_engine(
-        torch, dict(engine_params, llm=dict(llm, embed_tokens=nudge(
-            torch, llm["embed_tokens"], 14))), cfg, TP_ENGINE_KW)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ranks = spawn_tp(TP_RANKS, work)
+    t = ranks
+    ranks = spawn_tp(t, work, {"across": across}, phase=name,
+                     timeout=P15_TIMEOUT_S if across else TP_TIMEOUT_S)
     seconds = time.perf_counter() - t0
     lead = ranks[0]
     for r in ranks[1:]:
@@ -3242,13 +3342,16 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
                 r["engine_state"], lead["engine_state"]))
                 and r["engine_stats"] == lead["engine_stats"]):
             raise AssertionError("13b: the ranks' slot states differ")
-    # every rank launches phase 5's and 6's kernels at its shapes
-    t = TP_RANKS
-    expect = {"mh_attention": 32, "flash_attention": 8, "matvec_int8": 0,
+    # every rank launches phase 5's and 6's kernels at its shapes; the
+    # video alignment takes B2 while its fp32 logits at this rank's 16 / t
+    # heads exceed the einsum's bytes (fusion.ALIGN_EINSUM_MAX_BYTES)
+    align = 16 * (16 // t) * 39 * 32009 * 4 > fusion.ALIGN_EINSUM_MAX_BYTES
+    expect = {"mh_attention": 32, "flash_attention": 7 + align,
+              "matvec_int8": 0,
               "flash_attention_combine": combines(torch, (
                   ((16, 1500, 1500, 8 // t, 64, False), 6),
                   (video_long(16), 1),
-                  ((16 // t, 39 * 16, 32009, 1, 256, False), 1))),
+                  ((16 // t, 39 * 16, 32009, 1, 256, False), align))),
               "flash_attention_dq": 0, "flash_attention_dkv": 0,
               "flash_attention_delta": 0, "matvec_int8_pipelined": 1}
     per_step = 4 * cfg.llm.num_layers + 1
@@ -3336,7 +3439,9 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
                    if req.temperature == 0)
     result = dict(
         ranks=t, card=card, seconds=seconds,
-        note="the ranks share one card's SMs and talk through gloo over "
+        backend="nccl, one rank a card" if across else "gloo, one card",
+        note="one rank a card, the collectives over NCCL" if across else
+             "the ranks share one card's SMs and talk through gloo over "
              "host memory: these times say nothing of tensor parallelism's "
              "speed across cards",
         cuts=lead["cuts"], build_s=[r["build_s"] for r in ranks],
@@ -3380,10 +3485,13 @@ def run_tp(torch, cfg, kernels, card: str, params5, params6, cache,
                         g_ == c for g_, c, req in zip(got, ref, reqs)
                         if req.temperature > 0],
                     seconds=[r["engine_s"] for r in ranks],
+                    serve=lead["engine_serve"],
+                    serve_kv_bf16=lead["engine_bf16_serve"],
+                    serve_one_device=refs["serve"],
                     peak_gb=[r["engine_peak_gb"] for r in ranks],
                     launches=lead["engine_launches"],
                     collectives=lead["engine_collectives"]))
-    log(json.dumps({"tp_inference": result}))
+    log(json.dumps({name: result}))
     return result
 
 
@@ -3401,24 +3509,15 @@ TP_TIMES_NOTE = ("the ranks share one card and sum through host memory "
                  "across cards")
 
 
-def tp_train_config(work: Path, sequence: bool) -> Path:
-    """14a's run file: the committed 1b run file with mesh tensor 2, fsdp
-    1, the vocab padded to TP_PAD_VOCAB, half the per-device batch (the
+def tp_train_config(work: Path, sequence: bool, t: int = TP_RANKS) -> Path:
+    """14a's run file: the committed 1b run file over mesh tensor ``t``,
+    the vocab padded to TP_PAD_VOCAB, a t-th of the per-device batch (the
     same global batch of 8 as 10a), no checkpoint, ``shard_sequence`` as
     asked."""
-    from macaw_llm_tpu_torch.config import Config, MeshConfig
-    cfg = Config.from_json(TRAIN_1B_RUN.read_text())
-    m, t = cfg.model, cfg.train
-    cfg = dataclasses.replace(
-        cfg, mesh=MeshConfig(dcn=1, data=1, fsdp=1, tensor=TP_RANKS),
-        model=dataclasses.replace(
-            m, shard_sequence=sequence,
-            llm=dataclasses.replace(m.llm, vocab_pad_to=TP_PAD_VOCAB)),
-        train=dataclasses.replace(
-            t, per_device_batch_size=t.per_device_batch_size // TP_RANKS,
-            save_steps=0, log_steps=1))
-    path = work / f"train_1b_tp{'_sequence' if sequence else ''}.json"
-    path.write_text(cfg.to_json())
+    path = work / f"train_1b_tp{t}{'_sequence' if sequence else ''}.json"
+    phase10_config(path, mesh=dict(tensor=t), vocab_pad_to=TP_PAD_VOCAB,
+                   model_fields=dict(shard_sequence=sequence),
+                   save_steps=0, log_steps=1)
     return path
 
 
@@ -3483,125 +3582,233 @@ def tp_qlora_step(torch, kernels) -> dict:
 
 
 def tp_train_worker(job_path: str, rank: int) -> None:
-    """One rank of phase 14 (``chip_smoke.py --tp-train-worker JOB
-    --tp-rank R``). 14a: ``run_train.main`` of each run file of the job,
-    joined to the job's group through the reference's environment with
-    ``--backend gloo`` (NCCL takes one rank a card), on phase 10's
-    imported 1b weights: each step's loss, gradient norm, ms, peak memory,
-    launches and collectives. 14b: ``tp_qlora_step``. Its results to the
-    job's directory."""
+    """One rank of phase 14 or 15 (``chip_smoke.py --tp-train-worker JOB
+    --tp-rank R``): ``run_train.main`` of each run of the job (``tag``,
+    ``config``, extra ``argv``; ``--llama-weights`` of the job's
+    ``llama_dir`` unless ``weights`` is false), joined to the job's group
+    through the reference's environment: with ``--backend gloo`` on one
+    card (NCCL takes one rank a card), or under ``job["across"]`` with the
+    default NCCL, one rank a card. Each step's loss, gradient norm, ms,
+    peak memory, launches and collectives. After a run, ``check_save``:
+    its final gathered checkpoint restored over the mesh (the same bits as
+    the state in memory, every rank its shards) and, on rank 0, on one
+    device through ``run_inference.restore_params`` (the same bits as the
+    gathered state); ``check_resume``: the state kept in host memory, then
+    ``run_train.main`` again on the same directory, which restores it and
+    has no step left (the restored state the same bits), with the
+    process's host peak before it. 14b (``job["qlora"]``):
+    ``tp_qlora_step``. Its results to the job's directory."""
+    import resource
+
     import torch
     import torch.distributed as dist
-    from macaw_llm_tpu_torch import run_train
+    from macaw_llm_tpu_torch import run_inference, run_train
     from macaw_llm_tpu_torch.ops.kernels import flash_attention as fa
     from macaw_llm_tpu_torch.ops.kernels import matvec as mv
     from macaw_llm_tpu_torch.ops.kernels import mh_attention as mh
     from macaw_llm_tpu_torch.parallel.sharding import COLLECTIVES
+    from macaw_llm_tpu_torch.train import checkpoint as ckpt_mod
+    from macaw_llm_tpu_torch.train.state import merge_params
     job = json.loads(Path(job_path).read_text())
     world, work = job["world"], Path(job["out"])
+    across = bool(job.get("across"))
     os.environ.update(COORDINATOR_ADDRESS=f"localhost:{job['port']}",
                       NUM_PROCESSES=str(world), PROCESS_ID=str(rank),
                       LOCAL_RANK=str(rank))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank if across else 0)  # before any CUDA call
     kernels = kernel_table(mh, fa, mv)
+    # the Trainer of each run_train.main call, which main does not hand
+    # back: its init_state made the specs that gather and shard the state
+    made = []
+
+    class Recording(run_train.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    run_train.Trainer = Recording
     res = {"rank": rank}
-    for tag, path in job["runs"]:
+    for run in job["runs"]:
+        tag = run["tag"]
         steps = []
-        mark = [time.perf_counter()]
-
-        def on_step(step, state, metrics):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            steps.append(dict(
-                step=step, step_ms=(now - mark[0]) * 1e3,
-                loss=float(metrics["loss"]),
-                grad_norm=float(metrics["grad_norm"]),
-                launches=counts(kernels), collectives=dict(COLLECTIVES),
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
-            reset_counts(kernels)
-            COLLECTIVES.clear()
-            mark[0] = time.perf_counter()
-
         torch.cuda.reset_peak_memory_stats()
         reset_counts(kernels)
         COLLECTIVES.clear()
-        state = run_train.main([
-            "--config", path, "--synthetic", "--steps", str(job["steps"]),
-            "--output-dir", str(work / f"run_{tag}"), "--device", "cuda",
-            "--backend", "gloo", "--llama-weights", job["llama_dir"]],
-            on_step=on_step)
-        res[tag] = dict(steps=steps, backend=dist.get_backend(),
-                        world=dist.get_world_size())
-        del state
+        on_step = step_hook(torch, kernels, steps)
+        run_dir = work / f"run_{tag}"
+        argv = ["--config", run["config"], "--synthetic", "--steps",
+                str(job["steps"]), "--output-dir", str(run_dir),
+                "--device", "cuda"] + run.get("argv", [])
+        if not across:
+            argv += ["--backend", "gloo"]
+        if run.get("weights", True):
+            argv += ["--llama-weights", job["llama_dir"]]
+        t0 = time.perf_counter()
+        state = run_train.main(argv, on_step=on_step)
+        out = dict(steps=steps, backend=dist.get_backend(),
+                   world=dist.get_world_size(),
+                   wall_s=time.perf_counter() - t0,
+                   card=torch.cuda.current_device(),
+                   host_peak_gb=resource.getrusage(
+                       resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9)
+        tr = made[-1]
+        if run.get("check_save"):
+            t0 = time.perf_counter()
+            back = ckpt_mod.CheckpointManager(str(run_dir),
+                                              trainer=tr).restore(state)
+            torch.cuda.synchronize()
+            out["sharded_restore_s"] = time.perf_counter() - t0
+            out["sharded_restore_diff"] = states_equal(torch, back, state)
+            del back
+            whole = tr.whole_state(state, rank0_only=True)
+            if rank == 0:
+                cfg = ckpt_mod.load_config(str(run_dir))
+                t0 = time.perf_counter()
+                one = run_inference.restore_params(str(run_dir), cfg,
+                                                   device="cuda")
+                torch.cuda.synchronize()
+                out["one_device_restore_s"] = time.perf_counter() - t0
+                one = {k: v.cpu() for k, v in _leaf_map(one).items()}
+                out["one_device_restore_diff"] = differing_leaves(
+                    torch, one, _leaf_map(merge_params(whole.trainable,
+                                                       whole.frozen)))
+                del one
+            del whole
+        if run.get("check_resume"):
+            kept = {k: v.cpu() for k, v in state_leaves(state).items()}
+            kept_step = (state.step, state.opt_state.count,
+                         state.rng.get_state())
+            del state
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            state = run_train.main(argv)
+            out["resume_s"] = time.perf_counter() - t0
+            got = {k: v.cpu() for k, v in state_leaves(state).items()}
+            diff = differing_leaves(torch, got, kept)
+            if (state.step, state.opt_state.count) != kept_step[:2]:
+                diff.append("step")
+            if not torch.equal(state.rng.get_state(), kept_step[2]):
+                diff.append("rng")
+            out["resume_diff"] = diff
+            out["state_gb"] = sum(v.numel() * v.element_size()
+                                  for v in kept.values()) / 1e9
+            del kept, got
+        res[tag] = out
+        del state, tr
+        made.clear()
         torch.cuda.empty_cache()
-    res["qlora"] = tp_qlora_step(torch, kernels)
+    if job.get("qlora"):
+        res["qlora"] = tp_qlora_step(torch, kernels)
     dist.barrier()
     torch.save(res, work / f"rank{rank}.pt")
     dist.destroy_process_group()
 
 
-def run_tp_train(torch, card: str, work: Path, llama_dir, train_10a: dict,
-                 card_4b: dict) -> dict:
-    """Phase 14: 14a, phase 10a's 1b full fine-tune at full depth through
-    ``run_train.main`` over 2 ranks on this card (mesh tensor 2, the vocab
-    padded to TP_PAD_VOCAB: embed_tokens and lm_head vocab-parallel), 2 +
-    3 steps, then the same with ``shard_sequence``: the ranks' losses the
-    same bits, step 1 within TP_TRAIN_STEP1_TOL of 10a's and steps 2-3
-    within the bf16 bar, B1 and B2 launches asserted every step; 14b,
-    ``tp_qlora_step`` against phase 4b's one-device step on the card
-    (4b's bars). Runs in phase 10's directory, on its imported weights."""
+def free_port() -> int:
     import socket
-    tp_dir = work / "phase14"
-    tp_dir.mkdir()
-    runs = [("tp", str(tp_train_config(tp_dir, False))),
-            ("tp_sequence", str(tp_train_config(tp_dir, True)))]
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+        return sock.getsockname()[1]
+
+
+def spawn_train(world: int, work: Path, runs: list, llama_dir=None,
+                phase: str = "14", steps: int = TP_TRAIN_STEPS,
+                across: bool = False, timeout: float = TP_TIMEOUT_S,
+                qlora: bool = False) -> list:
+    """``tp_train_worker`` ranks over ``runs`` (dicts: ``tag``, ``config``,
+    optional ``argv``, ``weights``, ``check_save``, ``check_resume``)."""
+    work.mkdir(parents=True, exist_ok=True)
+    return spawn_tp(world, work, dict(
+        port=free_port(), runs=runs, steps=steps, across=across,
+        qlora=qlora, llama_dir=None if llama_dir is None else str(llama_dir)),
+        "--tp-train-worker", phase, timeout=timeout)
+
+
+def hold_train(torch, ranks: list, tag: str, ref: dict, expect, card: str,
+               note: str, name: str, tokens_per_step=None) -> dict:
+    """A multi-rank run (``tag`` of each rank's results) against a one-card
+    run of the same global batch (``ref``: its ``losses``,
+    ``step_ms_median`` and ``peak_mem_gb``; None: no reference): the
+    ranks' losses and gradient norms the same bits, finite, step 1 within
+    TP_TRAIN_STEP1_TOL of the reference's and steps 2-3 within the bf16 bar
+    (those the reference has), every step's launches ``expect`` (unless
+    None). Logs the line ``name``: per-rank step ms (the median after 2
+    warm-up steps) and peak, with ``tokens_per_step`` tokens/s at the
+    slowest rank."""
+    ref = ref or {"losses": [], "step_ms_median": None, "peak_mem_gb": None}
+    steps = [r[tag]["steps"] for r in ranks]
+    losses = [[x["loss"] for x in st] for st in steps]
+    norms = [[x["grad_norm"] for x in st] for st in steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], ref["losses"])]
+    bad = [] if expect is None else [x["launches"] for st in steps
+                                     for x in st if x["launches"] != expect]
+    times = [statistics.median(x["step_ms"] for x in st[2:]) for st in steps]
+    line = dict(
+        run=tag, losses=losses[0], grad_norms=norms[0],
+        ref_losses=ref["losses"][:len(losses[0])], loss_rel_diff=rel,
+        ranks_same_bits=all(x == losses[0] for x in losses)
+        and all(x == norms[0] for x in norms),
+        step_ms_median=times, ref_step_ms_median=ref["step_ms_median"],
+        peak_mem_gb=[st[-1]["peak_mem_gb"] for st in steps],
+        ref_peak_mem_gb=ref["peak_mem_gb"],
+        launches_per_step=steps[0][-1]["launches"],
+        collectives_per_step=[st[-1]["collectives"] for st in steps],
+        backend=ranks[0][tag]["backend"], world=ranks[0][tag]["world"],
+        cards=[r[tag]["card"] for r in ranks], note=note, card=card)
+    if tokens_per_step:
+        line["tokens_per_s"] = tokens_per_step / (max(times) / 1e3)
+    log(json.dumps({name: line}))
+    if not line["ranks_same_bits"] or bad or \
+            not all(map(math.isfinite, losses[0])) or \
+            max(rel[:1], default=0.0) > TP_TRAIN_STEP1_TOL or \
+            max(rel[1:3], default=0.0) > TRAIN_LOSS_REL_TOL:
+        raise AssertionError(f"{name}: {line}, launches {bad[:1]} != "
+                             f"{expect}")
+    return line
+
+
+def run_tp_train(torch, card: str, work: Path, llama_dir, train_10a: dict,
+                 card_4b: Optional[dict] = None, t: int = TP_RANKS,
+                 across: bool = False, prefix: str = "tp_train_1b") -> dict:
+    """Phase 14: 14a, phase 10a's 1b full fine-tune at full depth through
+    ``run_train.main`` over t = 2 ranks on this card (mesh tensor 2, the
+    vocab padded to TP_PAD_VOCAB: embed_tokens and lm_head
+    vocab-parallel), 2 + 3 steps, then the same with ``shard_sequence``:
+    ``hold_train``'s bars against 10a, B1 and B2 launches asserted every
+    step; 14b (with ``card_4b``, phase 4b's one-device step on the card),
+    ``tp_qlora_step`` against it by 4b's bars. Runs in phase 10's
+    directory, on its imported weights. Phase 15d: 14a at ``t`` ranks, one
+    a card over NCCL (``across``)."""
+    tp_dir = work / ("phase14" if prefix == "tp_train_1b" else prefix)
+    runs = [dict(tag=tag, config=str(tp_train_config(
+        work, tag.endswith("sequence"), t)))
+        for tag in ("tp", "tp_sequence")]
     t0 = time.perf_counter()
-    ranks = spawn_tp(TP_RANKS, tp_dir, dict(
-        world=TP_RANKS, port=port, out=str(tp_dir), runs=runs,
-        llama_dir=str(llama_dir), steps=TP_TRAIN_STEPS),
-        "--tp-train-worker", "14")
+    ranks = spawn_train(t, tp_dir, runs, llama_dir,
+                        "14" if card_4b is not None else "15d",
+                        across=across, qlora=card_4b is not None,
+                        timeout=P15_TIMEOUT_S if across else TP_TIMEOUT_S)
     wall = time.perf_counter() - t0
     # per step on a rank: B1 in the 16 LLaMA layers' forward and remat
-    # recompute (8 heads), B2 in Whisper's 6 layers (4 heads)
-    rank_whisper = (8, 1500, 1500, 8 // TP_RANKS, 64, False)
+    # recompute (16 / t heads), B2 in Whisper's 6 layers (8 / t heads)
+    rank_whisper = (8, 1500, 1500, 8 // t, 64, False)
     expect_a = {"mh_attention": 32, "flash_attention": 6,
                 "flash_attention_combine": combines(torch,
                                                     ((rank_whisper, 6),)),
                 "flash_attention_dq": 0, "flash_attention_dkv": 0,
                 "flash_attention_delta": 0, "matvec_int8": 0,
                 "matvec_int8_pipelined": 0}
-    out = {"note": TP_TIMES_NOTE, "wall_s": wall, "card": card}
-    ref = train_10a["losses"]
-    for tag, _ in runs:
-        steps = [r[tag]["steps"] for r in ranks]
-        losses = [[x["loss"] for x in st] for st in steps]
-        norms = [[x["grad_norm"] for x in st] for st in steps]
-        rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], ref)]
-        bad = [x["launches"] for st in steps for x in st
-               if x["launches"] != expect_a]
-        line = dict(
-            run=tag, losses=losses[0], grad_norms=norms[0],
-            losses_10a=ref[:TP_TRAIN_STEPS], loss_rel_diff_10a=rel,
-            ranks_same_bits=losses[0] == losses[1] and norms[0] == norms[1],
-            step_ms_median=[statistics.median(
-                x["step_ms"] for x in st[2:]) for st in steps],
-            step_ms_median_10a=train_10a["step_ms_median"],
-            peak_mem_gb=[st[-1]["peak_mem_gb"] for st in steps],
-            peak_mem_gb_10a=train_10a["peak_mem_gb"],
-            launches_per_step=steps[0][-1]["launches"],
-            collectives_per_step=[st[-1]["collectives"] for st in steps],
-            backend=ranks[0][tag]["backend"], world=ranks[0][tag]["world"],
-            note=TP_TIMES_NOTE, card=card)
-        log(json.dumps({f"tp_train_1b_{tag}": line}))
-        if not line["ranks_same_bits"] or bad or rel[0] > TP_TRAIN_STEP1_TOL \
-                or max(rel[1:3]) > TRAIN_LOSS_REL_TOL:
-            raise AssertionError(f"14a {tag}: {line}, launches {bad[:1]} "
-                                 f"!= {expect_a}")
-        out[tag] = line
+    note = "one rank a card over NCCL" if across else TP_TIMES_NOTE
+    out = {"note": note, "wall_s": wall, "card": card, "ranks": t}
+    for run in runs:
+        tag = run["tag"]
+        out[tag] = hold_train(torch, ranks, tag, train_10a, expect_a, card,
+                              note, f"{prefix}_{tag}",
+                              tokens_per_step=8 * 312)
+    if card_4b is None:
+        return out
     # 14b against 4b's one-device card step
     qs = [r["qlora"] for r in ranks]
     rank_llama = (1, 1080, 1080, 32 // TP_RANKS, 128, True)
@@ -3633,6 +3840,372 @@ def run_tp_train(torch, card: str, work: Path, llama_dir, train_10a: dict,
         raise AssertionError(f"14b: {line} (launches expected {expect_b})")
     out["qlora"] = line
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 15: the parallel layer across cards, one rank a card over NCCL
+# --------------------------------------------------------------------------
+
+P15_RANKS = (2, 4)  # the tensor-parallel sizes, as far as the cards go
+P15_TIMEOUT_S = 360.0  # a sub-phase's ranks are killed after this
+P15_7B_TIMEOUT_S = 900.0  # 15b's: the 7b state's gathered save and resume
+P15_NOTE = "one rank a card, the collectives over NCCL"
+
+
+def expect_1b(torch, b: int = 8) -> dict:
+    """Launches of one 1b train step at ``b`` rows a rank: B1 in the 16
+    LLaMA layers' forward and remat recompute, B2 in Whisper's 6 layers."""
+    return {"mh_attention": 32, "flash_attention": 6,
+            "flash_attention_combine": combines(torch, ((whisper(b), 6),)),
+            "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            "flash_attention_delta": 0, "matvec_int8": 0,
+            "matvec_int8_pipelined": 0}
+
+
+def card_links(n: int) -> dict:
+    """Every card's name and power limit, ``nvidia-smi topo -m`` and card
+    0's NVLink state (``nvidia-smi nvlink --status``: on some hosts topo
+    cannot read the matrix); the link between cards 0 and 1 as topo names
+    it (e.g. NV18), and card 0's active NVLinks and their rate."""
+    def smi(*args, check=False):
+        out = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                             text=True, timeout=60, check=check)
+        text = (out.stdout + out.stderr).strip()
+        log(f"== nvidia-smi {' '.join(args)} (exit {out.returncode})\n"
+            + text)
+        return text if out.returncode == 0 else ""
+
+    query = smi("--query-gpu=index,name,power.limit", "--format=csv,noheader",
+                check=True).splitlines()
+    link = None
+    for line in smi("topo", "-m").splitlines():
+        cols = line.split()
+        if cols[:1] == ["GPU0"] and len(cols) > 2:
+            link = cols[2]  # the column of GPU1
+    rates = re.findall(r"Link \d+: ([\d.]+ GB/s)",
+                       smi("nvlink", "--status", "-i", "0"))
+    return dict(card_names=query[:n], link_0_1=link,
+                nvlinks_card0=len(rates),
+                nvlink_rate=rates[0] if rates else None)
+
+
+def one_card_run(torch, kernels, config: Path, run_dir: Path, steps: int,
+                 argv=()) -> dict:
+    """``run_train.main`` of ``config`` on this process's card (no group):
+    its losses, step ms (the median after 2 warm-up steps) and peak."""
+    from macaw_llm_tpu_torch import run_train
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    on_step = step_hook(torch, kernels, rows)
+    state = run_train.main(["--config", str(config), "--synthetic",
+                            "--steps", str(steps), "--output-dir",
+                            str(run_dir), "--device", "cuda"] + list(argv),
+                           on_step=on_step)
+    del state
+    out = dict(losses=[r["loss"] for r in rows],
+               step_ms_median=statistics.median(
+                   r["step_ms"] for r in rows[2:]),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero3_1b(torch, card: str, work: Path, llama_dir, ref_1b: dict,
+             n: int) -> dict:
+    """15a: the 1b run file (train.sh's ZeRO-3) over mesh fsdp ``n``, one
+    rank a card, 2 rows a rank at n = 4 (10a's global batch of 8), 2 + 3
+    steps and the forced final save: ``hold_train``'s bars against 10a's
+    one-card run, B1 and B2 launches asserted every step; the gathered
+    checkpoint restored over the mesh (every rank its shards, the same
+    bits) and on one card (the same bits as the gathered state)."""
+    config = work / "train_1b_zero3.json"
+    phase10_config(config, mesh=dict(fsdp=n), save_steps=1000, log_steps=1)
+    run = dict(tag="zero3", config=str(config), check_save=True)
+    ranks = spawn_train(n, work / "zero3_1b", [run], llama_dir, "15a",
+                        across=True, timeout=P15_TIMEOUT_S)
+    line = hold_train(torch, ranks, "zero3", ref_1b, expect_1b(torch, 8 // n),
+                      card, P15_NOTE + f", ZeRO-3 over fsdp {n}", "zero3_1b",
+                      tokens_per_step=8 * 312)
+    save = [r for r in metrics_rows(work / "zero3_1b" / "run_zero3")
+            if "ckpt_bytes" in r]
+    out = [r["zero3"] for r in ranks]
+    ckpt = dict(
+        save_blocking_ms=[r["ckpt_blocking_ms"] for r in save],
+        save_write_s=[r["ckpt_write_s"] for r in save],
+        save_bytes=[r["ckpt_bytes"] for r in save],
+        sharded_restore_s=[r["sharded_restore_s"] for r in out],
+        sharded_restore_differing=[r["sharded_restore_diff"][:8]
+                                   for r in out],
+        one_device_restore_s=out[0]["one_device_restore_s"],
+        one_device_restore_differing=out[0]["one_device_restore_diff"][:8],
+        host_peak_gb=[r["host_peak_gb"] for r in out], card=card)
+    log(json.dumps({"zero3_1b_checkpoint": ckpt}))
+    if len(save) != 1 or any(r["sharded_restore_diff"] for r in out) or \
+            out[0]["one_device_restore_diff"]:
+        raise AssertionError(f"15a checkpoint: {ckpt}")
+    return dict(line, checkpoint=ckpt)
+
+
+def zero3_7b(torch, kernels, card: str, work: Path, n: int) -> dict:
+    """15b: the 7b full fine-tune under ZeRO-3 over fsdp ``n``, one rank a
+    card, through ``run_train --profile 7b`` at full width and depth with
+    the 1b run file's settings (fp32 masters, bf16 grads and Adam m, frozen
+    bf16 towers, remat, chunked loss, 2 rows a rank at text 256, random
+    weights from the seed), 2 + 3 steps and the forced final save (every
+    leaf gathered to rank 0's host): finite losses, the same bits on every
+    rank; then ``run_train`` again on that directory, which restores the
+    state (the same bits as the one kept in host memory). The same run at
+    2 layers a stack against one card's (``hold_train``'s bars)."""
+    from macaw_llm_tpu_torch.config import macaw_7b
+    config = work / "train_7b_zero3.json"
+    phase10_config(config, mesh=dict(fsdp=n), save_steps=1000, log_steps=1)
+    run = dict(tag="zero3_7b", config=str(config), argv=["--profile", "7b"],
+               weights=False, check_resume=True)
+    need = 1.1 * 10 * 6.8e9  # fp32 masters and Adam v, bf16 Adam m
+    free = shutil.disk_usage(work).free
+    if free < need:
+        raise AssertionError(f"15b: {free / 1e9:.1f} GB free on the disk, "
+                             f"the 7b checkpoint needs {need / 1e9:.0f}")
+    ranks = spawn_train(n, work / "zero3_7b", [run], None, "15b",
+                        across=True, timeout=P15_7B_TIMEOUT_S)
+    expect = dict(expect_1b(torch, 8 // n), mh_attention=64)
+    line = hold_train(torch, ranks, "zero3_7b", None, expect, card,
+                      P15_NOTE + f", ZeRO-3 over fsdp {n}", "zero3_7b",
+                      tokens_per_step=8 * 312)
+    rows = metrics_rows(work / "zero3_7b" / "run_zero3_7b")
+    save = [r for r in rows if "ckpt_bytes" in r]
+    out = [r["zero3_7b"] for r in ranks]
+    ckpt = dict(
+        save_blocking_ms=[r["ckpt_blocking_ms"] for r in save],
+        save_write_s=[r["ckpt_write_s"] for r in save],
+        save_bytes=[r["ckpt_bytes"] for r in save],
+        host_peak_gb=[r["host_peak_gb"] for r in out],
+        state_gb_a_rank=[r["state_gb"] for r in out],
+        resume_s=[r["resume_s"] for r in out],
+        resume_restore_s=[r["ckpt_restore_s"] for r in rows
+                          if "ckpt_restore_s" in r],
+        resume_differing=[r["resume_diff"][:8] for r in out],
+        disk_free_gb=shutil.disk_usage(work).free / 1e9, card=card)
+    log(json.dumps({"zero3_7b_checkpoint": ckpt}))
+    if len(save) != 1 or len(ckpt["resume_restore_s"]) != 1 or \
+            any(r["resume_diff"] for r in out):
+        raise AssertionError(f"15b checkpoint: {ckpt}")
+    shutil.rmtree(work / "zero3_7b", ignore_errors=True)
+    # 2 layers a stack: the ranks against one card
+    one = work / "train_7b_l2.json"
+    phase10_config(one, model=macaw_7b(), layers=2, save_steps=0,
+                   log_steps=1)
+    ref = one_card_run(torch, kernels, one, work / "run_7b_l2", 3)
+    config = work / "train_7b_l2_zero3.json"
+    phase10_config(config, mesh=dict(fsdp=n), model=macaw_7b(), layers=2,
+                   save_steps=0, log_steps=1)
+    ranks = spawn_train(n, work / "zero3_7b_l2",
+                        [dict(tag="l2", config=str(config), weights=False)],
+                        None, "15b", steps=3, across=True,
+                        timeout=P15_TIMEOUT_S)
+    expect = dict(expect_1b(torch, 8 // n), mh_attention=4,
+                  flash_attention=2, flash_attention_combine=combines(
+                      torch, ((whisper(8 // n), 2),)))
+    l2 = hold_train(torch, ranks, "l2", ref, expect, card,
+                    P15_NOTE + f", ZeRO-3 over fsdp {n}", "zero3_7b_l2",
+                    tokens_per_step=8 * 312)
+    return dict(line, checkpoint=ckpt, two_layers=l2)
+
+
+def tp_inference_nccl(torch, cfg, kernels, card: str, work: Path,
+                      sizes) -> dict:
+    """15c: phase 13 (``run_tp``: 13a's and 13b's stage checks and bars)
+    at t of ``sizes``, one rank a card over NCCL, against phases 5 and 6
+    run here on card 0 (the same seeds: 3 timed prefills, 4 x 16 greedy
+    tokens) and the one-device engine on the same 16 requests."""
+    params, cache, params_full, build_s = build_7b(torch, cfg)
+    prefill_res, batch, logits_5 = run_prefill(
+        torch, params, cfg, cache, kernels, steps=3, warmup=1,
+        name="phase15_prefill")
+    logits_5 = logits_5.float().cpu()
+    decode_res, params6, fused = run_generate(torch, params, cfg, cache,
+                                              batch, kernels,
+                                              name="phase15_decode")
+    del batch
+    engine_params = dict(params_full, llm=params6["llm"])
+    refs, out = {}, {}
+    for t in sizes:
+        line = run_tp(torch, cfg, kernels, card, params, params6, cache,
+                      engine_params, logits_5, fused,
+                      torch.tensor(decode_res["tokens"]), work / f"tp{t}",
+                      ranks=t, across=True, refs=refs,
+                      name=f"tp{t}_inference_nccl")
+        line["one_device"] = dict(
+            prefill_ms=prefill_res["step_ms_median"],
+            decode_tokens_per_s=decode_res["tokens_per_s"],
+            engine=refs["serve"])
+        out[t] = line
+        shutil.rmtree(work / f"tp{t}", ignore_errors=True)
+    del params, params6, params_full, engine_params, cache, fused
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_nccl(torch, card: str, work: Path, n: int, llama_dir,
+              ref_1b: dict) -> dict:
+    """15e: ``ring_attention`` at [1, 8192, 32, 128] bf16 over the tensor
+    axis of n ranks, one a card (``parallel.dryrun``'s ring task), both
+    layouts, forward and backward, against one B2 + B3/B4 call over the
+    whole sequence on card 0 (12a's bars), B2/B3/B4 launches of the ring
+    asserted, its ms beside the single call's; then the 1b run file with
+    the ring (zig-zag) over mesh tensor n, the global batch of 8 on every
+    rank, against 10a's one-card run (``hold_train``'s bars)."""
+    from macaw_llm_tpu_torch.ops.kernels import flash_attention as fa
+    from macaw_llm_tpu_torch.parallel import ring_attention as ring
+    from macaw_llm_tpu_torch.parallel.dryrun import spawn
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, s, h, d = 1, 8192, 32, 128
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+
+    def single():
+        x = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = fa.flash_attention(*x, causal=True)
+        o.backward(g)
+        return (o.detach(), *(t.grad for t in x))
+
+    ref = single()
+    single_ms = cuda_ms(torch, single, iters=3)
+    layouts = ("contiguous", "zigzag")
+    paths, perms = {}, {}
+    for layout in layouts:
+        perm = (ring.zigzag_indices(s, n) if layout == "zigzag"
+                else torch.arange(s))
+        perms[layout] = perm
+        paths[layout] = str(work / f"ring_{layout}.pt")
+        torch.save([t[:, perm.cuda()].cpu() for t in (q, k, v, g)],
+                   paths[layout])
+    t0 = time.perf_counter()
+    ranks = spawn(n, "ring", {"qkv": paths, "layouts": list(layouts),
+                              "iters": 5}, str(work / "ring"), device="cuda")
+    wall = time.perf_counter() - t0
+    flops = 3.5 * attn_flops(b, s, s, h, d, True)  # fwd + 2.5x bwd
+    bound_ms, bound_by = bound(flops, 8 * b * s * h * d * 2)
+    rows = []
+    for layout in layouts:
+        inv = ring.inverse_permutation(perms[layout])
+        got = [torch.cat([r[layout]["out"] for r in ranks], 1)[:, inv]]
+        got += [torch.cat([r[layout]["grads"][i] for r in ranks], 1)[:, inv]
+                for i in range(3)]
+        errs = {}
+        for name, a, want in zip(("out", "dq", "dk", "dv"), got, ref):
+            fn = row_rel_err if name == "out" else grad_row_err
+            errs[name] = fn(a.cuda(), want)
+        launches = {key: sum(r[layout]["launches"][key] for r in ranks)
+                    for key in ranks[0][layout]["launches"]}
+        want = ring_expected(n, layout)
+        row = dict(seq=s, n=n, layout=layout,
+                   ms=max(statistics.median(r[layout]["ms"]) for r in ranks),
+                   ms_by_rank=[statistics.median(r[layout]["ms"])
+                               for r in ranks],
+                   single_call_ms=single_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, launches=launches,
+                   expected_launches=want, row_rel_err=errs,
+                   collectives=ranks[0][layout]["collectives"],
+                   note=P15_NOTE, card=card)
+        log(json.dumps({"ring_nccl": row}))
+        rows.append(row)
+        if any(launches[key] != want for key in (
+                "flash_attention_with_lse", "flash_attention_dq",
+                "flash_attention_dkv")) or \
+                max(errs.values()) > RING_VS_SINGLE_TOL:
+            raise AssertionError(f"15e ring n={n} {layout}: {row}")
+    del q, k, v, g, ref
+    for path in paths.values():
+        os.remove(path)
+    torch.cuda.empty_cache()
+    config = work / "train_1b_ring.json"
+    phase10_config(config, mesh=dict(tensor=n), model_fields=dict(
+        ring_attention=True, ring_layout="zigzag"), save_steps=0, log_steps=1)
+    ranks = spawn_train(n, work / "ring_1b",
+                        [dict(tag="ring", config=str(config))], llama_dir,
+                        "15e", across=True, timeout=P15_TIMEOUT_S)
+    line = hold_train(torch, ranks, "ring", ref_1b, None, card,
+                      P15_NOTE + f", ring zig-zag over tensor {n}",
+                      "ring_run_train_nccl", tokens_per_step=8 * 312)
+    return dict(attention=rows, spawn_wall_s=wall, run_train=line)
+
+
+def phase15_launches(res: dict, name: str) -> Optional[dict]:
+    """Rank 0's launches of the kernel ``name`` in phase 15's runs: a step
+    of each training run, 13a's prefill and decode and 13b's engine run at
+    each t, one ring forward and backward of each layout (every rank's);
+    None where the phase did not run."""
+    if not res.get("ran"):
+        return None
+    out = {"zero3_1b_step": res["a"]["launches_per_step"][name],
+           "zero3_7b_step": res["b"]["launches_per_step"][name],
+           "zero3_7b_l2_step": res["b"]["two_layers"]["launches_per_step"][
+               name]}
+    for t, line in res["c"].items():
+        for part in ("prefill", "decode", "engine"):
+            out[f"tp{t}_{part}"] = line[part]["launches"][name]
+    for t, line in res["d"].items():
+        for tag in ("tp", "tp_sequence"):
+            out[f"tp{t}_train_1b_{tag}_step"] = \
+                line[tag]["launches_per_step"][name]
+    out["ring_run_train_step"] = \
+        res["e"]["run_train"]["launches_per_step"][name]
+    key = {"flash_attention": "flash_attention_with_lse"}.get(name, name)
+    for row in res["e"]["attention"]:
+        out[f"ring_{row['layout']}_all_ranks"] = row["launches"].get(key, 0)
+    return out
+
+
+def run_phase15(torch, kernels, card: str, work_dir: Path) -> dict:
+    """Phase 15 where the process sees two cards or more (t = 4 where it
+    sees four): 15a-15e, one rank a card over NCCL, in a directory under
+    ``work_dir`` (not copied back: 15b's checkpoint is 67 GB) deleted when
+    the phase ends; against one-card runs made here first (the imported 1b
+    weights and 10a's run file, as phase 10 makes them). On one card a
+    line saying it did not run."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        line = {"phase": "15", "ran": False, "cards": cards,
+                "why": "the parallel layer across cards needs two or more"}
+        log(json.dumps(line))
+        return line
+    from macaw_llm_tpu_torch.config import macaw_7b
+    sizes = [t for t in P15_RANKS if t <= cards]
+    n = sizes[-1]
+    t0 = time.perf_counter()
+    res = {"phase": "15", "ran": True, "cards": cards, "ranks": n,
+           **card_links(cards)}
+    log(json.dumps({"phase15_cards": res}))
+    work = work_dir / "phase15"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        log(json.dumps({"phase15_disk_free_gb":
+                        shutil.disk_usage(work).free / 1e9}))
+        llama_dir, _ = import_1b(torch, work)
+        # 10a's run on one card: its file, weights and global batch of 8
+        config = work / "train_1b_one.json"
+        phase10_config(config, save_steps=0, log_steps=1)
+        ref_1b = one_card_run(torch, kernels, config, work / "run_1b_one",
+                              TP_TRAIN_STEPS,
+                              ["--llama-weights", str(llama_dir)])
+        log(json.dumps({"phase15_train_1b_one_card": dict(ref_1b,
+                                                          card=card)}))
+        res["a"] = zero3_1b(torch, card, work, llama_dir, ref_1b, n)
+        res["b"] = zero3_7b(torch, kernels, card, work, n)
+        res["c"] = tp_inference_nccl(torch, macaw_7b(), kernels, card, work,
+                                     sizes)
+        res["d"] = {t: run_tp_train(torch, card, work, llama_dir, ref_1b,
+                                    t=t, across=True,
+                                    prefix=f"tp{t}_train_1b_nccl")
+                    for t in sizes}
+        res["e"] = ring_nccl(torch, card, work, n, llama_dir, ref_1b)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"phase15_seconds": res["seconds"]}))
+    return res
 
 
 def step_totals(rows, b: int, keys) -> dict:
@@ -3767,6 +4340,9 @@ def main() -> int:
     ap.add_argument("--tp-train-worker", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--phase", default=None, choices=["15"],
+                    help="run only this phase (after the build and the "
+                         "card): 15, the parallel layer across cards")
     args = ap.parse_args()
     out_dir = ROOT / "chiprun_out"
     if not (ROOT / "macaw_llm_tpu_torch" / "csrc").is_dir():
@@ -3774,6 +4350,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.tp_worker or args.tp_train_worker:
+        import faulthandler  # spawn_tp asks a hung rank for its stacks
+        faulthandler.register(signal.SIGUSR1, all_threads=True)
     if args.tp_worker:
         tp_worker(args.tp_worker, args.tp_rank)
         return 0
@@ -3840,6 +4419,18 @@ def main() -> int:
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     kernels = kernel_table(mh, fa, mv)
+    if args.phase == "15":
+        phase15 = run_phase15(torch, kernels, card, ROOT / "build")
+        log(json.dumps({"card": card,
+                        "seconds": time.perf_counter() - t_start}))
+        LOG_FILE.close()
+        LOG_FILE = None
+        if not phase15["ran"]:
+            return 1  # the phase needs the cards it did not find
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": device,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. kernels vs plain at the main-path shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3964,6 +4555,11 @@ def main() -> int:
     ring_res = run_ring_local(torch, card)
     ring_launches = {name: ring_res["launches"] for name in (
         "flash_attention", "flash_attention_dq", "flash_attention_dkv")}
+    torch.cuda.empty_cache()
+
+    # 15. the parallel layer across cards, one rank a card over NCCL (a
+    # line saying it did not run on one card)
+    phase15 = run_phase15(torch, kernels, card, ROOT / "build")
     torch.cuda.empty_cache()
 
     # 11. the kernels line: per prefill (B1, B2), per decode step (B5, at
@@ -4117,6 +4713,14 @@ def main() -> int:
             entry["tp_train_shapes"] = [
                 {k: r[k] for k in keep + ("case", "per_step") if k in r}
                 for r in rows]
+    # 15: a rank's launches a step or a call across cards (rank 0's), and
+    # phase 3's ZeRO-3 rank shapes
+    for entry in entries:
+        name = entry["name"]
+        entry["phase15_shapes"] = [
+            {k: r[k] for k in keep if k in r} for r in checks.get(name, ())
+            if str(r.get("call")).startswith("zero3")]
+        entry["phase15_launches"] = phase15_launches(phase15, name)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"card": card, "seconds": time.perf_counter() - t_start}))
     LOG_FILE.close()

@@ -4,13 +4,16 @@ load it with ctypes.
 One ``nvcc`` per source runs in parallel (``-c``), then one link. The
 library lands in ``build/macaw_llm_tpu_torch/<hash>/`` at the repository
 root, keyed by the sources and flags, so a checkout builds once at first
-use. Nothing here runs at import time: the CPU-only tests import every
+use. Processes that start together (the ranks of a job) build under a
+file lock in that directory: one compiles, the others wait and load its
+library. Nothing here runs at import time: the CPU-only tests import every
 module of the package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -86,12 +89,19 @@ def build() -> dict:
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # released when the process ends, however it ends
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(out_dir, cu)
+
+
+def _build_locked(out_dir: Path, cu: list) -> dict:
     lib_path = out_dir / "libmacaw_kernels.so"
     if lib_path.is_file():
         log_path = out_dir / "build.log"
         return {"path": str(lib_path), "seconds": 0.0, "cached": True,
                 "log": log_path.read_text() if log_path.is_file() else ""}
-    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []

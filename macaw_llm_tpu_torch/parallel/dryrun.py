@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -53,8 +54,10 @@ def task_train(p: dict, device, out: str) -> None:
     ``run["save"]`` and evaluate ``run["eval"]`` (whole [B, ...] batches);
     {"runs": results} (losses, shard shapes, the shapes of layer 0's
     leaves as the models read them, collectives, the whole trainable tree
-    and moments after the steps, and with ``run["count_llama"]`` the
-    collectives of one LLaMA forward and backward) to ``out``."""
+    and moments after the steps, after a restore this rank's restored
+    shards and the trainable leaves' specs, and with
+    ``run["count_llama"]`` the collectives of one LLaMA forward and
+    backward) to ``out``."""
     from macaw_llm_tpu_torch.parallel.mesh import create_mesh
     mesh = create_mesh(_mesh_cfg(p["mesh"]), device)
     torch.save({"runs": [_train_run(r, mesh, p["mesh"], device)
@@ -78,6 +81,11 @@ def _train_run(run: dict, mesh, shape, device) -> dict:
         res["restored"] = {"trainable": whole.trainable,
                            "mu": whole.opt_state.mu,
                            "nu": whole.opt_state.nu, "step": whole.step}
+        res["restored_shards"] = {
+            "trainable": _to_cpu(state.trainable),
+            "mu": _to_cpu(state.opt_state.mu),
+            "nu": _to_cpu(state.opt_state.nu)}
+        res["specs"] = tr.specs["trainable"]
     res.update({"loss": [], "grad_norm": [], "lr": [],
                 "shapes": {"trainable": _shapes(state.trainable),
                            "frozen": _shapes(state.frozen),
@@ -113,6 +121,11 @@ def _train_run(run: dict, mesh, shape, device) -> dict:
         res["mu"], res["nu"] = whole.opt_state.mu, whole.opt_state.nu
     res["step"] = state.step
     return res
+
+
+def _to_cpu(tree):
+    from macaw_llm_tpu_torch.parallel.sharding import tree_map
+    return tree_map(lambda _, x: x.detach().cpu(), tree)
 
 
 def _view(tr, state) -> dict:
@@ -156,22 +169,50 @@ def task_ring(p: dict, device, out: str) -> None:
     """``ring_attention`` over the mesh axis "tensor" of a (1, 1, 1, n)
     mesh on this rank's chunk of the whole q/k/v in ``p["qkv"]`` (in the
     layout's order), for each layout of ``p["layouts"]``: the output and
-    the gradients of sum(out * g)."""
+    the gradients of sum(out * g), this rank's attention kernel launches
+    and collectives, and with ``p["iters"]`` the ms of that many more
+    forwards and backwards, each started together on every rank."""
+    from macaw_llm_tpu_torch.ops.kernels import flash_attention as fa
     from macaw_llm_tpu_torch.parallel.mesh import create_mesh
     from macaw_llm_tpu_torch.parallel.ring_attention import ring_attention
+    from macaw_llm_tpu_torch.parallel.sharding import COLLECTIVES
     n = dist.get_world_size()
     mesh = create_mesh(MeshConfig(dcn=1, data=1, fsdp=1, tensor=n), device)
     me = dist.get_rank()
+    kernels = (fa.flash_attention_with_lse, fa.flash_attention_dq,
+               fa.flash_attention_dkv)
     res = {}
     for layout in p["layouts"]:
         q, k, v, g = (t.to(device).chunk(n, dim=1)[me].clone() for t in
                       torch.load(p["qkv"][layout], weights_only=False))
-        q, k, v = (t.requires_grad_() for t in (q, k, v))
-        o = ring_attention(q, k, v, mesh=mesh, axis="tensor", layout=layout)
-        grads = torch.autograd.grad((o * g).sum(), (q, k, v))
+
+        def run():
+            x = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = ring_attention(*x, mesh=mesh, axis="tensor", layout=layout)
+            return o, torch.autograd.grad((o * g).sum(), x)
+
+        for fn in kernels:
+            fn.launches = 0
+        COLLECTIVES.clear()
+        o, grads = run()
         res[layout] = {"out": o.detach().cpu(),
-                       "grads": [t.cpu() for t in grads]}
+                       "grads": [t.cpu() for t in grads],
+                       "launches": {fn.__name__: fn.launches
+                                    for fn in kernels},
+                       "collectives": dict(COLLECTIVES), "ms": []}
+        for _ in range(p.get("iters", 0)):
+            _synchronize(device)
+            dist.barrier()
+            t0 = time.perf_counter()
+            run()
+            _synchronize(device)
+            res[layout]["ms"].append((time.perf_counter() - t0) * 1e3)
     torch.save(res, out)
+
+
+def _synchronize(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def task_run_train(p: dict, device, out: str) -> None:
@@ -355,9 +396,30 @@ def _tp_engine(case, whole, cfg, tp, device):
     the prompts whose admission raises there (before any collective);
     ``case["follower_fail_prefill_at"]``, the call of ``_prefill_body``
     (the static engine's ``_run_batch``) that raises there, inside a
-    prefill's collectives."""
+    prefill's collectives. ``case["leader_lag_s"]``: the leader waits that
+    long after each all-reduce of failure flags (``_failed_anywhere``),
+    so that its watcher sees a follower's teardown before its next
+    check."""
     from macaw_llm_tpu_torch import serve
     serve._seed_from_clock = lambda: case["seed"]
+    flags = serve._failed_anywhere
+    if tp.leader and case.get("leader_lag_s"):
+        serve._failed_anywhere = _lagging(flags, case["leader_lag_s"])
+    try:
+        return _run_engine(serve, case, whole, cfg, tp, device)
+    finally:
+        serve._failed_anywhere = flags
+
+
+def _lagging(fn, seconds: float):
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        time.sleep(seconds)
+        return out
+    return wrapped
+
+
+def _run_engine(serve, case, whole, cfg, tp, device):
     tree = _tp_tree(whole, cfg, tp, case, device)
     reqs = [serve.Request(**r) for r in
             torch.load(case["requests"], weights_only=False)]
@@ -490,8 +552,13 @@ TASKS = {"train": task_train, "ring": task_ring, "run_train": task_run_train,
 def worker(rank: int, world: int, store: str, device: str, task: str,
            payload: dict, out_dir: str) -> None:
     """One process of a job: join the group (a FileStore at ``store``),
-    run ``TASKS[task]``, leave the group."""
+    run ``TASKS[task]``, leave the group. SIGUSR1 writes every thread's
+    stack to its output (``spawn`` sends it to a job that outlives its
+    time)."""
+    import faulthandler
+
     from macaw_llm_tpu_torch.parallel.mesh import multihost_initialize
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     torch.set_num_threads(1)
     os.environ.update(PROCESS_ID=str(rank), NUM_PROCESSES=str(world),
                       LOCAL_RANK=str(rank))
@@ -509,12 +576,44 @@ def worker(rank: int, world: int, store: str, device: str, task: str,
 JOB_TIMEOUT_S = 300.0  # a spawned job's processes are killed after this
 
 
+def run_ranks(argvs: list, env: dict, timeout: float, cwd=None) -> tuple:
+    """One process a rank, each running its entry of ``argvs``, waited for
+    ``timeout`` seconds in all; past that, a rank still running is asked for
+    its threads' stacks (SIGUSR1: the workers dump them through
+    faulthandler) and then killed. Returns the exit codes and each rank's
+    output."""
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in argvs]
+    procs = [subprocess.Popen(argv, cwd=cwd, env=env, stdout=log,
+                              stderr=subprocess.STDOUT)
+             for argv, log in zip(argvs, logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGUSR1)
+        time.sleep(3)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    return [p.returncode for p in procs], texts
+
+
 def spawn(world: int, task: str, payload: dict, out_dir: str,
           device: str = "cpu") -> list:
     """Run ``task`` in ``world`` fresh processes (``python -m`` this
     module); returns each rank's results. Raises with the processes'
     output when one fails or the job outlives ``JOB_TIMEOUT_S`` (every
-    process is killed then)."""
+    process is killed then, once it has written its threads' stacks)."""
     os.makedirs(out_dir, exist_ok=True)
     store = os.path.join(out_dir, "store")
     if os.path.exists(store):
@@ -532,30 +631,13 @@ def spawn(world: int, task: str, payload: dict, out_dir: str,
                              "PYTHONPATH", "").split(os.pathsep) if x]))
     for k in ("COORDINATOR_ADDRESS", "MASTER_ADDR"):
         child_env.pop(k, None)
-    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "macaw_llm_tpu_torch.parallel.dryrun",
-         "--job", job, "--rank", str(r)], env=child_env, stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(world)]
-    deadline = time.monotonic() + JOB_TIMEOUT_S
-    try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    texts = []
-    for f in logs:
-        f.seek(0)
-        texts.append(f.read())
-        f.close()
-    if any(p.returncode != 0 for p in procs):
+    codes, texts = run_ranks(
+        [[sys.executable, "-m", "macaw_llm_tpu_torch.parallel.dryrun",
+          "--job", job, "--rank", str(r)] for r in range(world)],
+        child_env, JOB_TIMEOUT_S)
+    if any(c != 0 for c in codes):
         raise RuntimeError(f"{task} over {world} processes failed (exit "
-                           f"codes {[p.returncode for p in procs]}):\n"
+                           f"codes {codes}):\n"
                            + "\n".join(f"--- rank {r} ---\n{t[-4000:]}"
                                        for r, t in enumerate(texts)))
     results = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),

@@ -313,13 +313,21 @@ def main(argv=None, on_step=None):
                                  trainer=trainer)
     else:
         ckpt = _NullCkpt()
+    restore_s = None
     if cfg.train.resume and ckpt.latest_step() is not None:
         logger.info("resuming from step %s", ckpt.latest_step())
+        t0 = time.perf_counter()
         state = ckpt.restore(state)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        restore_s = time.perf_counter() - t0
 
     metrics_log = MetricsLogger(
         os.path.join(args.output_dir, "metrics.jsonl") if rank == 0
         else None, log_every=cfg.train.log_steps)
+    if restore_s is not None:  # the resume's cost, once
+        metrics_log.log(state.step, {"ckpt_restore_s": restore_s})
+        metrics_log.flush()
 
     logged_saves = set()
 

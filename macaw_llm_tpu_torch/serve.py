@@ -422,15 +422,36 @@ class InferenceEngine:
     def _loop(self):
         try:
             with _on_card(self.device):
-                self._batches()
+                self._run_batches()
         finally:
             self._group_done.set()
 
+    def _run_batches(self):
+        """The batching loop. Under a tensor group, a batch that fails
+        inside its collectives, a collective of the schedule that fails,
+        or a teardown on another rank found between two of them
+        (``_check_group``) ends the loop here: the group is torn down and
+        the batch in hand and the queue are failed."""
+        self._batch = []
+        try:
+            self._batches()
+            return
+        except Exception as e:  # noqa: BLE001: fail what is waiting
+            logger.exception("batch loop failed")
+            error = f"batch failed: {e}"
+        # the failed call's frames are gone: the group can be torn down
+        self._stop.set()
+        if self.tp is not None:
+            _tear_down(self)
+        _fail(self._batch + _drain(self.queue), error)
+
     def _batches(self):
         while True:
+            self._batch = []
             batch = self._next_batch()
             if batch is None:
                 return
+            self._batch = batch
             if not batch:
                 continue
             inputs, error = None, None
@@ -450,18 +471,13 @@ class InferenceEngine:
             try:
                 with torch.inference_mode():
                     self._run_batch(batch, inputs)
-                continue
             except Exception as e:  # noqa: BLE001
+                if self.tp is not None:
+                    # inside the batch's collectives: the ranks are out of
+                    # step, and _run_batches tears the group down
+                    raise
                 logger.exception("batch failed")
-                error = str(e)
-            if self.tp is None:  # one device: the batch only
-                _fail(batch, error)
-                continue
-            # inside the batch's collectives: the ranks are out of step
-            self._stop.set()
-            _tear_down(self)
-            _fail(list(batch) + _drain(self.queue), f"batch failed: {error}")
-            return
+                _fail(batch, str(e))  # one device: the batch only
 
     def _bucket(self, n: int) -> int:
         for b in PROMPT_BUCKETS:

@@ -1,6 +1,7 @@
 """The port's checkpoints (its own format: the JAX package writes Orbax):
 save/restore bit for bit (fp32 masters, bf16 Adam moments, int8 base
-records, the dropout generator), a Trainer resumed from a checkpoint
+records, the dropout generator), restore through a memory map of the
+file, a Trainer resumed from a checkpoint
 equal bit for bit to an uninterrupted run, retention and the save cadence,
 half-written steps never listed, the fenced fallback (forced through a
 patched memory query), and snapshot copies that a later in-place step
@@ -123,6 +124,26 @@ def test_save_restore_is_bitwise(trained, tmp_path):
     if trainer.tcfg.quantize_base:
         assert torch.int8 in dtypes
     assert load_config(str(tmp_path)) == cfg
+
+
+def test_restore_maps_the_file(trained, tmp_path, monkeypatch):
+    """Restore reads the step's file through a memory map (each rank of a
+    mesh copies out only its shards, and ranks of one host share the
+    file's pages), with the same bits."""
+    mcfg, trainer, fresh, _, state = trained
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state, force=True)
+    mgr.wait()
+    calls, real = [], torch.load
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(torch, "load", spy)
+    restored = CheckpointManager(str(tmp_path)).restore(fresh())
+    assert [kw.get("mmap") for kw in calls] == [True]
+    assert_states_equal(restored, state)
 
 
 def test_resumed_trainer_equals_uninterrupted_run(trained, tmp_path):

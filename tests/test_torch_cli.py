@@ -239,6 +239,9 @@ def test_resume_after_sigterm_equals_uninterrupted_run(tmp_path):
         tmp_path / name) if "loss" in r} for name in ("straight", "stopped")}
     assert losses["stopped"] == losses["straight"]
     assert sorted(losses["stopped"]) == [1, 2, 3, 4]
+    # the resume's restore, once, at the step it restored
+    assert [r["step"] for r in _metrics(tmp_path / "stopped")
+            if "ckpt_restore_s" in r] == [2]
     assert signal.getsignal(signal.SIGTERM) is handler  # restored
 
 

@@ -812,3 +812,226 @@ def test_tp_engine_faults_over_nccl_end_every_rank(tmp_path):
         assert len(errors) >= len(res) - served, res
         for rank in (lead, follow):
             assert rank[name]["seconds"] < TIMEOUT.total_seconds() / 10
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer across cards: the tiny model in fp32 (plain products
+# between NCCL collectives) spawned one rank a card, against one card
+
+
+def _need_cards(n: int) -> None:
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards (NCCL takes one rank a card)")
+
+
+def _tiny_model():
+    import dataclasses
+
+    from macaw_llm_tpu_torch import config as tconfig
+    m = tconfig.tiny_model_config()
+    return dataclasses.replace(m, fusion=dataclasses.replace(
+        m.fusion, align_dropout=0.0))
+
+
+# adam_eps 1e-4: noise-sized gradients (tests/test_torch_train.py)
+TRAIN_KW = dict(learning_rate=1e-2, warmup_ratio=0.1, grad_accum_steps=1,
+                adam_eps=1e-4)
+NCCL_LOSS_REL = 1e-4  # fp32 sums of the ranks' partials in another order
+
+
+def _tiny_weights(model):
+    """fp32 weights, lm_head x 10 so that the loss moves."""
+    from macaw_llm_tpu_torch.models import fusion
+    params = fusion.init_params(0, model, dtype=torch.float32, device="cpu")
+    params["llm"]["lm_head"] = params["llm"]["lm_head"] * 10.0
+    return params
+
+
+def _text_batches(n: int, b: int = 4, s: int = 12) -> list:
+    """Whole [1, b, s] text batches, the first 3 targets of a row ignored."""
+    gen = torch.Generator().manual_seed(40)
+    out = []
+    for _ in range(n):
+        ids = torch.randint(16, 32000, (1, b, s), generator=gen)
+        ids[..., 0] = 1
+        labels = ids.clone()
+        labels[..., :3] = -100
+        out.append({"input_ids": ids, "attention_mask": torch.ones_like(ids),
+                    "labels": labels})
+    return out
+
+
+def _one_card_steps(model, params, batches):
+    """The Trainer on card 0 over ``batches``: it, its state before and
+    after the steps, and the losses."""
+    from macaw_llm_tpu_torch.config import TrainConfig
+    from macaw_llm_tpu_torch.train.trainer import Trainer
+    tr = Trainer(model, TrainConfig(**TRAIN_KW), 10, device="cuda")
+    st = tr.init_state(params)
+    p0 = {k: v.detach().cpu().clone() for k, v in
+          _paths(st.trainable).items()}
+    losses = []
+    for b in batches:
+        st, m = tr.train_step(st, {k: v.cuda() for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    return tr, p0, st, losses
+
+
+def _paths(tree) -> dict:
+    from macaw_llm_tpu_torch.parallel.sharding import tree_paths
+    return dict(tree_paths(tree))
+
+
+def _mesh_run(tmp, model, params, batches, **kw) -> dict:
+    import dataclasses
+    for name, obj in (("params", params), ("batches", batches)):
+        torch.save(obj, tmp / f"{name}.pt")
+    return dict(model=dataclasses.asdict(model), train=TRAIN_KW,
+                params=str(tmp / "params.pt"),
+                batches=str(tmp / "batches.pt"), **kw)
+
+
+def _same_run(ranks: list, one_losses, one_state, p0) -> None:
+    """The ranks' losses the same bits and within NCCL_LOSS_REL of one
+    card's; rank 0's gathered trainable leaves' updates within 1e-3 of one
+    card's largest update of the leaf plus 4 fp32 ulps of the leaf."""
+    for r in ranks:
+        assert r["loss"] == ranks[0]["loss"]
+    for a, b in zip(ranks[0]["loss"], one_losses):
+        assert abs(a - b) <= NCCL_LOSS_REL * abs(b), (ranks[0]["loss"],
+                                                      one_losses)
+    got = _paths(ranks[0]["trainable"])
+    want = _paths(one_state.trainable)
+    assert sorted(got) == sorted(want)
+    for k, x in want.items():
+        upd = x.detach().cpu().double() - p0[k].double()
+        err = (got[k].double() - p0[k].double() - upd).abs().max().item()
+        ulp = torch.finfo(torch.float32).eps * p0[k].abs().max().item()
+        assert err <= 1e-3 * upd.abs().max().item() + 4 * ulp, k
+
+
+@pytest.fixture(scope="module")
+def zero3_over_nccl(tmp_path_factory):
+    """3 steps of the tiny model under ZeRO-3 over a (1, 1, 4, 1) mesh,
+    one rank a card, then the gathered save; and the same steps on card
+    0."""
+    _need_cards(4)
+    from macaw_llm_tpu_torch.parallel.dryrun import spawn
+    tmp = tmp_path_factory.mktemp("zero3")
+    model = _tiny_model()
+    params, batches = _tiny_weights(model), _text_batches(3)
+    run = _mesh_run(tmp, model, params, batches, save=str(tmp / "ckpt"))
+    ranks = spawn(4, "train", {"mesh": (1, 1, 4, 1), "runs": [run]},
+                  str(tmp / "job"), device="cuda")
+    return (model, params, [r["runs"][0] for r in ranks], tmp / "ckpt",
+            _one_card_steps(model, params, batches))
+
+
+def test_zero3_trainer_over_nccl_matches_one_card(zero3_over_nccl):
+    """ZeRO-3 over four cards: each rank's shards a quarter of the fsdp
+    dims, the collectives issued, the losses and updates one card's."""
+    _, _, ranks, _, (_, p0, one, losses) = zero3_over_nccl
+    assert all(r["collectives"].get("all_gather") and
+               r["collectives"].get("reduce_scatter") for r in ranks)
+    wq = [r["shapes"]["trainable"]["llm/layers/attn/wq"] for r in ranks]
+    assert all(s == wq[0] for s in wq)
+    _same_run(ranks, losses, one, p0)
+
+
+def test_zero3_checkpoint_over_nccl_restores_on_one_card(zero3_over_nccl):
+    """The checkpoint gathered from the four cards' shards restores on one
+    card bit for bit against the state the ranks gathered."""
+    from macaw_llm_tpu_torch.train.checkpoint import CheckpointManager
+    _, params, ranks, ckpt, (tr, _, _, _) = zero3_over_nccl
+    assert ranks[0]["last_save"]["mode"] == "gathered"
+    back = CheckpointManager(str(ckpt)).restore(tr.init_state(params))
+    assert back.step == ranks[0]["step"] == 3
+    for name, tree in (("trainable", back.trainable),
+                       ("mu", back.opt_state.mu), ("nu", back.opt_state.nu)):
+        got = _paths(ranks[0][name])
+        for path, x in _paths(tree).items():
+            assert torch.equal(got[path], x.cpu()), (name, path)
+
+
+def test_tp_train_and_generate_over_nccl_match_one_card(tmp_path):
+    """Megatron over a (1, 1, 1, 2) mesh, one rank a card: 3 train steps
+    against one card's, and the tensor-parallel greedy ``generate`` of
+    the same weights against one card's tokens."""
+    import dataclasses
+
+    from macaw_llm_tpu_torch.generate import generate
+    from macaw_llm_tpu_torch.models import llama
+    from macaw_llm_tpu_torch.parallel.dryrun import spawn
+    _need_cards(2)
+    model = _tiny_model()
+    params, batches = _tiny_weights(model), _text_batches(3)
+    run = _mesh_run(tmp_path, model, params, batches)
+    ranks = [r["runs"][0] for r in spawn(
+        2, "train", {"mesh": (1, 1, 1, 2), "runs": [run]},
+        str(tmp_path / "train"), device="cuda")]
+    assert all(r["collectives"].get("all_reduce") for r in ranks)
+    _, p0, one, losses = _one_card_steps(model, params, batches)
+    _same_run(ranks, losses, one, p0)
+    ids = _text_batches(1, b=2, s=9)[0]["input_ids"][0]
+    with torch.no_grad():
+        emb = llama.embed(params["llm"], ids)
+    inputs = {"inputs_embeds": emb, "attention_mask": torch.ones_like(ids)}
+    torch.save(inputs, tmp_path / "inputs.pt")
+    kw = dict(max_new_tokens=5, eos_id=-1)
+    case = dict(name="greedy", kind="generate", kw=kw,
+                inputs=str(tmp_path / "inputs.pt"))
+    gen = spawn(2, "tp", {"model": dataclasses.asdict(model),
+                          "params": str(tmp_path / "params.pt"),
+                          "cases": [case]}, str(tmp_path / "gen"),
+                device="cuda")
+    want = generate(_to_cuda(params["llm"]), model.llm, device="cuda",
+                    **_to_cuda(inputs), **kw).tokens.cpu()
+    for r in gen:
+        assert torch.equal(r["greedy"], want)
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    return tree.cuda()
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+def test_ring_over_nccl_matches_plain_attention(tmp_path, layout):
+    """``ring_attention`` over four ranks, one a card (the K/V exchange a
+    ``batch_isend_irecv`` over NCCL, B2 forward and B3/B4 backward on each
+    card): its output against the plain causal attention in fp32 (rows
+    within 2^-6 of their max), output and gradients against the same
+    ring's plain version in one process on the CPU
+    (``ring_attention_local``: bf16 chunks summed step by step, as the
+    ranks sum them) by ``test_ring_local``'s bars; the B2 launches of the
+    whole ring n(n+1)/2 or n(2n+1)."""
+    from macaw_llm_tpu_torch.parallel import ring_attention as ring
+    from macaw_llm_tpu_torch.parallel.dryrun import spawn
+    _need_cards(4)
+    n, s = 4, 512
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, g = (torch.randn(2, s, 4, 64, generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+    perm = (ring.zigzag_indices(s, n) if layout == "zigzag"
+            else torch.arange(s))
+    torch.save([t[:, perm] for t in (q, k, v, g)], tmp_path / "qkv.pt")
+    ranks = spawn(n, "ring", {"qkv": {layout: str(tmp_path / "qkv.pt")},
+                              "layouts": [layout]}, str(tmp_path / "job"),
+                  device="cuda")
+    inv = ring.inverse_permutation(perm)
+    out = torch.cat([r[layout]["out"] for r in ranks], 1)[:, inv]
+    grads = [torch.cat([r[layout]["grads"][i] for r in ranks], 1)[:, inv]
+             for i in range(3)]
+    ref, _ = fa.attention_reference(q.float(), k.float(), v.float(), None,
+                                    causal=True)
+    assert _row_rel_err(out, ref) <= ATTN_ROW_REL
+    x = [t[:, perm].requires_grad_() for t in (q, k, v)]
+    local = ring.ring_attention_local(*x, n, layout)
+    local.backward(g[:, perm])
+    assert _row_rel_err(out, local.detach()[:, inv]) <= ATTN_ROW_REL
+    for a, b in zip(grads, x):
+        assert _grad_row_err(a, b.grad[:, inv]) <= 2 * BWD_ROW_REL
+    want = n * (n + 1) // 2 if layout == "contiguous" else n * (2 * n + 1)
+    assert sum(r[layout]["launches"]["flash_attention_with_lse"]
+               for r in ranks) == want

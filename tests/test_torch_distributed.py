@@ -366,6 +366,43 @@ def test_checkpoints_move_between_two_ranks_and_one_device(weights,
             assert torch.equal(got[path], x), (name, path)
 
 
+def test_gathered_checkpoint_restores_onto_four_ranks_from_a_map(weights,
+                                                                 tmp_path):
+    """A checkpoint gathered from a (1, 1, 4, 1) mesh restores onto the
+    same mesh through the file's memory map: every rank holds its block
+    of each saved leaf and moment bit for bit, and the restored state
+    gathers to the saved one."""
+    from macaw_llm_tpu_torch.parallel.sharding import at_path
+    from macaw_llm_tpu_torch.train.checkpoint import STATE_FILE
+    save = tmp_path / "mesh"
+    batches, none = [_batch(42)], []  # alive: _run names files by id
+    first = _run(tmp_path, weights, False, 1, batches)
+    first.update(save=str(save))
+    again = _run(tmp_path, weights, False, 1, none)
+    again.update(restore=str(save))
+    ranks = spawn(4, "train", {"mesh": (1, 1, 4, 1),
+                               "runs": [first, again]},
+                  str(tmp_path / "job"))
+    saved = torch.load(save / "step_1" / STATE_FILE, weights_only=True)
+    assert ranks[0]["runs"][0]["last_save"]["mode"] == "gathered"
+    for rank, res in enumerate(ranks):
+        got = res["runs"][1]
+        assert got["restored"]["step"] == 1
+        for name, tree in (("trainable", saved["trainable"]),
+                           ("mu", saved["opt"]["mu"]),
+                           ("nu", saved["opt"]["nu"])):
+            shards = dict(tree_paths(got["restored_shards"][name]))
+            whole = dict(tree_paths(got["restored"][name]))
+            for path, x in tree_paths(tree):
+                assert torch.equal(whole[path], x), (rank, name, path)
+                block = x
+                for d, axis in enumerate(at_path(got["specs"], path)):
+                    if axis == "fsdp":
+                        m = x.shape[d] // 4
+                        block = block.narrow(d, rank * m, m)
+                assert torch.equal(shards[path], block), (rank, name, path)
+
+
 @pytest.mark.parametrize("count", [2, 4])
 def test_loaders_give_each_process_jaxs_rows(count):
     from macaw_llm_tpu.run_train import synthetic_dataset as jsynth

@@ -348,6 +348,12 @@ def _cases(s: dict, t: int) -> list:
                  requests=f["requests"], seed=321, static=True,
                  kw=dict(STATIC_KW, max_batch=2),
                  follower_fail_prefill_at=2),
+            # the same, the leader lagging after the failure flags' sum:
+            # it finds the teardown between two collectives
+            dict(name="static_follower_lagged", kind="engine",
+                 requests=f["requests"], seed=321, static=True,
+                 kw=dict(STATIC_KW, max_batch=2),
+                 follower_fail_prefill_at=2, leader_lag_s=1.0),
         ]
     return [dict(c, model=c.get("model", model)) for c in cases]
 
@@ -890,6 +896,29 @@ def test_a_followers_failure_inside_a_batch_stops_the_static_group(setup,
         for r in reqs]
     assert all(r["error"].startswith("batch failed")
                for r in lead["results"][2:]), lead["results"]
+    for rank in (lead, follow):
+        assert rank["seconds"] < TIMEOUT.total_seconds() / 10, rank
+
+
+def test_a_teardown_found_between_collectives_fails_the_static_batch(tp2):
+    """The follower's second batch raises inside its collectives while the
+    leader lags after that batch's failure flags are summed: the leader's
+    watcher marks the group torn down first, so its check between the
+    flags and the batch raises outside the batch's own handler. The loop
+    still tears its end down and fails the batch in hand and the queue;
+    the first batch is served and both loops end well inside the group's
+    timeout."""
+    from macaw_llm_tpu_torch.parallel.mesh import TIMEOUT
+    lead, follow = (r["static_follower_lagged"] for r in tp2)
+    served = tp2[0]["static_follower_prefill"]["results"][:2]
+    strip = ("latency_ms",)
+    assert [{k: v for k, v in r.items() if k not in strip}
+            for r in lead["results"][:2]] == [
+        {k: v for k, v in r.items() if k not in strip} for r in served]
+    errors = lead["results"][2:]
+    assert errors and all(r["error"].startswith("batch failed")
+                          for r in errors), lead["results"]
+    assert any("torn down on another rank" in r["error"] for r in errors)
     for rank in (lead, follow):
         assert rank["seconds"] < TIMEOUT.total_seconds() / 10, rank
 
