@@ -1,0 +1,13 @@
+"""Engine: the window's wall time over the decode steps the engine took in
+it (``ContinuousEngine.stats["steps"]``)."""
+
+LAYER = "engine"
+UNIT = "ms"
+SOURCE = "program_counter"
+MOVES = "itl_p95_ms"
+
+
+def read(w):
+    if w.kind != "serve" or not w.steps:
+        return None
+    return (w.t1 - w.t0) / w.steps * 1e3
