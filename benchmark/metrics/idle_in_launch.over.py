@@ -1,0 +1,16 @@
+"""Engine, above capacity: the share of the traced window in which the
+device was idle while the decode thread was inside ``decode.launch``."""
+
+from benchmark import spans
+
+LAYER = "engine"
+UNIT = "%"
+SOURCE = "program_span"
+MOVES = "served_tokens_per_s"
+
+
+def read(w):
+    if w.kind != "serve":
+        return None
+    split = spans.idle_split(w, spans.DECODE_STATES)
+    return None if split is None else split.get("decode.launch", 0.0)

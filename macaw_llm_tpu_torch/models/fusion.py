@@ -37,6 +37,7 @@ from macaw_llm_tpu_torch.ops.attention import (
     torch_mha_apply_shared_kv_flash, torch_mha_init)
 from macaw_llm_tpu_torch.ops.linear import dense
 from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
+from macaw_llm_tpu_torch.utils.profiling import SPANS
 
 # alignment logits above this many bytes go to the flash kernel
 ALIGN_EINSUM_MAX_BYTES = int(4e8)
@@ -426,30 +427,36 @@ def prepare_inputs(params: dict, cfg: ModelConfig, *,
     blocks = []
 
     def add_block(mod: str, feats: torch.Tensor, conv_stride: int) -> None:
-        x = _conv_downsample(fp["conv"][mod], feats, conv_stride)
-        x = dense(x, fp["to_hidden"][mod]["w"], fp["to_hidden"][mod]["b"])
-        x = _align(fp[f"{mod}_align"], heads2, x, token_memory,
-                   kv_cache=cache.get(mod), dropout_rate=drop,
-                   rng=dropout_rng, tp=tpar.on(tp, "align"))
-        blocks.append(torch.cat(
-            [_boundary(lp, bids[mod][0], b, compute, tp), x,
-             _boundary(lp, bids[mod][1], b, compute, tp)], 1))
+        with SPANS.child("align"):
+            x = _conv_downsample(fp["conv"][mod], feats, conv_stride)
+            x = dense(x, fp["to_hidden"][mod]["w"],
+                      fp["to_hidden"][mod]["b"])
+            x = _align(fp[f"{mod}_align"], heads2, x, token_memory,
+                       kv_cache=cache.get(mod), dropout_rate=drop,
+                       rng=dropout_rng, tp=tpar.on(tp, "align"))
+            blocks.append(torch.cat(
+                [_boundary(lp, bids[mod][0], b, compute, tp), x,
+                 _boundary(lp, bids[mod][1], b, compute, tp)], 1))
 
+    # the towers' and the alignments' spans inside the caller's (an
+    # admission's or a train step's forward)
     aq = activation_quant
     if images is not None:
-        add_block("image", encode_image(params, cfg, images.to(compute), aq,
-                                        tp),
-                  cfg.fusion.image_conv_stride)
+        with SPANS.child("towers"):
+            feats = encode_image(params, cfg, images.to(compute), aq, tp)
+        add_block("image", feats, cfg.fusion.image_conv_stride)
     if audios is not None:
-        add_block("audio", encode_audio(params, cfg, audios.to(compute),
-                                        dropout_rng, aq, tp),
-                  cfg.fusion.audio_conv_stride)
+        with SPANS.child("towers"):
+            feats = encode_audio(params, cfg, audios.to(compute),
+                                 dropout_rng, aq, tp)
+        add_block("audio", feats, cfg.fusion.audio_conv_stride)
     if videos is not None:
         encode_video = encode_video_long if video_mode == "long" \
             else encode_video_simple
-        add_block("video", encode_video(params, cfg, videos.to(compute),
-                                        dropout_rng, aq, tp),
-                  cfg.fusion.video_conv_stride)
+        with SPANS.child("towers"):
+            feats = encode_video(params, cfg, videos.to(compute),
+                                 dropout_rng, aq, tp)
+        add_block("video", feats, cfg.fusion.video_conv_stride)
     prefix_len = sum(blk.shape[1] for blk in blocks)
 
     fused = torch.cat([text_emb[:, :1]] + blocks + [text_emb[:, 1:]], dim=1)

@@ -22,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 
+from macaw_llm_tpu_torch.utils.profiling import SPANS
+
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 BUILD_ROOT = _PACKAGE.parent / "build" / "macaw_llm_tpu_torch"
@@ -140,8 +142,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            info = build()
-            lib = ctypes.CDLL(info["path"])
+            with SPANS.span("setup.kernel_load"):
+                info = build()
+                lib = ctypes.CDLL(info["path"])
+            SPANS.count("setup.kernel_load." +
+                        ("cached" if info["cached"] else "built"))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

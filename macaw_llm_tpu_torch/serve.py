@@ -65,6 +65,7 @@ import base64
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import logging
 import queue
@@ -86,6 +87,7 @@ from macaw_llm_tpu_torch.models import fusion, llama
 from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
 from macaw_llm_tpu_torch.parallel.tensor_parallel import (TensorParallel,
                                                           reduce_max)
+from macaw_llm_tpu_torch.utils.profiling import SPANS
 
 logger = logging.getLogger("macaw.serve")
 
@@ -103,7 +105,9 @@ def _init_align_cache(params: dict, mcfg: ModelConfig, mode: str,
     ``tp``: ``params`` is this rank's block; so is the cache."""
     if mode == "off":
         return fusion.pack_towers(params), None
-    with torch.inference_mode():
+    with SPANS.span("setup.align_cache",
+                    device=params["llm"]["embed_tokens"].device), \
+            torch.inference_mode():
         cache = fusion.precompute_align_cache(params, mcfg,
                                               quantize=mode == "int8", tp=tp)
     return fusion.pack_towers(fusion.strip_align_kv(params)), cache
@@ -306,6 +310,9 @@ class _Follower:
         pass
 
 
+_REQUEST_IDS = itertools.count()
+
+
 @dataclass
 class Request:
     prompt: str
@@ -317,6 +324,21 @@ class Request:
     stream_cb: Optional[object] = None      # callable(token_id) per token
     _done: threading.Event = field(default_factory=threading.Event)
     _result: Optional[dict] = None
+    # the spans' request id; the queue wait's start (the profiler's clock);
+    # the moment the admission handed it to the decode loop (_Handoff)
+    _id: int = field(default_factory=_REQUEST_IDS.__next__)
+    _created_ns: int = field(default_factory=time.time_ns)
+    _handed_ns: int = 0
+
+
+class _Handoff(queue.Queue):
+    """The admission thread's queue of prefilled requests: each is stamped
+    as it enters, under the queue's lock, so the decode loop never takes
+    one before its stamp."""
+
+    def _put(self, item):
+        item[0]._handed_ns = time.time_ns()
+        super()._put(item)
 
 
 def _prompt_tokens(tokenizer, prompt: str) -> List[int]:
@@ -904,7 +926,7 @@ class ContinuousEngine:
         self._slot_gen = [0] * slots    # guards pipelined readback after
                                         # a slot is recycled
         self.queue: "queue.Queue[Request]" = queue.Queue()
-        self._admit_q: "queue.Queue[tuple]" = queue.Queue(maxsize=slots)
+        self._admit_q: "queue.Queue[tuple]" = _Handoff(maxsize=slots)
         self._stop = threading.Event()
         self._group_done = threading.Event()  # no collective follows
         self._watcher = None if tp is None else threading.Thread(
@@ -942,6 +964,7 @@ class ContinuousEngine:
             # the weights, the alignment cache and the slot cache were made
             # on the default stream: both engine streams start after them
             torch.cuda.synchronize(self.device)
+            SPANS.settle()  # the set-up's device times
         if self.tp is None:
             self._prefill_thread.start()
         else:
@@ -974,34 +997,38 @@ class ContinuousEngine:
     def _prefill_body(self, fused: fusion.FusedBatch, temp: float):
         """Prompt pass of one request into a cache slice of its own.
         Returns ({"k", "v"[, "ks", "vs"]} slices [L, S_max, ...], first
-        token, valid length)."""
-        llm = self.cfg.llm
-        dev = self.device
-        cache = llama.KVCache.create(llm, 1, self.total_len,
-                                     self._cache_dtype, dev, self.tp)
-        mask = fused.attention_mask.to(torch.int32)
-        s = mask.shape[1]
-        full_mask = torch.cat(
-            [mask, torch.ones((1, self.total_len - s), dtype=torch.int32,
-                              device=dev)], dim=1)
-        pos = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
-        # hidden states only; the logits are projected for the one sampled
-        # position (the [1, S, V] fp32 prefill logits never exist)
-        h = llama.forward_hidden(self.params["llm"], llm,
-                                 fused.inputs_embeds, attention_mask=full_mask,
-                                 positions=pos, kv_cache=cache, tp=self.tp)
-        last = (mask * torch.arange(s, device=dev)[None, :]).amax(1)
-        h_last = h[torch.arange(1, device=dev), last][:, None]
-        first_logits = llama.logits_from_hidden(
-            self.params["llm"], h_last, llama.valid_vocab(llm),
-            tp=self.tp)[:, 0]
-        first_tok = _sample(first_logits,
-                            self._gen_admit if temp > 0 else None, temp)
-        new = {"k": cache.k[:, 0], "v": cache.v[:, 0]}
-        if cache.k_scale is not None:
-            new["ks"] = cache.k_scale[:, 0]
-            new["vs"] = cache.v_scale[:, 0]
-        return new, first_tok[0], last[0] + 1
+        token, valid length), the two read back on this thread."""
+        with SPANS.span("admit.prefill", device=self.device):
+            llm = self.cfg.llm
+            dev = self.device
+            cache = llama.KVCache.create(llm, 1, self.total_len,
+                                         self._cache_dtype, dev, self.tp)
+            mask = fused.attention_mask.to(torch.int32)
+            s = mask.shape[1]
+            full_mask = torch.cat(
+                [mask, torch.ones((1, self.total_len - s),
+                                  dtype=torch.int32, device=dev)], dim=1)
+            pos = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+            # hidden states only; the logits are projected for the one
+            # sampled position (the [1, S, V] fp32 prefill logits never
+            # exist)
+            h = llama.forward_hidden(self.params["llm"], llm,
+                                     fused.inputs_embeds,
+                                     attention_mask=full_mask, positions=pos,
+                                     kv_cache=cache, tp=self.tp)
+            last = (mask * torch.arange(s, device=dev)[None, :]).amax(1)
+            h_last = h[torch.arange(1, device=dev), last][:, None]
+            first_logits = llama.logits_from_hidden(
+                self.params["llm"], h_last, llama.valid_vocab(llm),
+                tp=self.tp)[:, 0]
+            first_tok = _sample(first_logits,
+                                self._gen_admit if temp > 0 else None, temp)
+            new = {"k": cache.k[:, 0], "v": cache.v[:, 0]}
+            if cache.k_scale is not None:
+                new["ks"] = cache.k_scale[:, 0]
+                new["vs"] = cache.v_scale[:, 0]
+            # host sync on the admission thread, NOT the decode loop
+            return new, int(first_tok[0]), int(last[0] + 1)
 
     def _prefill(self, ids, image, audio, video, mask, temp: float):
         fused = fusion.prepare_inputs(
@@ -1055,16 +1082,24 @@ class ContinuousEngine:
                 req = self.queue.get(timeout=0.1)
             except queue.Empty:
                 continue
+            got = time.time_ns()
+            SPANS.add("request.queue_wait", req._created_ns, got, req._id)
             try:
                 with torch.inference_mode(), \
-                        self._on_stream(self._admit_stream):
+                        self._on_stream(self._admit_stream), \
+                        SPANS.span("admit", req._id, self.device, got) as adm:
                     item = self._run_prefill(req)
-                while not self._stop.is_set():
-                    try:
-                        self._admit_q.put(item, timeout=0.5)
-                        break
-                    except queue.Full:
-                        continue
+                    SPANS.settle()  # the prefill's read-back synchronized
+                    with SPANS.span("admit.handoff") as handoff:
+                        while not self._stop.is_set():
+                            try:
+                                self._admit_q.put(item, timeout=0.5)
+                                break
+                            except queue.Full:
+                                continue
+                        if req._handed_ns:
+                            handoff.end_at(req._handed_ns)
+                            adm.end_at(req._handed_ns)
             except Exception as e:  # noqa: BLE001: fail the request only
                 logger.exception("prefill failed")
                 req._result = {"error": str(e)}
@@ -1079,13 +1114,15 @@ class ContinuousEngine:
         None for a text-only request) featurized on the device."""
         mcfg, dev = self.cfg, self.device
         vis = mcfg.vision
-        t = _prompt_tokens(self.tokenizer, req.prompt)[:self.prompt_bucket]
-        # the smallest bucket that fits: a bounded set of prefill shapes
-        bucket = next(b for b in self.buckets if len(t) <= b)
-        ids = np.full((1, bucket), PAD_ID, np.int64)
-        mask = np.zeros((1, bucket), np.int64)
-        ids[0, :len(t)] = t
-        mask[0, :len(t)] = 1
+        with SPANS.child("encode"):
+            t = _prompt_tokens(self.tokenizer,
+                               req.prompt)[:self.prompt_bucket]
+            # the smallest bucket that fits: a bounded set of prefill shapes
+            bucket = next(b for b in self.buckets if len(t) <= b)
+            ids = np.full((1, bucket), PAD_ID, np.int64)
+            mask = np.zeros((1, bucket), np.int64)
+            ids[0, :len(t)] = t
+            mask[0, :len(t)] = 1
         media = None
         if not (req.image is None and req.audio is None
                 and req.video is None):
@@ -1097,9 +1134,10 @@ class ContinuousEngine:
                 (mcfg.fusion.n_frames, vis.image_size, vis.image_size, 3),
                 np.uint8)
             # np.array copies: a decoded frame may be a read-only buffer
-            media = fusion.featurize(mcfg, *(
-                torch.from_numpy(np.array(x[None])).to(dev)
-                for x in (image, audio, video)))
+            with SPANS.child("featurize"):
+                media = fusion.featurize(mcfg, *(
+                    torch.from_numpy(np.array(x[None])).to(dev)
+                    for x in (image, audio, video)))
         return dict(ids=torch.from_numpy(ids).to(dev),
                     mask=torch.from_numpy(mask).to(dev), media=media,
                     temp=float(req.temperature))
@@ -1117,8 +1155,7 @@ class ContinuousEngine:
         if self._admit_stream is not None:
             event = torch.cuda.Event()
             event.record(self._admit_stream)
-        # host sync on the admission thread, NOT the decode loop
-        return (req, new, int(tok), int(length), event)
+        return (req, new, tok, length, event)
 
     # -------------------- decode loop --------------------
 
@@ -1143,6 +1180,9 @@ class ContinuousEngine:
         self._temps[slot] = req.temperature
         self._slot_gen[slot] += 1
         self.stats["admitted"] += 1
+        if req._handed_ns:  # handed over by the admission thread
+            SPANS.add("request.place_wait", req._handed_ns, time.time_ns(),
+                      req._id)
         _emit(req, tok)
         if tok == EOS_ID or self._budget[slot] <= 0:
             self._finish(slot)
@@ -1272,7 +1312,10 @@ class ContinuousEngine:
         # later attention window, overwritten on reuse; a position past
         # the buffer is written to its last row, which no live query
         # sees: llama.forward_hidden).
+        # The spans decode.place, .launch, .readback and .sleep tile the
+        # loop: each phase's end stamp is the next one's start.
         pending = deque()  # (host tokens, event, [(slot, slot_gen)])
+        lap, t = SPANS.lap, time.time_ns()
         while not self._stop.is_set():
             placed = False
             for slot in range(self.slots):
@@ -1285,17 +1328,23 @@ class ContinuousEngine:
                     placed = True
             active_slots = [i for i, r in enumerate(self._reqs)
                             if r is not None]
+            t = lap("decode.place", t)
             if not active_slots:
                 if pending:
                     self._process_readback(pending.popleft())
+                    t = lap("decode.readback", t)
                 elif not placed:
                     time.sleep(0.002)
+                    t = lap("decode.sleep", t)
                 continue
             pending.append(self._dispatch(active_slots))
+            t = lap("decode.launch", t)
             while len(pending) > READBACK_DEPTH:
                 self._process_readback(pending.popleft())
+                t = lap("decode.readback", t)
         while pending:
             self._process_readback(pending.popleft())
+            t = lap("decode.readback", t)
 
     # -------------------- tensor-parallel schedule --------------------
 

@@ -74,6 +74,7 @@ from macaw_llm_tpu_torch.config import (IGNORE_ID, ModelConfig,
 from macaw_llm_tpu_torch.models import fusion
 from macaw_llm_tpu_torch.train.state import (TrainState, merge_params,
                                              split_params)
+from macaw_llm_tpu_torch.utils.profiling import SPANS
 
 
 def _tree_map(fn, tree):
@@ -257,28 +258,38 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     """One optimizer step over a batch with a leading grad-accumulation
     axis [A, B, ...] (A = 1 for none). Returns (state, metrics) with the
     loss (mean over micro-batches), the gradients' global norm and the
-    step's learning rate; the state is updated in place."""
-    accum = next(iter(batch.values())).shape[0]
+    step's learning rate; the state is updated in place. Spans
+    ``train.step`` > ``train.forward``, ``train.backward``,
+    ``train.optimizer``, with the device's time of each read at the next
+    step (the caller's read of the loss has synchronized by then)."""
+    first = next(iter(batch.values()))
+    accum, dev = first.shape[0], first.device
     gd = grad_dtype
-    diff = _tree_map(lambda p: (p if gd == torch.float32 else p.to(gd))
-                     .detach().requires_grad_(), state.trainable)
-    loss_sum = 0.0
-    for a in range(accum):
-        mb = {k: v[a] for k, v in batch.items()}
-        loss = _loss(diff, state.frozen, mcfg, mb, state.rng, lora_scale,
-                     align_cache)
-        loss.backward()
-        loss_sum = loss_sum + loss.detach()
-    def grad(p):
-        if p.grad is None:  # a leaf the loss does not reach
-            return torch.zeros_like(p)
-        return p.grad if accum == 1 else (p.grad / accum).to(gd)
+    SPANS.settle()
+    with SPANS.span("train.step", device=dev):
+        diff = _tree_map(lambda p: (p if gd == torch.float32 else p.to(gd))
+                         .detach().requires_grad_(), state.trainable)
+        loss_sum = 0.0
+        for a in range(accum):
+            mb = {k: v[a] for k, v in batch.items()}
+            with SPANS.span("train.forward", device=dev):
+                loss = _loss(diff, state.frozen, mcfg, mb, state.rng,
+                             lora_scale, align_cache)
+            with SPANS.span("train.backward", device=dev):
+                loss.backward()
+            loss_sum = loss_sum + loss.detach()
 
-    grads = _tree_map(grad, diff)
-    del diff
-    lr = tx.schedule(state.step)
-    g_norm = tx.update(state.trainable, grads, state.opt_state)
-    state.step += 1
+        def grad(p):
+            if p.grad is None:  # a leaf the loss does not reach
+                return torch.zeros_like(p)
+            return p.grad if accum == 1 else (p.grad / accum).to(gd)
+
+        with SPANS.span("train.optimizer", device=dev):
+            grads = _tree_map(grad, diff)
+            del diff
+            lr = tx.schedule(state.step)
+            g_norm = tx.update(state.trainable, grads, state.opt_state)
+        state.step += 1
     return state, {"loss": loss_sum / accum, "grad_norm": g_norm, "lr": lr}
 
 
@@ -398,6 +409,11 @@ class Trainer:
         moments (in host memory under ``offload_optimizer``) and, under
         LoRA, the alignment K/V cache computed once. Over a mesh every rank
         passes the whole tree and keeps its shards."""
+        with SPANS.span("setup.init_state", device=self.device):
+            return self._init_state(params, rng)
+
+    def _init_state(self, params: dict,
+                    rng: Optional[torch.Generator]) -> TrainState:
         t = self.tcfg
         params = _tree_map(lambda x: x.to(self.device), params)
         if t.quantize_base:

@@ -43,6 +43,7 @@ import torch
 from macaw_llm_tpu_torch.ops.kernels.matvec import (matvec_int8,
                                                     matvec_int8_pipelined)
 from macaw_llm_tpu_torch.parallel import tensor_parallel as tpar
+from macaw_llm_tpu_torch.utils.profiling import SPANS
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 ACT_QUANT_MIN_ROWS = 256
@@ -103,15 +104,17 @@ def quantize_llama(params: dict, tp=None) -> dict:
     out = dict(params)
     layers = dict(params["layers"])
     row = {"wo": tpar.on(tp, "llm_attn"), "down": tpar.on(tp, "llm_mlp")}
-    for group in ("attn", "mlp"):
-        g = dict(layers[group])
-        for name in list(g):
-            if name in QUANT_KEYS:
-                qv, sv = quantize_tensor(g[name], row.get(name))
-                g[name] = {"q": qv, "s": sv}
-        layers[group] = g
+    with SPANS.span("setup.quantize",
+                    device=params["embed_tokens"].device):
+        for group in ("attn", "mlp"):
+            g = dict(layers[group])
+            for name in list(g):
+                if name in QUANT_KEYS:
+                    qv, sv = quantize_tensor(g[name], row.get(name))
+                    g[name] = {"q": qv, "s": sv}
+            layers[group] = g
+        qh, sh = quantize_tensor(params["lm_head"])
     out["layers"] = layers
-    qh, sh = quantize_tensor(params["lm_head"])
     out["lm_head"] = {"q": qh, "s": sh}
     return out
 
@@ -134,10 +137,12 @@ def pack_llama_for_decode(params: dict) -> dict:
     out = dict(params)
     layers = dict(params["layers"])
     attn = dict(layers["attn"])
-    attn["qkv"] = cat_columns(attn.pop("wq"), attn.pop("wk"), attn.pop("wv"))
-    layers["attn"] = attn
     mlp = dict(layers["mlp"])
-    mlp["gateup"] = cat_columns(mlp.pop("gate"), mlp.pop("up"))
+    with SPANS.span("setup.pack", device=params["embed_tokens"].device):
+        attn["qkv"] = cat_columns(attn.pop("wq"), attn.pop("wk"),
+                                  attn.pop("wv"))
+        mlp["gateup"] = cat_columns(mlp.pop("gate"), mlp.pop("up"))
+    layers["attn"] = attn
     layers["mlp"] = mlp
     out["layers"] = layers
     return out

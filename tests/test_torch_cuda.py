@@ -1035,3 +1035,47 @@ def test_ring_over_nccl_matches_plain_attention(tmp_path, layout):
     want = n * (n + 1) // 2 if layout == "contiguous" else n * (2 * n + 1)
     assert sum(r[layout]["launches"]["flash_attention_with_lse"]
                for r in ranks) == want
+
+
+def test_spans_lie_on_the_device_traces_clock(gen):
+    """A span around a 20-ms host sleep between two kernels, under a
+    CUDA-activity profile: the span covers at least 90% of the device's
+    gap between the kernels, so the recorder's stamps and the profiler's
+    device records share a clock (the offsets at both ends are printed).
+    A span with a CUDA device reads its device time once its events have
+    completed; one on the CPU reads none."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from macaw_llm_tpu_torch.utils.profiling import SpanRecorder
+    rec, dev = SpanRecorder(), torch.device("cuda")
+    x = torch.randn(2048, 2048, device="cuda", generator=gen)
+    x @ x  # both kernels loaded before the profile: a first launch loads
+    x + 1  # its module, which takes milliseconds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with rec.span("work", device=dev):
+            x @ x
+        torch.cuda.synchronize()
+        with rec.span("sleep", device=dev):
+            time.sleep(0.02)
+        x + 1
+        torch.cuda.synchronize()
+    with rec.span("on_cpu", device=torch.device("cpu")):
+        pass
+    rec.settle()
+    ops = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns())
+                 for ev in prof.profiler.kineto_results.events()
+                 if str(ev.device_type()).endswith("CUDA"))
+    gaps = [(a[1], b[0]) for a, b in zip(ops, ops[1:]) if b[0] > a[1]]
+    lo, hi = max(gaps, key=lambda g: g[1] - g[0])
+    spans = {s.name: s for s in rec.snapshot()[0]}
+    sleep = spans["sleep"]
+    print(f"span starts {(sleep.start_ns - lo) / 1e3:.1f} us after the "
+          f"gap; the gap ends {(hi - sleep.end_ns) / 1e3:.1f} us after "
+          f"the span; gap {(hi - lo) / 1e6:.3f} ms")
+    covered = min(hi, sleep.end_ns) - max(lo, sleep.start_ns)
+    assert covered >= 0.9 * (hi - lo)
+    assert spans["work"].device_ms > 0 and spans["sleep"].device_ms > 0
+    assert spans["on_cpu"].device_ms is None
