@@ -1822,7 +1822,7 @@ def profile_engine_steps(torch, engine, out_dir: Path, steps: int = 20):
     against the wall time gives the device's idle share of a step."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     slots = list(range(engine.slots))
-    engine._ctl_dirty = True
+    engine._active_dev.fill_(True)
 
     def run(n):
         with torch.inference_mode(), torch.cuda.stream(
@@ -3181,9 +3181,12 @@ def logits_recorded(engine, store: dict):
     drawn from: ``store[prompt]`` = [the prefill's row, then one row a
     decode step] (fp32 on the host; a request that finished keeps the rows
     of its masked steps after its last token). ``serve._sample`` is
-    wrapped, so one engine a process runs while it is open."""
+    wrapped, so one engine a process runs while it is open; open it before
+    ``start``: the engine then steps eagerly, since a captured step cannot
+    copy its logits to the host."""
     from macaw_llm_tpu_torch import serve
     sample, run, now = serve._sample, engine._prefill_ready, {}
+    engine._capture_steps = lambda: None
 
     def prefill_ready(req, adm):
         now["prompt"] = req.prompt

@@ -56,14 +56,18 @@ Every rank reaches the same verdict on a failure:
 Where the reference compiles its prefill, admit and step functions and
 donates the cache to them, this module runs eagerly: the cache, ``lengths``
 and ``toks`` are preallocated tensors that admission and the decode step
-update in place.
+update in place. On one card the continuous engine's decode step is the
+exception: it is captured once as a CUDA graph and replayed
+(``ContinuousEngine._capture_steps``).
 """
 
 from __future__ import annotations
 
 import base64
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -93,6 +97,7 @@ logger = logging.getLogger("macaw.serve")
 
 PROMPT_BUCKETS = (32, 64, 128, 256)
 READBACK_DEPTH = 2  # decode steps dispatched before a step's tokens are read
+_GRAPH_WARMUP_STEPS = 2  # eager decode steps run before a step is captured
 
 
 def _init_align_cache(params: dict, mcfg: ModelConfig, mode: str,
@@ -111,6 +116,40 @@ def _init_align_cache(params: dict, mcfg: ModelConfig, mode: str,
         cache = fusion.precompute_align_cache(params, mcfg,
                                               quantize=mode == "int8", tp=tp)
     return fusion.pack_towers(fusion.strip_align_kv(params)), cache
+
+
+def _launch_counted() -> list:
+    """The kernel wrappers that count their launches (``ops/kernels``)."""
+    from macaw_llm_tpu_torch.ops.kernels import flash_attention as fa
+    from macaw_llm_tpu_torch.ops.kernels import matvec as mv
+    from macaw_llm_tpu_torch.ops.kernels import mh_attention as mh
+    return [mh.mh_attention, fa.flash_attention_with_lse,
+            fa.flash_attention_combine, fa.flash_attention_dq,
+            fa.flash_attention_dkv, fa.flash_attention_delta,
+            mv.matvec_int8, mv.matvec_int8_pipelined]
+
+
+@functools.lru_cache(maxsize=None)
+def _cu_graph_launch():
+    """The driver's ``cuGraphLaunch`` through a ``ctypes.PyDLL``: the call
+    keeps the GIL."""
+    fn = ctypes.PyDLL("libcuda.so.1").cuGraphLaunch
+    fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_holding_gil(graph: "torch.cuda.CUDAGraph", stream) -> None:
+    """Launch a captured graph that draws no random numbers on ``stream``,
+    the GIL held throughout. ``CUDAGraph.replay`` releases the GIL and runs
+    its generators' prologue as torch ops before the launch; a profiler
+    stopping on another thread, which holds the GIL, then deadlocks with
+    it (an H100, torch 2.11, CUDA 12.8: the stopping thread in the
+    profiler's exit, the replaying thread in ``replay``, the card idle).
+    With the GIL held, no launch overlaps a profiler's start or stop."""
+    rc = _cu_graph_launch()(graph.raw_cuda_graph_exec(), stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"cuGraphLaunch failed with CUDA error {rc}")
 
 
 def _this_card(device: torch.device) -> torch.device:
@@ -866,6 +905,10 @@ class ContinuousEngine:
         to two extra masked steps: bounded waste, never wrong output)
       * per-slot temperature: greedy and sampling requests share the
         batch without contaminating each other
+      * on one card the decode step is replayed from a CUDA graph captured
+        at ``start`` (one greedy, one sampling), so a step costs the host
+        one launch instead of the forward's hundreds; it reads the cache,
+        ``lengths``, ``toks`` and the control vectors in place
 
     Under a tensor group (``tp``) one thread a rank runs the leader's
     schedule instead (``_tp_loop``; the module docstring).
@@ -917,12 +960,17 @@ class ContinuousEngine:
         self._generated: List[List[int]] = [[] for _ in range(slots)]
         self._budget = np.zeros(slots, np.int64)
         self._temps = np.zeros(slots, np.float32)
-        # device-resident copies of the per-slot control vectors, uploaded
-        # again only when admission or finish changes them
-        self._active_dev = None
-        self._temps_dev = None
+        # device-resident copies of the per-slot control vectors, written
+        # in place by admission and finish (a captured step reads them at
+        # these addresses)
+        self._active_dev = torch.zeros((slots,), dtype=torch.bool,
+                                       device=self.device)
+        self._temps_dev = torch.zeros((slots,), dtype=torch.float32,
+                                      device=self.device)
         self._sampling = False
-        self._ctl_dirty = True
+        # sampling (bool) -> (the captured decode step, [(kernel wrapper,
+        # launches a replay makes)])
+        self._graphs = {}
         self._slot_gen = [0] * slots    # guards pipelined readback after
                                         # a slot is recycled
         self.queue: "queue.Queue[Request]" = queue.Queue()
@@ -940,7 +988,8 @@ class ContinuousEngine:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._prefill_thread = threading.Thread(target=self._prefill_loop,
                                                 daemon=True)
-        self.stats = {"requests": 0, "steps": 0, "admitted": 0}
+        self.stats = {"requests": 0, "steps": 0, "admitted": 0,
+                      "graph_replays": 0}
         self._zero_prefix = None   # computed lazily, once, on admission
 
         on_gpu = self.device.type == "cuda"
@@ -965,6 +1014,8 @@ class ContinuousEngine:
             # on the default stream: both engine streams start after them
             torch.cuda.synchronize(self.device)
             SPANS.settle()  # the set-up's device times
+            if self.tp is None:
+                self._capture_steps()
         if self.tp is None:
             self._prefill_thread.start()
         else:
@@ -1171,10 +1222,13 @@ class ContinuousEngine:
                 # memory is not handed out again before this copy has run
                 nv.record_stream(self._decode_stream)
             self.cache[key][:, slot] = nv
-        self.lengths[slot] = length
-        self.toks[slot] = tok
+        # fill_ takes the number as a kernel argument; an assignment would
+        # copy it from the host and wait for the decode stream to drain
+        self.lengths[slot].fill_(length)
+        self.toks[slot].fill_(tok)
+        self._active_dev[slot].fill_(True)
+        self._temps_dev[slot].fill_(req.temperature)
         self._reqs[slot] = req
-        self._ctl_dirty = True
         self._generated[slot] = [tok]
         self._budget[slot] = min(req.max_new_tokens, self.max_new) - 1
         self._temps[slot] = req.temperature
@@ -1196,7 +1250,7 @@ class ContinuousEngine:
                        "tokens": len(gen)}
         req._done.set()
         self._reqs[slot] = None
-        self._ctl_dirty = True
+        self._active_dev[slot].fill_(False)
         self._generated[slot] = []
         self.stats["requests"] += 1
 
@@ -1217,19 +1271,65 @@ class ContinuousEngine:
         self.lengths += self._active_dev.to(torch.int64)
         self.toks.copy_(torch.where(self._active_dev, nxt, self.toks))
 
+    def _capture_steps(self) -> None:
+        """Capture ``_step`` as CUDA graphs on the decode stream, before
+        the engine's threads start: the greedy step, and the sampling step
+        with the step generator registered to its graph. Every slot is
+        inactive, so the eager warm-up steps write only what any step
+        writes for an inactive slot; they count in ``steps`` like any
+        step, and the generator's state is put back after them. The
+        capture launches nothing: the kernel wrappers' counts it raised
+        are taken back, and each replay adds them (``_dispatch``)."""
+        counted = _launch_counted()
+        pool = None
+        with torch.inference_mode(), torch.cuda.stream(self._decode_stream), \
+                SPANS.span("setup.decode_graph", device=self.device):
+            state = self._gen_step.get_state()
+            for sampling in (False, True):
+                self._sampling = sampling
+                for _ in range(_GRAPH_WARMUP_STEPS):
+                    self._step()
+                    self.stats["steps"] += 1
+                self._gen_step.set_state(state)
+                graph = torch.cuda.CUDAGraph()
+                if sampling:
+                    graph.register_generator_state(self._gen_step)
+                before = [fn.launches for fn in counted]
+                with torch.cuda.graph(graph, pool=pool,
+                                      stream=self._decode_stream,
+                                      capture_error_mode="thread_local"):
+                    self._step()
+                launched = [(fn, fn.launches - n)
+                            for fn, n in zip(counted, before)
+                            if fn.launches != n]
+                for fn, n in zip(counted, before):
+                    fn.launches = n
+                pool = graph.pool()
+                self._graphs[sampling] = (graph, launched)
+            self._sampling = False
+        torch.cuda.synchronize(self.device)
+        SPANS.settle()
+
     def _dispatch(self, active_slots: List[int]):
-        """Upload the control vectors if admission or finish changed them,
-        run one decode step and start its token readback. Returns the
-        pending entry (host tokens, event, [(slot, slot generation)])."""
-        if self._ctl_dirty or self._active_dev is None:
-            active = np.zeros((self.slots,), bool)
-            active[active_slots] = True
-            self._active_dev = torch.from_numpy(active).to(self.device)
-            self._temps_dev = torch.from_numpy(self._temps.copy()).to(
-                self.device)
-            self._sampling = bool((self._temps[active_slots] > 0).any())
-            self._ctl_dirty = False
-        self._step()
+        """Run one decode step (its graph's replay where one was captured:
+        the greedy one by ``_launch_holding_gil``, the sampling one by
+        torch if an active slot samples) and start its token readback.
+        Returns the pending entry (host tokens, event, [(slot, slot
+        generation)])."""
+        self._sampling = bool((self._temps[active_slots] > 0).any())
+        captured = self._graphs.get(self._sampling)
+        if captured is None:
+            self._step()
+        else:
+            graph, launched = captured
+            if self._sampling:
+                graph.replay()
+            else:
+                _launch_holding_gil(graph, self._decode_stream)
+            # counted after the launch, as the wrappers count theirs
+            for fn, n in launched:
+                fn.launches += n
+            self.stats["graph_replays"] += 1
         host, event = self._read_tokens(self.stats["steps"])
         self.stats["steps"] += 1
         return host, event, [(s, self._slot_gen[s]) for s in active_slots]

@@ -666,6 +666,171 @@ def test_continuous_engine_on_the_card(gen):
         per_step * eng.stats["steps"]
 
 
+def _graph_engine(max_new_tokens: int = 24):
+    """A 2-layer engine at 7b widths (int8 packed weights, int8 KV, 16
+    slots), not started."""
+    import dataclasses
+    import zlib
+
+    from macaw_llm_tpu_torch.config import macaw_7b
+    from macaw_llm_tpu_torch.models import fusion
+    from macaw_llm_tpu_torch.serve import ContinuousEngine
+    from macaw_llm_tpu_torch.utils import quantize as qz
+
+    class Tok:
+        def encode(self, text):
+            h = zlib.crc32(text.encode())
+            return [1] + [16 + (h + 37 * i) % 31000
+                          for i in range(8 + h % 40)]
+
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(str(i) for i in ids)
+
+    cfg7 = macaw_7b()
+    cfg = dataclasses.replace(
+        cfg7, llm=dataclasses.replace(cfg7.llm, num_layers=2),
+        vision=dataclasses.replace(cfg7.vision, num_layers=2),
+        audio=dataclasses.replace(cfg7.audio, encoder_layers=2))
+    params = fusion.init_params(0, cfg, dtype=torch.bfloat16, device="cuda")
+    params["llm"] = qz.pack_llama_for_decode(qz.quantize_llama(params["llm"]))
+    return ContinuousEngine(params, cfg, Tok(), slots=16, prompt_bucket=64,
+                            max_new_tokens=max_new_tokens,
+                            align_cache="int8", kv_cache_dtype="int8")
+
+
+def _graph_engine_runs(eager: bool, waves, seed: int = 7):
+    """``_graph_engine``, its real admission thread running: each wave of
+    requests is submitted at once and served before the next. ``eager``:
+    the engine captures no graph. Returns (results per wave, the change of
+    the engine's stats and of B6's launch count while it served, whether
+    it captured a sampling graph)."""
+    import threading
+
+    from macaw_llm_tpu_torch.ops.kernels import matvec as mv
+
+    eng = _graph_engine()
+    if eager:
+        eng._capture_steps = lambda: None
+    eng._gen_admit.manual_seed(seed)
+    eng._gen_step.manual_seed(seed + 1)
+
+    def run(requests):
+        results = [None] * len(requests)
+
+        def worker(i):
+            results[i] = eng.generate_sync(requests[i], timeout=300)
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        return results
+
+    eng.start()
+    # after the capture and its warm-up steps
+    stats0 = dict(eng.stats, b6=mv.matvec_int8_pipelined.launches)
+    try:
+        out = [run(wave()) for wave in waves]
+    finally:
+        eng.stop()
+    stats = {k: v - stats0[k] for k, v in dict(
+        eng.stats, b6=mv.matvec_int8_pipelined.launches).items()}
+    sampled_graph = True in eng._graphs
+    del eng
+    torch.cuda.empty_cache()
+    return out, stats, sampled_graph
+
+
+def test_engine_graph_replay_serves_the_eager_tokens(gen):
+    """The one-card engine replays its captured decode step: 40 greedy
+    requests (two with media) over 16 slots with budgets of 1 to 24
+    tokens, so slots finish and requests are placed while others decode
+    and the control vectors change under the graph; then one request at
+    temperature 1.2 alone (slot 0, so its draws do not depend on the
+    order of arrival). Every request's tokens equal an eager engine's on
+    the same requests with the same generator seeds; every step is a
+    replay, the sampled ones included, and counts its B6 launches."""
+    from macaw_llm_tpu_torch.serve import Request
+
+    def greedy():
+        image = torch.full((224, 224, 3), 90, dtype=torch.uint8).numpy()
+        return [Request(prompt=f"graph request number {i}",
+                        max_new_tokens=1 + (7 * i) % 24,
+                        image=image if i in (5, 23) else None)
+                for i in range(40)]
+
+    def sampled():
+        return [Request(prompt="a sampled request", max_new_tokens=20,
+                        temperature=1.2)]
+
+    graph_out, graph_stats, sampled_graph = _graph_engine_runs(
+        False, [greedy, sampled])
+    eager_out, eager_stats, _ = _graph_engine_runs(True, [greedy, sampled])
+    assert all(r is not None and "error" not in r
+               for wave in graph_out for r in wave)
+    assert graph_out == eager_out
+    assert eager_stats["graph_replays"] == 0 < eager_stats["steps"]
+    assert sampled_graph
+    assert graph_stats["graph_replays"] == graph_stats["steps"] > 0
+    # a replay counts the B6 launches its graph makes: 4 a layer, 1 head
+    for stats in (graph_stats, eager_stats):
+        assert stats["b6"] == (4 * 2 + 1) * stats["steps"]
+
+
+def test_a_profile_stops_while_the_engine_replays(gen):
+    """A device profile started and stopped three times while the engine
+    replays its decode step for 16 long answers, with no admission
+    running: each stop returns (a watchdog ends the process with every
+    thread's stack after 60 s), steps were replayed meanwhile and every
+    request is served."""
+    import faulthandler
+    import threading
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from macaw_llm_tpu_torch.serve import Request
+
+    eng = _graph_engine(max_new_tokens=1024)
+    eng.start()
+    reqs = [Request(prompt=f"a long answer {i}", max_new_tokens=1024)
+            for i in range(16)]
+    results = [None] * len(reqs)
+
+    def worker(i):
+        results[i] = eng.generate_sync(reqs[i], timeout=300)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(reqs))]
+    try:
+        for t in threads:
+            t.start()
+        while eng.stats["admitted"] < len(reqs):
+            time.sleep(0.01)
+        replays = []
+        for _ in range(3):
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            time.sleep(0.1)
+            replays.append(eng.stats["graph_replays"])
+            faulthandler.dump_traceback_later(60, exit=True)
+            try:
+                prof.stop()
+            finally:
+                faulthandler.cancel_dump_traceback_later()
+        for t in threads:
+            t.join(300)
+    finally:
+        eng.stop()
+    del eng
+    torch.cuda.empty_cache()
+    assert replays[-1] > replays[0]
+    assert all(r is not None and "error" not in r and r["tokens"] > 0
+               for r in results), results
+
+
 def test_prefetch_side_stream_copies_equal_the_host_batches(gen):
     """``data.loader.device_prefetch`` on the card: pinned copies on a side
     stream, 2 batches ahead, handed out after an event wait; the default

@@ -230,6 +230,40 @@ def test_step_leaves_inactive_slots_unchanged(engine):
     assert req._result["tokens"] == 4
 
 
+def test_control_buffers_keep_their_storage_and_the_cpu_steps_eagerly(
+        engine):
+    """A captured step reads the active mask and the temperatures at fixed
+    addresses: ``_place`` and ``_finish`` write a slot's entries in place,
+    and ``_dispatch`` leaves them. The CPU engine captures no graph and
+    replays no step."""
+    ptrs = (engine._active_dev.data_ptr(), engine._temps_dev.data_ptr())
+
+    def controls():
+        assert (engine._active_dev.data_ptr(),
+                engine._temps_dev.data_ptr()) == ptrs
+        return engine._active_dev.tolist(), engine._temps_dev[1].item()
+
+    stats0 = dict(engine.stats)
+    with torch.inference_mode():
+        engine._gen_step.manual_seed(0)
+        hot = tserve.Request(prompt="first question here", max_new_tokens=3,
+                             temperature=0.7)
+        engine._place(1, engine._run_prefill(hot))
+        assert controls() == ([False, True], pytest.approx(0.7))
+        pending = engine._dispatch([1])
+        assert engine._sampling
+        while engine._reqs[1] is not None:
+            assert controls() == ([False, True], pytest.approx(0.7))
+            engine._process_readback(pending)
+            pending = engine._dispatch([1]) if engine._reqs[1] is not None \
+                else None
+        assert controls()[0] == [False, False]  # _finish
+    assert hot._result["tokens"] == 3
+    steps = engine.stats["steps"] - stats0["steps"]
+    assert steps == 2  # the first token is the prefill's
+    assert engine.stats["graph_replays"] == 0 and not engine._graphs
+
+
 def test_sampled_request_leaves_greedy_neighbour_alone(model):
     _, tcfg, _, tp = model
     eng = tserve.ContinuousEngine(tp, tcfg, Tok(), slots=2, prompt_bucket=32,
@@ -275,6 +309,9 @@ def test_many_requests_over_few_slots(model):
         eng.stop()
     assert not eng._thread.is_alive() and not eng._prefill_thread.is_alive()
     assert eng.stats["requests"] == eng.stats["admitted"] == 44
+    # a started CPU engine captures nothing: every step ran eagerly
+    assert eng.stats["steps"] > 0
+    assert eng.stats["graph_replays"] == 0 and not eng._graphs
     for i, r in enumerate(results):
         want = alone[i % 4]["text"].split()[:1 + i % 5]
         assert r == {"text": " ".join(want), "tokens": len(want)}, (i, r)

@@ -22,28 +22,19 @@ shape, on the TMA path and the ragged one). DIR is filled from git, for example:
       kernels.cuh; do git show <commit>:macaw_llm_tpu_torch/csrc/$f \
       > build/parent/$f; done
 
-``graph [layers]``: whether one decode step of ``ContinuousEngine`` can be
-captured as a CUDA graph: a 7b-width engine of ``layers`` LLaMA layers
-(default 8), 16 slots, int8 weights and KV, every slot filled by hand;
-20 eager steps against 20 replays of the captured step from the same
-state; prints both times per step and whether the tokens are equal.
-
 Usage, from the root of a checkout:
     python3 tools/decode_probes.py sweep
     python3 tools/decode_probes.py --against build/parent
-    python3 tools/decode_probes.py graph 8
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 import json
 import subprocess
 import sys
 import time
-import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -295,67 +286,9 @@ def against(torch, src_dir: Path) -> None:
         torch.cuda.empty_cache()
 
 
-class _Tok:
-    def encode(self, text):
-        h = zlib.crc32(text.encode())
-        return [1] + [16 + (h + 37 * i) % 31000 for i in range(40)]
-
-
-def graph(torch, layers: int) -> None:
-    from macaw_llm_tpu_torch.config import macaw_7b
-    from macaw_llm_tpu_torch.models import fusion
-    from macaw_llm_tpu_torch.serve import ContinuousEngine, Request
-    from macaw_llm_tpu_torch.utils import quantize as qz
-    cfg7 = macaw_7b()
-    cfg = dataclasses.replace(
-        cfg7, llm=dataclasses.replace(cfg7.llm, num_layers=layers),
-        vision=dataclasses.replace(cfg7.vision, num_layers=2),
-        audio=dataclasses.replace(cfg7.audio, encoder_layers=2))
-    params = fusion.init_params(0, cfg, dtype=torch.bfloat16, device="cuda")
-    params["llm"] = qz.pack_llama_for_decode(qz.quantize_llama(params["llm"]))
-    eng = ContinuousEngine(params, cfg, _Tok(), slots=16, prompt_bucket=64,
-                           max_new_tokens=64, align_cache="int8",
-                           kv_cache_dtype="int8")
-    slots = list(range(16))
-    steps = 20
-    with torch.inference_mode(), torch.cuda.stream(eng._decode_stream):
-        for i in slots:
-            eng._place(i, eng._run_prefill(Request(prompt=f"request {i}",
-                                                   max_new_tokens=64)))
-        eng._dispatch(slots)  # uploads the control vectors, warms up
-        torch.cuda.synchronize()
-        state = (eng.lengths.clone(), eng.toks.clone(),
-                 {k: v.clone() for k, v in eng.cache.items()})
-
-        def run(step):
-            toks = []
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                step()
-                toks.append(eng.toks.clone())
-            torch.cuda.synchronize()
-            return torch.stack(toks), (time.perf_counter() - t0) / steps * 1e3
-
-        ref, eager_ms = run(eng._step)
-        eng.lengths.copy_(state[0])
-        eng.toks.copy_(state[1])
-        for key, v in state[2].items():
-            eng.cache[key].copy_(v)
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, stream=eng._decode_stream):
-            eng._step()  # captured, not run
-        got, graph_ms = run(g.replay)
-    print(json.dumps({"layers": layers, "slots": 16,
-                      "eager_ms_per_step": eager_ms,
-                      "graph_ms_per_step": graph_ms,
-                      "tokens_equal": bool(torch.equal(got, ref))}),
-          flush=True)
-
-
 def main() -> int:
     args = sys.argv[1:]
-    if not args or (args[0] not in ("sweep", "graph", "--against")
+    if not args or (args[0] not in ("sweep", "--against")
                     or (args[0] == "--against" and len(args) != 2)):
         print(__doc__, file=sys.stderr)
         return 2
@@ -370,10 +303,8 @@ def main() -> int:
                          ).stdout.strip().splitlines()[0], flush=True)
     if args[0] == "sweep":
         sweep(torch)
-    elif args[0] == "--against":
-        against(torch, Path(args[1]))
     else:
-        graph(torch, int(args[1]) if len(args) > 1 else 8)
+        against(torch, Path(args[1]))
     return 0
 
 
